@@ -1,0 +1,42 @@
+"""The port stands alone: importing tfplus_tpu_torch, every submodule and
+chip_smoke.py loads neither JAX nor the JAX package, and needs no nvcc."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+PROBE = """
+import importlib, pkgutil, sys
+import tfplus_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(tfplus_tpu_torch.__path__,
+                                               "tfplus_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "tfplus_tpu"))
+assert not bad, bad
+assert "tfplus_tpu_torch.ops.rowops" in names, names
+print(len(names))
+"""
+
+
+def test_port_imports_without_jax():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip().splitlines()[-1]) >= 12
+
+
+def test_chip_smoke_refuses_to_run_without_a_card():
+    import pytest
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: chip_smoke.py would run for real")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
