@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py                  # build, check and measure
     python3 chip_smoke.py --profile DIR    # also writes torch.profiler tables
-                                           # of both serving paths to DIR
+                                           # of the serving paths to DIR
 
 Run from the repository root on a machine with one CUDA card and nvcc. It
 imports neither JAX nor the JAX package. Phases, each of which raises on a
@@ -24,8 +24,25 @@ failed check:
    ``make_train_step(train=False)``, checked against a host-side map of what
    was inserted and a float64 numpy forward pass of the dense towers (the
    deep tower's logit on its own too, with a TF32 control it must reject).
+5. Attention kernels: each flash-forward kernel is held against its plain
+   PyTorch version and timed beside it, beside the least time the card could
+   take and beside ``scaled_dot_product_attention`` (timed only; the port
+   never calls it): the bench's causal bf16 B4 H8 S2048 D128 and the same
+   non-causal with segments from lengths (tiled kernel); BST's f32 heads,
+   B2048 H8 S128 D8 with BST's request mask, without and with dropout
+   (single-pass kernel); dropout 0.2 at S1000, causal and not, f32 and bf16;
+   ``flash_attention_with_lse``'s residuals and its -inf on padding rows.
+6. Flash entry points: ``flash_attention(causal=True)`` and
+   ``flash_attention_with_lse`` at the bench's shape.
+7. BST and DIN serving at published widths: an item table of 2^23 rows
+   filled with 2^22 keys and a user table of 2^22 rows filled with 2^21,
+   dim 64, then batch-2048 requests (histories of 1-20 items, 2 % of users
+   with none, 5 % unknown ids) through ``make_train_step(train=False)``, BST
+   first and then DIN on the same tables, checked against the host-side map
+   of what was inserted and a float64 numpy forward pass (BST with a TF32
+   control it must reject).
 
-Each serving path runs with the kernels' launch counts set to 0 just before
+Each path (the serving paths and the flash entry points) runs with the kernels' launch counts set to 0 just before
 it and read just after it. The line before the last is the
 ``{"kernels": [...]}`` JSON; the last line is ``{"ok": true, "device":
 {...}}``. Without a card, or without the port beside it, the script exits
@@ -50,6 +67,31 @@ SEED = 0
 L2_FLUSH_BYTES = 256 << 20       # > the H100's 50 MB L2
 SLEEP_CYCLES = 2_000_000         # ~1 ms: the host enqueues while the card waits
 F32_RTOL = 1e-5                  # DCN against float64: f32, other sum order
+PEAK_FLOPS = {"bfloat16": 989e12,  # H100 SXM dense bf16 tensor cores
+              "float32": 67e12}    # f32 on the CUDA cores (no TF32)
+# Flash kernels against their plain versions. f32: another summation order
+# only, so 1e-5 (a flipped dropout bit moves an output by p·v/(1 - 0.2),
+# about 1e-3 at S = 1000, a hundred times the limit). bf16: the same f32
+# arithmetic, then the output rounds to 8 significant bits, so one bf16 ulp
+# (2^-7 relative) may differ: rtol 2^-6, atol 1e-5 for outputs near zero.
+ATTN_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-5, 2.0 ** -6)}
+SEQ_REQUESTS = 10
+HIST = 20                        # BST paper's history length (Table 2)
+ITEM_ROWS, ITEM_FILL = 1 << 23, 1 << 22
+USER_ROWS, USER_FILL = 1 << 22, 1 << 21
+# BST per arXiv:1905.06874 §4 (Table 2): embedding 64 (top of its 4-64
+# range), 8 heads, head dim 8 (= d/h), 1 transformer block, MLP 1024-512-256,
+# history 20. Assumed (the paper gives none): ffn_hidden 256 (4·d, the
+# Transformer's convention) and num_numeric 4 (the repo's default).
+BST_CONFIG = dict(embedding_dim=64, seq_len=HIST, num_numeric=4, num_heads=8,
+                  head_dim=8, num_blocks=1, ffn_hidden=256,
+                  dnn_hidden=(1024, 512, 256), capacity=ITEM_ROWS)
+# DIN at the same width; dnn_hidden from the DIN paper's MLP
+# (arXiv:1706.06978 §6.3, 200-80); att_hidden at the repo's default (64, 32),
+# assumed.
+DIN_CONFIG = dict(embedding_dim=64, seq_len=HIST, num_numeric=4,
+                  att_hidden=(64, 32), dnn_hidden=(200, 80),
+                  capacity=ITEM_ROWS)
 
 
 def check(cond, what):
@@ -178,13 +220,20 @@ def kernel_phase(torch, rowops):
     return cases
 
 
-def reset_launches(rowops):
-    rowops.gather_rows.launches = rowops.scatter_rows.launches = 0
+def _wrappers():
+    from tfplus_tpu_torch.ops import flash_attention as fa, rowops
+    return {"gather_rows": rowops.gather_rows,
+            "scatter_rows": rowops.scatter_rows,
+            "flash_fwd": fa.flash_fwd, "flash_fwd_single": fa.flash_fwd_single}
 
 
-def read_launches(rowops):
-    return {"gather_rows": rowops.gather_rows.launches,
-            "scatter_rows": rowops.scatter_rows.launches}
+def reset_launches():
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def embedding_serving_phase(torch, np, kv, hashing, rowops, profile_dir):
@@ -193,7 +242,7 @@ def embedding_serving_phase(torch, np, kv, hashing, rowops, profile_dir):
     ids = rng.permutation(np.unique(rng.randint(0, 1 << 40, N_IDS + 4096,
                                                 dtype=np.int64)))[:N_IDS]
     reps = 20
-    reset_launches(rowops)
+    reset_launches()
     t = kv.create(128, C_ROWS, max_probes=16, seed=SEED, device=DEV)
     q = kv.encode_ids(ids, device=DEV)
     res = kv.lookup_or_insert(t, q)
@@ -207,7 +256,7 @@ def embedding_serving_phase(torch, np, kv, hashing, rowops, profile_dir):
         b = kv.lookup_or_zeros(t, qf)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = read_launches(rowops)
+    launches = read_launches()
 
     check(not bool(res.overflow), "serving leg: lookup_or_insert overflowed")
     check(int(kv.size(t)) == N_IDS, "serving leg: wrong table size")
@@ -249,9 +298,7 @@ def dcn_reference(np, dense, embs, features, labels):
     for i in range(len(dense.cross)):
         x = x0 * (x @ p[f"cross.{i}.w"])[:, None] + p[f"cross.{i}.b"] + x
     logit = (deep + x @ p["cross_logits.w"] + p["cross_logits.b"])[:, 0]
-    loss = np.mean(np.maximum(logit, 0) - logit * labels
-                   + np.log1p(np.exp(-np.abs(logit))))
-    return logit, deep[:, 0], loss
+    return logit, deep[:, 0], sigmoid_ce_mean(np, logit, labels)
 
 
 def err_ratio(np, got, ref, rtol=F32_RTOL):
@@ -286,7 +333,7 @@ def dcn_serving_phase(torch, np, kv, embedding, models, rowops, profile_dir):
             0, 1 << 40, FILL + FILL // 8, dtype=np.int64)))[:FILL]
         for i in range(len(model.embedding_dims))}
 
-    reset_launches(rowops)
+    reset_launches()
     t0 = time.perf_counter()
     state = models.init_state(model, seed=SEED, device=DEV)
     rows_in = {}
@@ -297,7 +344,7 @@ def dcn_serving_phase(torch, np, kv, embedding, models, rowops, profile_dir):
                   rows_in[name], day=1)
     torch.cuda.synchronize()
     fill_s = time.perf_counter() - t0
-    fill_launches = read_launches(rowops)
+    fill_launches = read_launches()
 
     # a user-facing insert may drop keys whose two buckets are full: serve
     # only what was placed (a handful of keys per table at this load)
@@ -329,7 +376,7 @@ def dcn_serving_phase(torch, np, kv, embedding, models, rowops, profile_dir):
         outs.append(step(state, b)[1:])
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = read_launches(rowops)
+    launches = read_launches()
     per_request = (launches["gather_rows"] - gather1) / REQUESTS
 
     payload_gb = sum(t.payload.numel() * t.payload.element_size()
@@ -349,12 +396,7 @@ def dcn_serving_phase(torch, np, kv, embedding, models, rowops, profile_dir):
     for name, keys in tables_keys.items():
         order = resident[name][np.argsort(keys[resident[name]])]
         ids = b["ids"][name]
-        pos = np.minimum(np.searchsorted(keys[order], ids),
-                         order.shape[0] - 1)
-        hit = keys[order[pos]] == ids
-        ref = rows_in[name][torch.from_numpy(order[pos]).to(DEV)]
-        ref = torch.where(torch.from_numpy(hit).to(DEV)[:, None], ref,
-                          torch.zeros_like(ref))
+        ref = host_rows(torch, np, keys, order, rows_in[name], ids)
         look, _ = embedding.lookup_unique(state.tables[name], ids,
                                           train=False)
         check(torch.equal(embedding.gather(look), ref),
@@ -398,6 +440,420 @@ def dcn_serving_phase(torch, np, kv, embedding, models, rowops, profile_dir):
     return launches, rate, per_request
 
 
+# ---------------------------------------------------------------------------
+# attention kernels
+# ---------------------------------------------------------------------------
+
+def _dtype_name(dtype):
+    return str(dtype).split(".")[-1]
+
+
+def attention_bound(fa, q, k, qs, ks, causal, residuals):
+    """Least time of one forward on these inputs, ``(ms, bound_by, flops)``:
+    the larger of the operations that the valid (row, key) pairs need (4·D
+    each: qkᵀ and pv) over the peak rate of q's type, and the bytes that
+    this input needs over the HBM rate: q rows that hit a key and k, v rows
+    that some row hits, each read once; out (and l, m) written once; the
+    segment ids read once."""
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    esz = q.element_size()
+    mask = fa._attention_mask(sq, skv, qs, ks, causal, q.device).expand(
+        b, sq, skv)
+    flops = 4 * d * h * int(mask.sum())
+    nbytes = ((int(mask.any(-1).sum()) + 2 * int(mask.any(-2).sum()))
+              * h * d * esz + b * h * sq * d * esz)
+    if qs is not None:
+        nbytes += 4 * (qs.numel() + ks.numel())
+    if residuals:
+        nbytes += 2 * 4 * b * h * sq
+    t_bytes = bound_ms(nbytes)
+    t_ops = flops / PEAK_FLOPS[_dtype_name(q.dtype)] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), flops
+
+
+def sdpa_call(torch, fa, q, k, v, qs, ks, causal, sm_scale):
+    """One ``scaled_dot_product_attention`` call on the same inputs (timed
+    as a yardstick only; the port never calls it). The boolean mask is built
+    outside the timed call."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if qs is None:
+        return lambda: sdpa(q, k, v, is_causal=causal, scale=sm_scale)
+    mask = fa._attention_mask(q.shape[2], k.shape[2], qs, ks, causal,
+                              q.device)[:, None]
+    return lambda: sdpa(q, k, v, attn_mask=mask, scale=sm_scale)
+
+
+def bst_token_mask(np, rng, batch):
+    """BST's request mask: histories of 1-20 items, 2 % of users with none."""
+    lengths = rng.randint(1, HIST + 1, batch)
+    lengths[rng.rand(batch) < 0.02] = 0
+    return (np.arange(HIST)[None, :] < lengths[:, None]).astype(np.float32)
+
+
+def attention_case(torch, np, fa, name, gen, b, h, s, d, dtype, causal,
+                   seg=None, p_dropout=0.0):
+    """Hold the routed kernel against its plain version (out, l, m), check
+    ``flash_attention_with_lse`` (same out, lse = m + log l, -inf on rows
+    that hit no key), and time kernel, plain version and SDPA."""
+    q, k, v = (torch.randn(b, h, s, d, device=DEV, generator=gen).to(dtype)
+               for _ in range(3))
+    qs = ks = seg
+    single = not causal and fa.single_fits(s, d, dtype)
+    kernel, plain = ((fa.flash_fwd_single, fa.fwd_single_plain) if single
+                     else (fa.flash_fwd, fa.fwd_tiled_plain))
+    kw = dict(sm_scale=1.0 / float(np.sqrt(d)), p_dropout=p_dropout)
+    if not single:
+        kw["causal"] = causal
+    got = kernel(q, k, v, qs, ks, SEED, **kw)
+    want = plain(q, k, v, qs, ks, SEED, **kw)
+    out, lse = fa.flash_attention_with_lse(
+        q, k, v, causal=causal, q_segment_ids=qs, kv_segment_ids=ks,
+        p_dropout=p_dropout, dropout_seed=SEED)
+    torch.cuda.synchronize()
+    dname = _dtype_name(dtype)
+    ratios = []
+    for g, w, (atol, rtol) in zip(got, want, [ATTN_TOL[dname]]
+                                  + [ATTN_TOL["float32"]] * 2):
+        g, w = g.float(), w.float()
+        ratios.append(float(((g - w).abs() / (atol + rtol * w.abs())).max()))
+    err = float((got[0].float() - want[0].float()).abs().max())
+    hit = want[1] > 0
+    want_lse = torch.where(hit, want[2] + torch.log(torch.where(
+        hit, want[1], 1.0)), -float("inf"))
+    lse_ok = (torch.equal(torch.isneginf(lse), ~hit)
+              and float((lse[hit] - want_lse[hit]).abs().max())
+              <= 1e-5 * (1.0 + float(want_lse[hit].abs().max())))
+    if seg is not None:         # padding rows hit nothing
+        lse_ok = lse_ok and bool(torch.isneginf(
+            lse.transpose(0, 1)[:, seg < 0]).all())
+    c = {"kernel": kernel.__name__, "dtype": dname, "shape": [b, h, s, d],
+         "causal": causal, "segments": seg is not None,
+         "p_dropout": p_dropout, "max_abs_err": err,
+         "err_ratio_out_l_m": ratios, "lse_ok": lse_ok,
+         "entry_point_equals_kernel": torch.equal(out, got[0])}
+    check(max(ratios) <= 1 and lse_ok and c["entry_point_equals_kernel"],
+          f"attention case {name}: kernel differs from its plain version: "
+          f"{json.dumps(c)}")
+    c["ms"] = time_ms(torch, lambda: kernel(q, k, v, qs, ks, SEED,
+                                            save_residuals=False, **kw))
+    c["plain_ms"] = time_ms(torch, lambda: plain(q, k, v, qs, ks, SEED,
+                                                 **kw))
+    c["library_ms"] = None if p_dropout else time_ms(
+        torch, sdpa_call(torch, fa, q, k, v, qs, ks, causal, kw["sm_scale"]))
+    c["bound_ms"], c["bound_by"], flops = attention_bound(
+        fa, q, k, qs, ks, causal, residuals=False)
+    c["tflops"] = flops / c["ms"] / 1e9
+    return c, (q, k, v, got[0])
+
+
+def attention_phase(torch, np, fa):
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 2)
+    rng = np.random.RandomState(SEED + 2)
+    bench_seg = fa.make_segment_ids_from_lengths(
+        torch.from_numpy(rng.randint(512, 2049, 4)).to(DEV), 2048)
+    tok = np.concatenate([bst_token_mask(np, rng, BATCH),
+                          np.ones((BATCH, 1), np.float32)], axis=1)
+    bst_seg = torch.from_numpy(np.pad(np.where(tok > 0, 0, -1), (
+        (0, 0), (0, 128 - tok.shape[1])), constant_values=-1)).to(
+            device=DEV, dtype=torch.int32)
+    bf16, f32 = torch.bfloat16, torch.float32
+    specs = [
+        ("bench_causal_bf16", 4, 8, 2048, 128, bf16, True, None, 0.0),
+        ("bench_segments_bf16", 4, 8, 2048, 128, bf16, False, bench_seg, 0.0),
+        ("bst_f32", BATCH, 8, 128, 8, f32, False, bst_seg, 0.0),
+        ("bst_dropout_f32", BATCH, 8, 128, 8, f32, False, bst_seg, 0.2),
+    ] + [(f"s1000_dropout_{'causal' if c else 'full'}_{_dtype_name(t)}",
+          2, 8, 1000, 64, t, c, None, 0.2)
+         for c in (True, False) for t in (f32, bf16)]
+    cases, bench = {}, None
+    for name, *spec in specs:
+        cases[name], tensors = attention_case(torch, np, fa, name, gen, *spec)
+        if name == "bench_causal_bf16":
+            bench = tensors
+        print("attention case", name, json.dumps(cases[name]), flush=True)
+    check(cases["bench_causal_bf16"]["kernel"] == "flash_fwd"
+          and cases["bench_segments_bf16"]["kernel"] == "flash_fwd"
+          and cases["bst_f32"]["kernel"] == "flash_fwd_single",
+          "attention cases did not take the expected routes")
+    torch.cuda.empty_cache()
+    return cases, bench
+
+
+def flash_path_phase(torch, fa, bench, reps=10):
+    """The public entry points at the bench's shape (causal bf16 B4 H8
+    S2048 D128): ``flash_attention`` and ``flash_attention_with_lse``."""
+    q, k, v, kernel_out = bench
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fa.flash_attention(q, k, v, causal=True)
+    out2, lse = fa.flash_attention_with_lse(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    check(launches["flash_fwd"] == reps + 1
+          and launches["flash_fwd_single"] == 0,
+          f"flash entry points did not launch the tiled kernel: {launches}")
+    check(torch.equal(out, kernel_out) and torch.equal(out2, kernel_out)
+          and bool(torch.isfinite(lse).all()),
+          "flash entry points differ from the checked kernel output")
+    _, _, flops = attention_bound(fa, q, k, None, None, True, False)
+    print(f"flash entry points: {(reps + 1) * flops / dt / 1e12:.4f} "
+          f"TFLOP/s ({reps} flash_attention + 1 flash_attention_with_lse, "
+          f"causal bf16 B4 H8 S2048 D128, in {dt:.6f} s); launches "
+          f"{json.dumps(launches)}", flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# BST and DIN serving
+# ---------------------------------------------------------------------------
+
+def host_rows(torch, np, keys, order, rows_in, ids):
+    """Rows a lookup of ``ids`` must return: the inserted row of a resident
+    key (``order`` sorts the resident rows of ``rows_in`` by key), zeros for
+    any other id."""
+    ids = np.asarray(ids)
+    pos = np.minimum(np.searchsorted(keys[order], ids), order.shape[0] - 1)
+    hit = keys[order[pos]] == ids
+    ref = rows_in[torch.from_numpy(order[pos]).to(DEV)]
+    return torch.where(torch.from_numpy(hit).to(DEV)[:, None], ref,
+                       torch.zeros_like(ref))
+
+
+def sigmoid_ce_mean(np, logit, labels):
+    return np.mean(np.maximum(logit, 0) - logit * labels
+                   + np.log1p(np.exp(-np.abs(logit))))
+
+
+def _ref_dense(p, x, name, relu=False):
+    y = x @ p[f"{name}.w"] + p[f"{name}.b"]
+    return (y > 0) * y if relu else y
+
+
+def bst_reference(np, model, p, e_item, e_user, feats):
+    """Float64 numpy forward of BST over the unpadded tokens."""
+    mask = feats["mask"]
+    b, hist = mask.shape
+    d, heads, dh = model.embedding_dim, model.num_heads, model.head_dim
+    x = np.concatenate([e_item[b:].reshape(b, hist, d), e_item[:b, None]],
+                       axis=1) + p["pos"][None, :hist + 1]
+    tok = np.concatenate([mask, np.ones((b, 1))], axis=1) > 0
+    valid = tok[:, None, :, None] & tok[:, None, None, :]
+
+    def ln(x, pre):
+        mu = x.mean(-1, keepdims=True)
+        var = ((x - mu) ** 2).mean(-1, keepdims=True)
+        return (x - mu) / np.sqrt(var + 1e-6) * p[f"{pre}.g"] + p[f"{pre}.b"]
+
+    for i in range(model.num_blocks):
+        pre = f"blocks.{i}"
+        q, k, v = (t.reshape(b, hist + 1, heads, dh).transpose(0, 2, 1, 3)
+                   for t in np.split(_ref_dense(p, ln(x, f"{pre}.ln1"),
+                                                f"{pre}.qkv"), 3, axis=-1))
+        s = np.where(valid, q @ k.transpose(0, 1, 3, 2) / np.sqrt(dh),
+                     -1e300)
+        w = np.exp(s - s.max(-1, keepdims=True)) * valid
+        w = w / np.maximum(w.sum(-1, keepdims=True), 1e-300)
+        att = (w @ v).transpose(0, 2, 1, 3).reshape(b, hist + 1, heads * dh)
+        x = x + _ref_dense(p, att, f"{pre}.proj")
+        y = _ref_dense(p, ln(x, f"{pre}.ln2"), f"{pre}.ffn1", relu=True)
+        x = x + _ref_dense(p, y, f"{pre}.ffn2")
+    w = tok[..., None]
+    pooled = (x * w).sum(1) / np.maximum(w.sum(1), 1.0)
+    h = np.concatenate([e_user, pooled, x[:, hist], feats["numeric"]], -1)
+    for i in range(len(model.dnn_hidden)):
+        h = _ref_dense(p, h, f"dnn.{i}", relu=True)
+    return _ref_dense(p, h, "dnn_logits")[:, 0]
+
+
+def din_reference(np, model, p, e_item, e_user, feats):
+    """Float64 numpy forward of DIN."""
+    mask = feats["mask"]
+    b, hist = mask.shape
+    cand = e_item[:b]
+    seq = e_item[b:].reshape(b, hist, model.embedding_dim)
+    cexp = np.broadcast_to(cand[:, None], seq.shape)
+    h = np.concatenate([seq, cexp, seq * cexp, seq - cexp], -1)
+    for i in range(len(model.att_hidden)):
+        h = _ref_dense(p, h, f"att.{i}", relu=True)
+    scores = np.where(mask > 0, _ref_dense(p, h, "att_out")[..., 0], -1e9)
+    w = np.exp(scores - scores.max(-1, keepdims=True))
+    w = w / w.sum(-1, keepdims=True) * (mask.sum(-1, keepdims=True) > 0)
+    interest = np.einsum("bl,bld->bd", w, seq)
+    h = np.concatenate([e_user, cand, interest, interest * cand,
+                        feats["numeric"]], -1)
+    for i in range(len(model.dnn_hidden)):
+        h = _ref_dense(p, h, f"dnn.{i}", relu=True)
+    return _ref_dense(p, h, "dnn_logits")[:, 0]
+
+
+def sequence_batch(np, models, rng, keys, resident):
+    """One request: candidates and histories of resident items with 5 %
+    unknown ids, pad id 0 (never inserted) behind each history, users with
+    5 % unknown."""
+    mask = bst_token_mask(np, rng, BATCH)
+    item = keys["item"][rng.choice(resident["item"], (BATCH, HIST + 1))]
+    unknown = rng.rand(BATCH, HIST + 1) < 0.05
+    item[unknown] = rng.randint(1 << 41, 1 << 42, int(unknown.sum()),
+                                dtype=np.int64)
+    seq = np.where(mask > 0, item[:, 1:], 0)
+    user = keys["user"][rng.choice(resident["user"], BATCH)]
+    unknown = rng.rand(BATCH) < 0.05
+    user[unknown] = rng.randint(1 << 41, 1 << 42, int(unknown.sum()),
+                                dtype=np.int64)
+    return {"ids": {"item": models.DIN.pack_item_ids(item[:, 0], seq),
+                    "user": user},
+            "features": {"numeric": rng.randn(BATCH, 4).astype(np.float32),
+                         "mask": mask},
+            "labels": rng.randint(0, 2, BATCH).astype(np.float32)}
+
+
+def serve_sequence_model(torch, np, name, model, step, state, batches,
+                         ref_fn, embs, profile_dir, tf32_control):
+    """Time the requests with the launch counts reset just before, then
+    check the first timed request against the float64 reference."""
+    reset_launches()
+    step(state, batches[0])                                   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [step(state, b)[1:] for b in batches[1:]]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    for loss, preds in outs:
+        check(preds.shape == (BATCH,) and bool(torch.isfinite(preds).all())
+              and bool(torch.isfinite(loss)), f"{name}: non-finite output")
+    b = batches[1]
+    p = {k: v.detach().double().cpu().numpy()
+         for k, v in state.dense.state_dict().items()}
+    feats = {k: v.astype(np.float64) for k, v in b["features"].items()}
+    ref = ref_fn(np, model, p, embs["item"], embs["user"], feats)
+    ref_loss = sigmoid_ce_mean(np, ref, b["labels"])
+    loss, preds = outs[0]
+    precision = {"rtol": F32_RTOL, "preds_err_ratio": err_ratio(np, preds,
+                                                                ref),
+                 "loss_abs_err": abs(float(loss) - float(ref_loss)),
+                 "loss": float(ref_loss),
+                 "max_abs_logit": float(np.abs(ref).max()),
+                 "rms_logit": float(np.sqrt(np.mean(ref ** 2)))}
+    if tf32_control:
+        # every dense layer of the step in TF32: the check must catch it
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            precision["preds_err_ratio_tf32_control"] = err_ratio(
+                np, step(state, b)[2], ref)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"{name} precision against a float64 reference:",
+          json.dumps(precision), flush=True)
+    check(precision["preds_err_ratio"] <= 1 and precision["loss_abs_err"]
+          <= F32_RTOL * max(1.0, abs(float(ref_loss))),
+          f"{name}: preds/loss differ from the float64 reference: "
+          f"{precision}")
+    if tf32_control:
+        check(precision["preds_err_ratio_tf32_control"] > 1,
+              f"{name}: the precision check does not see TF32: {precision}")
+    n = len(batches)            # the warm-up request counts too
+    per_request = {k: v / n for k, v in launches.items()}
+    rate = (n - 1) * BATCH / dt
+    print(f"{name} serving: {rate:.1f} examples/s ({n - 1} requests of "
+          f"batch {BATCH} in {dt:.6f} s); kernel launches per request "
+          f"{json.dumps(per_request)}", flush=True)
+    if profile_dir:
+        profile_calls(torch, name.lower(), [lambda b=b: step(state, b)
+                                            for b in batches[1:4]],
+                      dt / (n - 1), profile_dir)
+    return launches, rate, per_request, precision
+
+
+def sequence_serving_phase(torch, np, kv, embedding, models, profile_dir):
+    """BST, then DIN on the same item and user tables, at published
+    widths."""
+    bst = models.BST(**BST_CONFIG)
+    bst.table_specs["user"]["capacity"] = USER_ROWS
+    din = models.DIN(**DIN_CONFIG)
+    fills = {"item": ITEM_FILL, "user": USER_FILL}
+    rng = np.random.RandomState(SEED + 3)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 3)
+    keys = {name: rng.permutation(np.unique(rng.randint(
+        1, 1 << 40, n + n // 8, dtype=np.int64)))[:n]
+        for name, n in fills.items()}
+
+    reset_launches()
+    t0 = time.perf_counter()
+    state = models.init_state(bst, seed=SEED, device=DEV)
+    rows_in = {}
+    for name in sorted(state.tables):
+        t = state.tables[name]
+        rows_in[name] = torch.randn(fills[name], t.dim, device=DEV,
+                                    generator=gen)
+        kv.insert(t, kv.encode_ids(keys[name], device=DEV), rows_in[name],
+                  day=1)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    fill_launches = read_launches()
+    check(fill_launches["scatter_rows"] > 0,
+          f"BST/DIN fill did not launch the scatter kernel: {fill_launches}")
+    resident, order = {}, {}
+    for name, k in keys.items():
+        found = kv.find(state.tables[name],
+                        kv.encode_ids(k, device=DEV)).found.cpu().numpy()
+        check(found.mean() > 0.999, f"BST/DIN fill: {name} placed too few")
+        resident[name] = np.nonzero(found)[0]
+        order[name] = resident[name][np.argsort(k[resident[name]])]
+    payload_gb = sum(t.payload.numel() * t.payload.element_size()
+                     + t.header.numel() * t.header.element_size()
+                     for t in state.tables.values()) / 1e9
+    print(f"BST/DIN fill: item {state.tables['item'].capacity} rows with "
+          f"{ITEM_FILL} keys, user {state.tables['user'].capacity} rows with "
+          f"{USER_FILL} keys, dim 64 ({payload_gb:.3f} GB of payload and "
+          f"header), in {fill_s:.3f} s; launches "
+          f"{json.dumps(fill_launches)}", flush=True)
+    batches = [sequence_batch(np, models, rng, keys, resident)
+               for _ in range(SEQ_REQUESTS + 1)]
+
+    # the first timed request's rows against the host-side map
+    b = batches[1]
+    embs = {}
+    for name in ("item", "user"):
+        want = host_rows(torch, np, keys[name], order[name], rows_in[name],
+                         b["ids"][name])
+        look, _ = embedding.lookup_unique(state.tables[name], b["ids"][name],
+                                          train=False)
+        check(torch.equal(embedding.gather(look), want),
+              f"BST/DIN: {name} looked-up rows differ from the inserted rows")
+        embs[name] = want.double().cpu().numpy()
+
+    out = {"fill_launches": fill_launches, "fill_s": fill_s}
+    bst_step = models.make_train_step(bst, train=False)
+    out["BST"] = serve_sequence_model(torch, np, "BST", bst, bst_step, state,
+                                      batches, bst_reference, embs,
+                                      profile_dir, tf32_control=True)
+    launches = out["BST"][0]
+    check(launches["flash_fwd_single"] >= len(batches)
+          and launches["flash_fwd"] == 0 and launches["gather_rows"] > 0,
+          f"BST path: expected flash_fwd_single on every request, no "
+          f"flash_fwd, and row gathers: {launches}")
+    din_state = models.TrainState(
+        tables=state.tables, opt_state=None, step=state.step,
+        dense=din.init_dense(torch.Generator().manual_seed(SEED), DEV))
+    din_step = models.make_train_step(din, train=False)
+    out["DIN"] = serve_sequence_model(torch, np, "DIN", din, din_step,
+                                      din_state, batches, din_reference,
+                                      embs, profile_dir, tf32_control=False)
+    launches = out["DIN"][0]
+    check(launches["gather_rows"] > 0 and launches["flash_fwd"] == 0
+          and launches["flash_fwd_single"] == 0,
+          f"DIN path: expected row gathers and no attention: {launches}")
+    del state, din_state, rows_in
+    torch.cuda.empty_cache()
+    return out
+
+
 def profile_calls(torch, name, calls, call_s, out_dir):
     """torch.profiler over a few calls of one path: device kernel time and
     kernel launches per call, and the device's busy share of an unprofiled
@@ -434,10 +890,23 @@ def kernel_entry(name, src, replaces, launches, errs, case, key):
             "library_ms": case[f"{key}_library_ms"]}
 
 
+def attention_entry(name, replaces, launches, cases, main_case):
+    c = cases[main_case]
+    return {"name": name, "route": "cuda",
+            "source": "tfplus_tpu_torch/ops/csrc/flash_fwd.cu",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(x["max_abs_err"] for x in cases.values()
+                               if x["kernel"] == name),
+            "ms": c["ms"], "plain_ms": c["plain_ms"],
+            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+            "library_ms": c["library_ms"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR",
-                    help="write a torch.profiler table of DCN requests here")
+                    help="write torch.profiler tables of the serving paths "
+                    "here")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -449,6 +918,7 @@ def main() -> int:
         from tfplus_tpu_torch import embedding, kv, models
         from tfplus_tpu_torch.kv import hashing
         from tfplus_tpu_torch.ops import _build, rowops
+        from tfplus_tpu_torch.ops import flash_attention as fa
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
               file=sys.stderr)
@@ -462,31 +932,51 @@ def main() -> int:
           flush=True)
 
     cases = kernel_phase(torch, rowops)
+    attn_cases, bench = attention_phase(torch, np, fa)
     emb_launches, emb_rate = embedding_serving_phase(
         torch, np, kv, hashing, rowops, args.profile)
     dcn_launches, dcn_rate, per_request = dcn_serving_phase(
         torch, np, kv, embedding, models, rowops, args.profile)
+    flash_launches = flash_path_phase(torch, fa, bench)
+    del bench
+    seq = sequence_serving_phase(torch, np, kv, embedding, models,
+                                 args.profile)
 
     errs = {k: [c[f"{k}_err"] for c in cases.values()]
             for k in ("gather", "scatter_set", "scatter_add")}
     check(max(max(v) for v in errs.values()) == 0.0,
           "a kernel differs from its plain version")
+    paths = [emb_launches, dcn_launches, flash_launches,
+             seq["fill_launches"], seq["BST"][0], seq["DIN"][0]]
+    launches = {k: sum(p[k] for p in paths) for k in paths[0]}
     src = "tfplus_tpu_torch/ops/csrc/rowops.cu"
     main_case = cases[f"float32_w128_n{N_IDS}"]     # the serving-leg shape
     kernels = [
         kernel_entry("gather_rows", src, "tfplus_tpu/ops/rowops.py:76",
-                     emb_launches["gather_rows"] + dcn_launches["gather_rows"],
-                     errs["gather"], main_case, "gather"),
+                     launches["gather_rows"], errs["gather"], main_case,
+                     "gather"),
         kernel_entry("scatter_rows", src, "tfplus_tpu/ops/rowops.py:122",
-                     emb_launches["scatter_rows"]
-                     + dcn_launches["scatter_rows"],
+                     launches["scatter_rows"],
                      errs["scatter_set"] + errs["scatter_add"], main_case,
                      "scatter"),
+        attention_entry("flash_fwd", "tfplus_tpu/ops/flash_attention.py:328",
+                        launches["flash_fwd"], attn_cases,
+                        "bench_causal_bf16"),
+        attention_entry("flash_fwd_single",
+                        "tfplus_tpu/ops/flash_attention.py:267",
+                        launches["flash_fwd_single"], attn_cases, "bst_f32"),
     ]
+    check(all(e["launches"] > 0 for e in kernels),
+          f"a kernel was not launched on its path: {kernels}")
     print(json.dumps({"serving": {
         "embedding_ids_per_s": emb_rate, "embedding_launches": emb_launches,
         "dcn_examples_per_s": dcn_rate, "dcn_launches": dcn_launches,
-        "dcn_gathers_per_request": per_request}}))
+        "dcn_gathers_per_request": per_request,
+        "flash_entry_point_launches": flash_launches,
+        "bst_examples_per_s": seq["BST"][1],
+        "bst_launches_per_request": seq["BST"][2],
+        "din_examples_per_s": seq["DIN"][1],
+        "din_launches_per_request": seq["DIN"][2]}}))
     print(smi_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

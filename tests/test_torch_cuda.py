@@ -1,10 +1,16 @@
-"""The port's CUDA row kernels on the card.
+"""The port's CUDA kernels on the card.
 
-Each kernel is held bit for bit against its plain PyTorch version (these are
-copies and single adds), including the narrow-word paths for odd widths and
-misaligned rows, and the table engine's serving calls on the card leave the
-same header and payload as the same calls on the CPU. Marked ``cuda``: every
-test skips without a card. On a machine with a card and without JAX, run
+Each row kernel is held bit for bit against its plain PyTorch version (these
+are copies and single adds), including the narrow-word paths for odd widths
+and misaligned rows, and the table engine's serving calls on the card leave
+the same header and payload as the same calls on the CPU. Each flash-forward
+kernel is held against its plain version at odd lengths, head dims 8/64/128,
+f32 and bf16, causal, segments and dropout: f32 within ``atol = rtol =
+1e-5`` (another summation order; one flipped dropout bit moves an output by
+~1e-3), bf16 within ``1e-2`` (one bf16 ulp of the output). BST and DIN
+served on the card give the CPU's predictions within ``1e-5``. Marked
+``cuda``: every test skips without a card. On a machine with a card and
+without JAX, run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -12,7 +18,8 @@ import numpy as np
 import pytest
 import torch
 
-from tfplus_tpu_torch import kv
+from tfplus_tpu_torch import kv, models
+from tfplus_tpu_torch.ops import flash_attention as fa
 from tfplus_tpu_torch.ops import rowops
 
 pytestmark = pytest.mark.cuda
@@ -111,3 +118,160 @@ def test_serving_calls_on_the_card_match_the_cpu(cuda):
                   kv.lookup_with_init(t, probe), t.header, t.payload)
     for a, b in zip(out["cpu"], out[cuda]):
         assert torch.equal(a, b.cpu())
+
+
+# ---------------------------------------------------------------------------
+# flash-attention forward
+# ---------------------------------------------------------------------------
+
+FLASH_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5),
+             torch.bfloat16: dict(atol=1e-2, rtol=1e-2)}
+
+
+def _attention_inputs(seed, b, h, sq, skv, d, dtype, device, segments):
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(b, h, s, d, generator=gen).to(device=device,
+                                                          dtype=dtype)
+               for s in (sq, skv, skv))
+    qs = ks = None
+    if segments:
+        ks = torch.randint(-1, 3, (b, skv), generator=gen, dtype=torch.int32)
+        ks = ks.sort(dim=1).values                 # padding first, then runs
+        qs = ks[:, :sq] if sq <= skv else torch.cat(
+            [ks, torch.full((b, sq - skv), -1, dtype=torch.int32)], 1)
+        qs, ks = qs.contiguous().to(device), ks.to(device)
+    return q, k, v, qs, ks
+
+
+def _assert_close(got, want, dtype):
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.float().cpu().numpy(),
+                                   w.float().cpu().numpy(),
+                                   **FLASH_TOL[dtype if g.dtype == dtype
+                                               else torch.float32])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 64, 128])
+@pytest.mark.parametrize("causal,segments,p_dropout", [
+    (False, False, 0.0), (True, False, 0.0), (False, True, 0.0),
+    (True, True, 0.2), (False, True, 0.2)])
+def test_flash_fwd_matches_plain(cuda, dtype, d, causal, segments, p_dropout):
+    b, h, sq, skv = 2, 3, 333, 275 if causal else 400
+    q, k, v, qs, ks = _attention_inputs(d, b, h, sq, skv, d, dtype, cuda,
+                                        segments)
+    before = fa.flash_fwd.launches
+    got = fa.flash_fwd(q, k, v, qs, ks, 11, causal=causal, sm_scale=0.2,
+                       p_dropout=p_dropout)
+    assert fa.flash_fwd.launches == before + 1
+    torch.cuda.synchronize()
+    want = fa.fwd_tiled_plain(q, k, v, qs, ks, 11, causal=causal,
+                              sm_scale=0.2, p_dropout=p_dropout)
+    _assert_close(got, want, dtype)
+    out, l_, m_ = fa.flash_fwd(q, k, v, qs, ks, 11, causal=causal,
+                               sm_scale=0.2, p_dropout=p_dropout,
+                               save_residuals=False)
+    assert l_ is None and m_ is None
+    assert torch.equal(out, got[0])
+
+
+@pytest.mark.parametrize("dtype,d,s", [
+    (torch.float32, 8, 200), (torch.bfloat16, 8, 200),
+    (torch.float32, 8, 128), (torch.float32, 64, 60),
+    (torch.bfloat16, 64, 100), (torch.bfloat16, 128, 40)])
+@pytest.mark.parametrize("segments,p_dropout", [
+    (False, 0.0), (True, 0.0), (True, 0.2)])
+def test_flash_fwd_single_matches_plain(cuda, dtype, d, s, segments,
+                                        p_dropout):
+    assert fa.single_fits(s, d, dtype)
+    q, k, v, qs, ks = _attention_inputs(s + d, 3, 2, s, s, d, dtype, cuda,
+                                        segments)
+    before = fa.flash_fwd_single.launches
+    got = fa.flash_fwd_single(q, k, v, qs, ks, -3, sm_scale=0.3,
+                              p_dropout=p_dropout)
+    assert fa.flash_fwd_single.launches == before + 1
+    torch.cuda.synchronize()
+    want = fa.fwd_single_plain(q, k, v, qs, ks, -3, sm_scale=0.3,
+                               p_dropout=p_dropout)
+    _assert_close(got, want, dtype)
+    # the tiled kernel computes the same function
+    _assert_close(got, fa.flash_fwd(q, k, v, qs, ks, -3, causal=False,
+                                    sm_scale=0.3, p_dropout=p_dropout),
+                  dtype)
+
+
+def test_cuda_calls_never_run_the_plain_versions(cuda, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    monkeypatch.setattr(fa, "fwd_single_plain", refuse)
+    monkeypatch.setattr(fa, "fwd_tiled_plain", refuse)
+    q, k, v, _, _ = _attention_inputs(0, 2, 8, 150, 150, 8, torch.float32,
+                                      cuda, False)
+    launches = fa.flash_fwd.launches, fa.flash_fwd_single.launches
+    fa.flash_attention(q, k, v)                              # single
+    fa.flash_attention(q, k, v, causal=True)                 # tiled
+    out, lse = fa.flash_attention_with_lse(q, k, v, p_dropout=0.1)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_fwd_single.launches) == (
+        launches[0] + 1, launches[1] + 2)
+    assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(lse).all())
+
+
+def test_flash_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    q = torch.zeros(1, 1, 16, 12, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fa.flash_fwd(q, q, q, None, None, 0, causal=False, sm_scale=1.0)
+    q = torch.zeros(1, 1, 16, 16, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_fwd(q.transpose(2, 3), q, q, None, None, 0, causal=False,
+                     sm_scale=1.0)
+    with pytest.raises(TypeError):
+        fa.flash_fwd(q.half(), q.half(), q.half(), None, None, 0,
+                     causal=False, sm_scale=1.0)
+    big = torch.zeros(1, 1, 4096, 128, device=cuda)
+    with pytest.raises(ValueError, match="does not fit"):
+        fa.flash_fwd_single(big, big, big, None, None, 0, sm_scale=1.0)
+
+
+def _small_sequence_model(name):
+    if name == "BST":
+        return models.BST(embedding_dim=16, seq_len=7, num_numeric=3,
+                          num_heads=2, head_dim=8, ffn_hidden=32,
+                          dnn_hidden=(16, 8), capacity=1024)
+    return models.DIN(embedding_dim=16, seq_len=7, num_numeric=3,
+                      dnn_hidden=(16, 8), capacity=1024)
+
+
+@pytest.mark.parametrize("name", ["BST", "DIN"])
+def test_sequence_models_serve_the_same_on_the_card(cuda, name):
+    """The same tables, weights and batch on the card and on the CPU give
+    the same predictions (f32, another summation order: 1e-5)."""
+    model = _small_sequence_model(name)
+    rng = np.random.RandomState(4)
+    keys = rng.randint(1, 1 << 40, 300).astype(np.int64)
+    rows = rng.randn(300, 16).astype(np.float32)
+    lengths = rng.randint(0, 8, 64)
+    mask = (np.arange(7)[None, :] < lengths[:, None]).astype(np.float32)
+    seq = np.where(mask > 0, rng.choice(keys, (64, 7)), 0)
+    batch = {"ids": {"item": model.pack_item_ids(rng.choice(keys, 64), seq),
+                     "user": rng.choice(keys, 64)},
+             "features": {"numeric": rng.randn(64, 3).astype(np.float32),
+                          "mask": mask},
+             "labels": rng.randint(0, 2, 64).astype(np.float32)}
+    batch["ids"]["user"][:5] += 1 << 41                 # unknown users
+    out = {}
+    for dev in ("cpu", cuda):
+        state = models.init_state(model, seed=2, device=dev)
+        for t in state.tables.values():
+            kv.insert(t, kv.encode_ids(keys, device=dev),
+                      torch.from_numpy(rows).to(dev), day=1)
+        launches = fa.flash_fwd_single.launches
+        _, loss, preds = models.make_train_step(model, train=False)(
+            state, batch)
+        if dev != "cpu" and name == "BST":
+            assert fa.flash_fwd_single.launches == launches + 1
+        out[str(dev)] = (preds.cpu(), loss.cpu())
+    for a, b in zip(out["cpu"], out[str(cuda)]):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), atol=1e-5,
+                                   rtol=1e-5)

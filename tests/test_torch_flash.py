@@ -1,0 +1,201 @@
+"""Port parity for the flash-attention forward: the same numpy inputs go
+through the JAX package's Pallas kernels in interpret mode and through the
+port, whose kernel wrappers run their plain PyTorch versions on the CPU.
+
+Tolerances: float32 with another summation order in qkᵀ, the row sums and
+pv (and, for the tiled route, another tile width in the online softmax), so
+``atol = rtol = 1e-5``; a flipped dropout bit moves an output by about
+p·v/(1 − p_dropout), far above that. bfloat16 outputs round to 8 bits of
+mantissa after the same f32 arithmetic, so they may differ by one bf16 ulp:
+``atol = rtol = 1e-2``. The keep mask is compared bit for bit."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tfplus_tpu.ops import flash_attention as jfa
+from tfplus_tpu_torch import nn as tnn
+from tfplus_tpu_torch.ops import flash_attention as tfa
+
+F32_TOL = dict(atol=1e-5, rtol=1e-5)
+BF16_TOL = dict(atol=1e-2, rtol=1e-2)
+
+
+def _inputs(b, h, sq, skv, d, seed):
+    rng = np.random.RandomState(seed)
+    return [rng.randn(*shape).astype(np.float32)
+            for shape in ((b, h, sq, d), (b, h, skv, d), (b, h, skv, d))]
+
+
+def _segments(b, s, seed):
+    """Two segments per row, a padded tail (−1), one row all padding."""
+    rng = np.random.RandomState(seed)
+    seg = np.zeros((b, s), np.int32)
+    for i in range(b):
+        cut, end = sorted(rng.randint(1, s, 2))
+        seg[i, cut:] = 1
+        seg[i, max(end, cut + 1):] = -1
+    seg[-1] = -1
+    return seg
+
+
+def _f32(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else
+                      jnp.asarray(x, jnp.float32))
+
+
+# (name, b, h, s, d, causal, segments, dtype, p_dropout); JAX's route in
+# brackets: causal -> _fwd, non-causal -> _fwd_single; the port routes
+# non-causal to its single-pass version only where the KV fits one block.
+CASES = [
+    ("causal_fwd", 1, 2, 256, 32, True, False, "f32", 0.0),
+    ("noncausal_single", 2, 2, 128, 8, False, False, "f32", 0.0),
+    ("noncausal_d32", 1, 2, 256, 32, False, False, "f32", 0.0),
+    ("segments_padding", 3, 2, 128, 8, False, True, "f32", 0.0),
+    ("causal_segments", 3, 1, 256, 32, True, True, "f32", 0.0),
+    ("odd_length", 2, 2, 200, 32, False, True, "f32", 0.0),
+    ("odd_length_causal", 1, 2, 200, 8, True, False, "f32", 0.0),
+    ("bf16_causal", 1, 2, 256, 32, True, False, "bf16", 0.0),
+    ("bf16_single", 2, 2, 128, 8, False, True, "bf16", 0.0),
+    ("dropout_single", 2, 2, 128, 8, False, True, "f32", 0.3),
+    ("dropout_causal_odd", 1, 2, 200, 32, True, False, "f32", 0.3),
+    ("dropout_bf16", 1, 2, 256, 32, True, True, "bf16", 0.3),
+]
+
+
+@pytest.mark.parametrize("name,b,h,s,d,causal,segments,dtype,p_dropout",
+                         CASES, ids=[c[0] for c in CASES])
+def test_forward_and_lse_match_the_pallas_kernels(name, b, h, s, d, causal,
+                                                  segments, dtype, p_dropout):
+    q, k, v = _inputs(b, h, s, s, d, seed=len(name))
+    seg = _segments(b, s, seed=d) if segments else None
+    jdt = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    kw = dict(causal=causal, p_dropout=p_dropout, dropout_seed=-17)
+    jseg = None if seg is None else jnp.asarray(seg)
+    jq, jk, jv = (jnp.asarray(x, jdt) for x in (q, k, v))
+    jout = jfa.flash_attention(jq, jk, jv, q_segment_ids=jseg,
+                               kv_segment_ids=jseg, block_q=128, block_k=128,
+                               interpret=True, **kw)
+    jout2, jlse = jfa.flash_attention_with_lse(
+        jq, jk, jv, q_segment_ids=jseg, kv_segment_ids=jseg, block_q=128,
+        block_k=128, interpret=True, **kw)
+    tq, tk, tv = (torch.from_numpy(x).to(tdt) for x in (q, k, v))
+    tout = tfa.flash_attention(tq, tk, tv, q_segment_ids=seg,
+                               kv_segment_ids=seg, **kw)
+    tout2, tlse = tfa.flash_attention_with_lse(
+        tq, tk, tv, q_segment_ids=seg, kv_segment_ids=seg, **kw)
+    assert tout.dtype == tdt and tout.shape == (b, h, s, d)
+    tol = BF16_TOL if dtype == "bf16" else F32_TOL
+    np.testing.assert_allclose(_f32(tout), _f32(jout), **tol)
+    np.testing.assert_allclose(_f32(tout2), _f32(jout2), **tol)
+    jlse, tlse = np.asarray(jlse), tlse.numpy()
+    np.testing.assert_array_equal(np.isneginf(tlse), np.isneginf(jlse))
+    hit = np.isfinite(jlse)
+    np.testing.assert_allclose(tlse[hit], jlse[hit], **F32_TOL)
+    if seg is not None:                  # padding rows: zeros and -inf
+        pad = np.broadcast_to((seg < 0)[:, None, :], tlse.shape)
+        assert np.isneginf(tlse[pad]).all()
+        assert (_f32(tout)[pad] == 0).all()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_residuals_match_the_pallas_kernels(causal):
+    """l (pre-dropout sum, 0 on never-hit rows) and m (row max, about
+    mask_value on never-hit rows) of the JAX kernel, from the port's
+    wrappers with the route the JAX package takes."""
+    b, h, s, d = 2, 2, 256, 16
+    q, k, v = _inputs(b, h, s, s, d, seed=5)
+    seg = _segments(b, s, seed=6)
+    seed = np.asarray([3], np.int32)
+    _, jl, jm = jfa._fwd_dispatch(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(seg),
+        jnp.asarray(seg), jnp.asarray(seed), causal, 0.25, 128, 128, True,
+        save_residuals=True, p_dropout=0.2)
+    wrapper = tfa.flash_fwd if causal else tfa.flash_fwd_single
+    kw = dict(causal=True) if causal else {}
+    tseg = torch.from_numpy(seg)
+    _, tl, tm = wrapper(*(torch.from_numpy(x) for x in (q, k, v)), tseg, tseg,
+                        3, sm_scale=0.25, p_dropout=0.2, **kw)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **F32_TOL)
+    np.testing.assert_allclose(tm.numpy(), np.asarray(jm), **F32_TOL)
+    never = np.broadcast_to((seg < 0)[:, None, :], tl.shape)
+    assert (tl.numpy()[never] == 0).all()
+    assert (tm.numpy()[never] <= 0.5 * tfa.DEFAULT_MASK_VALUE).all()
+
+
+@pytest.mark.parametrize("seed,row0,col0,p", [
+    (0, 0, 0, 0.3), (-5, 5, 100, 0.3), (2**31 - 1, 0, 4096, 0.9),
+    (7, 1000, 3, 1e-6)])
+def test_dropout_keep_mask_is_bit_identical(seed, row0, col0, p):
+    want = np.asarray(jfa._dropout_keep_dense(jnp.int32(seed), 2, 3, 17, 33,
+                                              p, row0=row0, col0=col0))
+    got = tfa._dropout_keep_dense(seed, 2, 3, 17, 33, p, row0=row0,
+                                  col0=col0).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_plain_versions_agree_with_each_other_and_the_reference():
+    """Both plain kernels and the exact reference compute one function."""
+    q, k, v = (torch.from_numpy(x) for x in _inputs(2, 2, 130, 130, 24, 9))
+    seg = torch.from_numpy(_segments(2, 130, seed=1))
+    single = tfa.fwd_single_plain(q, k, v, seg, seg, 4, sm_scale=0.3,
+                                  p_dropout=0.25)
+    tiled = tfa.fwd_tiled_plain(q, k, v, seg, seg, 4, causal=False,
+                                sm_scale=0.3, p_dropout=0.25)
+    ref = tfa.reference_attention(q, k, v, sm_scale=0.3, q_segment_ids=seg,
+                                  kv_segment_ids=seg, p_dropout=0.25,
+                                  dropout_seed=4)
+    for a, b in zip(single, tiled):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), **F32_TOL)
+    np.testing.assert_allclose(single[0].numpy(), ref.numpy(), **F32_TOL)
+
+
+def test_dispatch_routes_as_on_the_card(monkeypatch):
+    calls = []
+    for name in ("fwd_single_plain", "fwd_tiled_plain"):
+        real = getattr(tfa, name)
+        monkeypatch.setattr(tfa, name, lambda *a, _r=real, _n=name, **kw:
+                            calls.append(_n) or _r(*a, **kw))
+    launches = (tfa.flash_fwd.launches, tfa.flash_fwd_single.launches)
+
+    def run(s, d, causal):
+        q, k, v = (torch.from_numpy(x) for x in _inputs(1, 1, s, s, d, 0))
+        tfa.flash_attention(q, k, v, causal=causal)
+        return calls.pop()
+
+    assert tfa.single_fits(128, 8, torch.float32)       # BST's heads
+    assert run(128, 8, False) == "fwd_single_plain"
+    assert run(128, 8, True) == "fwd_tiled_plain"
+    assert not tfa.single_fits(1024, 64, torch.float32)
+    assert run(1024, 64, False) == "fwd_tiled_plain"
+    # CPU calls run the plain versions and launch nothing
+    assert (tfa.flash_fwd.launches, tfa.flash_fwd_single.launches) \
+        == launches
+
+
+def test_layer_matches_the_jax_layer():
+    """[B, S, H, D] layout; padding from a mask or from lengths."""
+    rng = np.random.RandomState(2)
+    q, k, v = (rng.randn(3, 40, 2, 8).astype(np.float32) for _ in range(3))
+    lengths = np.array([40, 17, 0])
+    mask = (np.arange(40)[None, :] < lengths[:, None]).astype(np.float32)
+    from tfplus_tpu.nn.attention import flash_attention_layer as jlayer
+    for kw in (dict(attention_mask=mask), dict(lengths=lengths), {}):
+        want = jlayer(*(jnp.asarray(x) for x in (q, k, v)), interpret=True,
+                      **{n: jnp.asarray(x) for n, x in kw.items()})
+        got = tnn.flash_attention_layer(*(torch.from_numpy(x)
+                                          for x in (q, k, v)), **kw)
+        assert got.shape == (3, 40, 2, 8)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+
+
+def test_gradients_are_a_later_slice():
+    q, k, v = (torch.from_numpy(x) for x in _inputs(1, 1, 8, 8, 8, 0))
+    with pytest.raises(NotImplementedError, match="training slice"):
+        tfa.flash_attention(q.requires_grad_(), k, v)
+    with torch.no_grad():
+        assert tfa.flash_attention(q, k, v).shape == (1, 1, 8, 8)
+    with pytest.raises(ValueError, match="both or neither"):
+        tfa.flash_attention(q.detach(), k, v,
+                            q_segment_ids=np.zeros((1, 8), np.int32))

@@ -8,6 +8,7 @@ port's training slice.
 """
 from __future__ import annotations
 
+from collections.abc import Mapping
 from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
@@ -70,6 +71,14 @@ def init_state(model: SparseModel, sparse_opt=None, dense_tx=None,
                       step=torch.zeros((), dtype=torch.int32, device=dev))
 
 
+def _features(features, device):
+    if features is None:
+        return None
+    if isinstance(features, Mapping):
+        return {k: _features(v, device) for k, v in features.items()}
+    return torch.as_tensor(features, dtype=torch.float32, device=device)
+
+
 def make_train_step(model: SparseModel, sparse_opt=None, dense_tx=None, *,
                     sparse_lr: Optional[float] = None,
                     train: bool = True) -> Callable:
@@ -77,6 +86,9 @@ def make_train_step(model: SparseModel, sparse_opt=None, dense_tx=None, *,
 
     ``batch`` = dict with per-table id arrays under ``batch["ids"][name]``
     (rank-1), optional dense ``batch["features"]`` and ``batch["labels"]``.
+    Features are an array, which becomes one float32 tensor on the state's
+    device, or a dict of arrays (BST/DIN: ``{"numeric", "mask"}``), which
+    becomes a dict of such tensors.
     Only ``train=False`` is ported: lookups that never insert, the model and
     the loss; the state comes back unchanged.
     """
@@ -97,10 +109,7 @@ def make_train_step(model: SparseModel, sparse_opt=None, dense_tx=None, *,
                     table, batch["ids"][alias.get(name, name)], train=False)
                 embs[name] = emb.gather(look)
             dev = state.step.device
-            features = batch.get("features")
-            if features is not None:
-                features = torch.as_tensor(features, dtype=torch.float32,
-                                           device=dev)
+            features = _features(batch.get("features"), dev)
             preds = model.apply(state.dense, embs, features)
             labels = torch.as_tensor(batch["labels"], device=dev)
             loss = model.loss(preds, labels)

@@ -1,3 +1,4 @@
 """Hand-written CUDA kernels and their plain PyTorch versions."""
-from . import rowops
+from . import flash_attention, rowops
+from .flash_attention import flash_fwd, flash_fwd_single
 from .rowops import gather_rows, scatter_rows

@@ -1,0 +1,484 @@
+"""Flash attention forward, with segment-id varlen masking and dropout.
+
+Counterpart of the forward half of ``tfplus_tpu/ops/flash_attention.py``.
+Shapes: q ``[B, H, Sq, D]``, k/v ``[B, H, Skv, D]``, float32 or bfloat16;
+optional int32 segment ids ``[B, Sq]`` / ``[B, Skv]`` (tokens attend only
+within their segment; ``segment_id < 0`` marks padding, which attends to
+nothing and outputs zeros).
+
+Two hand-written Hopper kernels (``csrc/flash_fwd.cu``) replace the two
+Pallas forward kernels:
+
+* :func:`flash_fwd` replaces ``_fwd`` (``_fwd_kernel``): tiled online
+  softmax over 64-key tiles, tiles above the diagonal skipped under causal
+  masking;
+* :func:`flash_fwd_single` replaces ``_fwd_single``
+  (``_fwd_single_kernel``): the whole K and V of one (batch, head) in
+  shared memory, one qkᵀ, one softmax and one pv, no online rescale.
+
+Each wrapper launches its kernel on a CUDA tensor and runs the plain PyTorch
+version beside it (:func:`fwd_tiled_plain`, :func:`fwd_single_plain`) on a
+CPU tensor; the plain versions are also the oracles the kernels are held
+against on the card. There is no switch and no fallback: a CUDA tensor goes
+through a kernel or the wrapper raises. Each wrapper counts its launches in
+a plain integer attribute (``flash_fwd.launches``,
+``flash_fwd_single.launches``).
+
+Routing (:func:`_fwd_dispatch`) keeps the JAX decision "not causal, and the
+whole KV fits one block". On the TPU a block lives in VMEM (megabytes), so
+JAX takes the single-step kernel up to Skv = 4096. An H100 block has at most
+227 KB of shared memory, so here "fits" means that the single-pass block's
+shared memory (its 64 query rows, the whole K and V, and the 64 × Skv score
+tile) takes at most half of that, so that two blocks share an SM: BST's
+heads (Skv 128, D 8, f32) need 46 KB. Anything larger goes to the tiled
+kernel. Both routes compute the same function.
+
+Ragged lengths are masked inside the kernels (keys past Skv score
+``mask_value``, rows past Sq are not stored), which gives on every real
+position what the JAX package's padding with segment −1 gives; no copy of
+q, k or v is padded.
+
+Only the forward is ported: a call that would need a gradient raises
+``NotImplementedError`` (the backward kernels come with the training slice).
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..kv.hashing import _M32, _mul32
+# the JAX package's _mix_bits is the same murmur3 finalizer as the tables'
+from ..kv.hashing import _fmix32 as _mix_bits
+from . import _build
+
+DEFAULT_MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
+
+# The kernels' tiles (csrc/flash_fwd.cu kBQ, kBK) and shared-memory budget.
+BLOCK_Q = 64
+BLOCK_K = 64
+SMEM_PER_BLOCK = 232448          # bytes an H100 block may use (227 KB)
+_SINGLE_SMEM_MAX = SMEM_PER_BLOCK // 2
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_TRAINING_SLICE = ("the flash-attention backward is not ported yet; "
+                   "gradients come with the port's training slice")
+_ptr = ctypes.c_void_p
+_int = ctypes.c_int
+
+
+# ---------------------------------------------------------------------------
+# Dropout keep-mask: a counter-based hash of (seed, batch, head, global row,
+# global col), bit-identical to the JAX package's _dropout_keep(_dense) and
+# to the CUDA kernels' keep(). uint32 arithmetic in int64 masked to 32 bits.
+# ---------------------------------------------------------------------------
+
+def _seed_u32(dropout_seed) -> int:
+    """The seed as the kernels read it: one int32 word, taken as uint32."""
+    if isinstance(dropout_seed, torch.Tensor):
+        dropout_seed = dropout_seed.reshape(-1)[0].item()
+    elif np.ndim(dropout_seed) != 0:
+        dropout_seed = np.asarray(dropout_seed).reshape(-1)[0]
+    return int(dropout_seed) & _M32
+
+
+def _dropout_threshold(p_dropout: float) -> int:
+    return min(int(p_dropout * 4294967296.0), 4294967295)
+
+
+def _dropout_keep_dense(seed, b: int, h: int, sq: int, skv: int,
+                        p_dropout: float, row0=0, col0=0,
+                        device="cpu") -> torch.Tensor:
+    """bool ``[B, H, Sq, Skv]`` keep-mask for global coordinates
+    (row0 + i, col0 + j)."""
+    dev = torch.device(device)
+    i64 = dict(dtype=torch.int64, device=dev)
+    bi = torch.arange(b, **i64)[:, None, None, None]
+    hi = torch.arange(h, **i64)[None, :, None, None]
+    r = ((torch.arange(sq, **i64) + row0) & _M32)[None, None, :, None]
+    c = ((torch.arange(skv, **i64) + col0) & _M32)[None, None, None, :]
+    base = ((_seed_u32(seed) * 0x9E3779B9) + _mul32(bi, 0x7FEB352D)
+            + _mul32(hi, 0x846CA68B)) & _M32
+    x = _mix_bits((base + _mul32(r, 0x27D4EB2F) + c) & _M32)
+    return x >= _dropout_threshold(p_dropout)
+
+
+# ---------------------------------------------------------------------------
+# Masks and the exact reference
+# ---------------------------------------------------------------------------
+
+def _segment_mask(q_seg, kv_seg) -> torch.Tensor:
+    """bool ``[B, Sq, Skv]``: same segment, neither side padding."""
+    qs, ks = q_seg[:, :, None], kv_seg[:, None, :]
+    return (qs == ks) & (qs >= 0) & (ks >= 0)
+
+
+def _attention_mask(sq, skv, q_seg, kv_seg, causal, device="cpu"):
+    mask = torch.ones((q_seg.shape[0] if q_seg is not None else 1, sq, skv),
+                      dtype=torch.bool, device=device)
+    if causal:
+        row = torch.arange(sq, device=device)[:, None]
+        col = torch.arange(skv, device=device)[None, :]
+        mask = mask & (col <= row)[None]
+    if q_seg is not None:
+        mask = mask & _segment_mask(q_seg, kv_seg)
+    return mask
+
+
+def reference_attention(q, k, v, *, causal=False, sm_scale=None,
+                        q_segment_ids=None, kv_segment_ids=None,
+                        p_dropout: float = 0.0, dropout_seed=0):
+    """Exact attention (einsum, softmax, einsum), with the same keep-mask as
+    the kernels; fully masked rows output 0."""
+    b, h = q.shape[0], q.shape[1]
+    if sm_scale is None:
+        sm_scale = 1.0 / float(np.sqrt(q.shape[-1]))
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
+    mask = _attention_mask(q.shape[2], k.shape[2], q_segment_ids,
+                           kv_segment_ids, causal, q.device)
+    s = torch.where(mask[:, None], s, DEFAULT_MASK_VALUE)
+    p = torch.softmax(s, dim=-1)
+    if p_dropout > 0.0:
+        keep = _dropout_keep_dense(dropout_seed, b, h, q.shape[2], k.shape[2],
+                                   p_dropout, device=q.device)
+        p = torch.where(keep, p, 0.0) * (1.0 / (1.0 - p_dropout))
+    any_valid = mask.any(dim=-1)[:, None, :, None]
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
+    return torch.where(any_valid, out, 0.0).to(q.dtype)
+
+
+def make_segment_ids_from_lengths(lengths, seq_len: int,
+                                  device=None) -> torch.Tensor:
+    """Per-example valid length → segment ids (0 for the first ``length``
+    tokens, −1 padding)."""
+    lengths = torch.as_tensor(lengths, device=device)
+    pos = torch.arange(seq_len, device=lengths.device)[None, :]
+    return torch.where(pos < lengths[:, None], 0, -1).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions of the two kernels: (out, l, m) with the kernels' residual
+# semantics — l sums the probabilities BEFORE dropout; rows that never hit a
+# valid key output 0 with l = 0 and m at about mask_value; the mask is ADDED
+# to the scores; for bf16, p is rounded to v's dtype before the pv product.
+# ---------------------------------------------------------------------------
+
+def _scores(q, k, q_seg, kv_seg, sm_scale, causal, col0=0):
+    """Scaled, masked f32 scores of q against the key tile ``k`` that starts
+    at key ``col0``; ``q_seg`` None means no segment mask."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    if sm_scale != 1.0:
+        s = s * sm_scale
+    mask = None
+    if causal:
+        row = torch.arange(q.shape[2], device=q.device)[:, None]
+        col = torch.arange(k.shape[2], device=q.device)[None, :] + col0
+        mask = (col <= row)[None]
+    if q_seg is not None:
+        seg = _segment_mask(q_seg, kv_seg)
+        mask = seg if mask is None else mask & seg
+    if mask is not None:
+        s = s + torch.where(mask, 0.0, DEFAULT_MASK_VALUE)[:, None]
+    return s
+
+
+def _apply_dropout(p, seed, p_dropout, col0=0):
+    if p_dropout <= 0.0:
+        return p
+    b, h, sq, skv = p.shape
+    keep = _dropout_keep_dense(seed, b, h, sq, skv, p_dropout, col0=col0,
+                               device=p.device)
+    return torch.where(keep, p, 0.0) * (1.0 / (1.0 - p_dropout))
+
+
+def _pv(p, v):
+    # p rounded to v's dtype (a no-op for f32), products summed in f32
+    return torch.matmul(p.to(v.dtype).float(), v.float())
+
+
+def fwd_single_plain(q, k, v, q_seg, kv_seg, seed, *, sm_scale: float,
+                     p_dropout: float = 0.0):
+    """One-pass forward over the whole KV: ``(out, l, m)``."""
+    s = _scores(q, k, q_seg, kv_seg, sm_scale, causal=False)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    never_hit = m <= 0.5 * DEFAULT_MASK_VALUE
+    l_safe = torch.where(l == 0.0, 1.0, l)
+    o = _pv(_apply_dropout(p, seed, p_dropout), v)
+    out = torch.where(never_hit, 0.0, o / l_safe).to(q.dtype)
+    return out, torch.where(never_hit, 0.0, l)[..., 0], m[..., 0]
+
+
+def fwd_tiled_plain(q, k, v, q_seg, kv_seg, seed, *, causal: bool,
+                    sm_scale: float, p_dropout: float = 0.0):
+    """Online-softmax forward over the kernel's 64-key tiles:
+    ``(out, l, m)``.
+    The kernel skips a tile that lies wholly above its q tile's diagonal;
+    here such a tile is computed for every row and changes nothing (each of
+    its scores is ``mask_value``, so p = 0 and the rescale is 1 exactly)."""
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    m = torch.full((b, h, sq, 1), -float(np.finfo(np.float32).max),
+                   device=q.device)
+    l = torch.zeros((b, h, sq, 1), device=q.device)
+    acc = torch.zeros((b, h, sq, d), device=q.device)
+    for c0 in range(0, skv, BLOCK_K):
+        if causal and c0 > sq - 1:
+            break                          # above every row's diagonal
+        c1 = min(c0 + BLOCK_K, skv)
+        s = _scores(q, k[:, :, c0:c1], q_seg,
+                    None if kv_seg is None else kv_seg[:, c0:c1],
+                    sm_scale, causal, col0=c0)
+        m_next = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_next)
+        p = torch.exp(s - m_next)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + _pv(_apply_dropout(p, seed, p_dropout, c0),
+                                v[:, :, c0:c1])
+        m = m_next
+    never_hit = m <= 0.5 * DEFAULT_MASK_VALUE
+    l_inv = torch.where(l == 0.0, 1.0, 1.0 / l)
+    out = torch.where(never_hit, 0.0, acc * l_inv).to(q.dtype)
+    return out, torch.where(never_hit, 0.0, l)[..., 0], m[..., 0]
+
+
+# ---------------------------------------------------------------------------
+# The kernels' wrappers
+# ---------------------------------------------------------------------------
+
+def _align16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def _smem_bytes(d: int, n_keys: int, esz: int) -> int:
+    """Shared memory of one block, as ``smem_layout`` in flash_fwd.cu lays
+    it out: Q tile, K and V of ``n_keys`` rows, the f32 score tile and the
+    two segment-id vectors."""
+    ld, score_ld = d + 16 // esz, n_keys + 4
+    total = _align16(BLOCK_Q * ld * esz)
+    total = _align16(total + n_keys * ld * esz)
+    total = _align16(total + n_keys * d * esz)
+    total = _align16(total + BLOCK_Q * score_ld * 4)
+    total = _align16(total + BLOCK_Q * 4)
+    return _align16(total + n_keys * 4)
+
+
+def single_smem_bytes(skv: int, d: int, dtype: torch.dtype) -> int:
+    keys = -(-skv // BLOCK_K) * BLOCK_K
+    return _smem_bytes(d, keys, torch.empty((), dtype=dtype).element_size())
+
+
+def single_fits(skv: int, d: int, dtype: torch.dtype) -> bool:
+    """Whether the single-pass kernel takes this KV (see the module note)."""
+    return single_smem_bytes(skv, d, dtype) <= _SINGLE_SMEM_MAX
+
+
+def _flash_lib() -> ctypes.CDLL:
+    lib = _build.library("flash_fwd")
+    if not getattr(lib, "_tfp_typed", False):
+        common = [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
+                  _int, _int, _int, _int, _int, _int]
+        tail = [ctypes.c_float, ctypes.c_float, ctypes.c_uint,
+                ctypes.c_uint, ctypes.c_float, _ptr]
+        lib.tfp_flash_fwd.argtypes = common + [_int] + tail
+        lib.tfp_flash_fwd.restype = _int
+        lib.tfp_flash_fwd_single.argtypes = common + tail
+        lib.tfp_flash_fwd_single.restype = _int
+        lib._tfp_typed = True
+    return lib
+
+
+def _check(q, k, v, q_seg, kv_seg) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k, v must be [B, H, S, D]")
+    b, h, _, d = q.shape
+    if k.shape[:2] != (b, h) or k.shape[3] != d or v.shape != k.shape:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and "
+                         f"v {tuple(v.shape)} do not agree")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must share one dtype of float32/bfloat16, "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    if (q_seg is None) != (kv_seg is None):
+        raise ValueError("provide both or neither segment id array")
+    tensors = [q, k, v] + ([] if q_seg is None else [q_seg, kv_seg])
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("q, k, v and the segment ids must share one device")
+    if q_seg is not None:
+        if q_seg.dtype != torch.int32 or kv_seg.dtype != torch.int32:
+            raise TypeError("segment ids must be int32")
+        if (q_seg.shape != (b, q.shape[2])
+                or kv_seg.shape != (b, k.shape[2])):
+            raise ValueError("segment ids must be [B, Sq] and [B, Skv]")
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {q.device}")
+    if q.is_cuda:
+        if d % 8 or not 8 <= d <= 128:
+            raise ValueError(f"the CUDA flash kernels take a head dim that "
+                             f"is a multiple of 8 up to 128, got {d}")
+        if not all(t.is_contiguous() for t in tensors):
+            raise ValueError("the CUDA flash kernels take contiguous tensors")
+        if any(t.data_ptr() % 16 for t in (q, k, v)):
+            raise ValueError("the CUDA flash kernels take q, k, v aligned "
+                             "to 16 bytes")
+
+
+def _launch(fn_name, q, k, v, q_seg, kv_seg, seed, sm_scale, p_dropout,
+            save_residuals, causal=None):
+    b, h, sq, d = q.shape
+    if q.numel() == 0 or k.shape[2] == 0:
+        raise ValueError("flash attention needs B, H, Sq, Skv > 0")
+    out = torch.empty_like(q)
+    l = m = None
+    if save_residuals:
+        l = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+        m = torch.empty_like(l)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    head = [q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(q_seg),
+            ptr(kv_seg), out.data_ptr(), ptr(l), ptr(m), b, h, sq,
+            k.shape[2], d, _DTYPES[q.dtype]]
+    mid = [] if causal is None else [int(causal)]
+    tail = [float(sm_scale), DEFAULT_MASK_VALUE, _seed_u32(seed),
+            _dropout_threshold(p_dropout) if p_dropout > 0 else 0,
+            1.0 / (1.0 - p_dropout),
+            torch.cuda.current_stream(q.device).cuda_stream]
+    err = getattr(_flash_lib(), fn_name)(*head, *mid, *tail)
+    if err != 0:
+        raise RuntimeError(f"{fn_name} kernel launch failed: cudaError {err}")
+    return out, l, m
+
+
+def flash_fwd(q, k, v, q_seg, kv_seg, seed, *, causal: bool, sm_scale: float,
+              p_dropout: float = 0.0, save_residuals: bool = True):
+    """Tiled forward: ``(out, l, m)``, or ``(out, None, None)`` without
+    residuals (the kernel then writes no l and m)."""
+    _check(q, k, v, q_seg, kv_seg)
+    if not q.is_cuda:
+        out, l, m = fwd_tiled_plain(q, k, v, q_seg, kv_seg, seed,
+                                    causal=causal, sm_scale=sm_scale,
+                                    p_dropout=p_dropout)
+        return (out, l, m) if save_residuals else (out, None, None)
+    res = _launch("tfp_flash_fwd", q, k, v, q_seg, kv_seg, seed, sm_scale,
+                  p_dropout, save_residuals, causal=causal)
+    flash_fwd.launches += 1
+    return res
+
+
+flash_fwd.launches = 0
+
+
+def flash_fwd_single(q, k, v, q_seg, kv_seg, seed, *, sm_scale: float,
+                     p_dropout: float = 0.0, save_residuals: bool = True):
+    """Single-pass non-causal forward: ``(out, l, m)`` (or
+    ``(out, None, None)``). On the card the KV must fit the block
+    (:func:`single_fits`)."""
+    _check(q, k, v, q_seg, kv_seg)
+    if not q.is_cuda:
+        out, l, m = fwd_single_plain(q, k, v, q_seg, kv_seg, seed,
+                                     sm_scale=sm_scale, p_dropout=p_dropout)
+        return (out, l, m) if save_residuals else (out, None, None)
+    if not single_fits(k.shape[2], q.shape[3], q.dtype):
+        raise ValueError(f"Skv {k.shape[2]} at D {q.shape[3]} does not fit "
+                         "the single-pass kernel's shared memory")
+    res = _launch("tfp_flash_fwd_single", q, k, v, q_seg, kv_seg, seed,
+                  sm_scale, p_dropout, save_residuals)
+    flash_fwd_single.launches += 1
+    return res
+
+
+flash_fwd_single.launches = 0
+
+
+def _fwd_dispatch(q, k, v, q_seg, kv_seg, seed, causal, sm_scale, p_dropout,
+                  save_residuals):
+    """Single-pass kernel when not causal and the whole KV fits one block
+    (causal keeps the tiled kernel, whose tile skip saves half the work)."""
+    if not causal and single_fits(k.shape[2], q.shape[3], q.dtype):
+        return flash_fwd_single(q, k, v, q_seg, kv_seg, seed,
+                                sm_scale=sm_scale, p_dropout=p_dropout,
+                                save_residuals=save_residuals)
+    return flash_fwd(q, k, v, q_seg, kv_seg, seed, causal=causal,
+                     sm_scale=sm_scale, p_dropout=p_dropout,
+                     save_residuals=save_residuals)
+
+
+# ---------------------------------------------------------------------------
+# Public surface
+# ---------------------------------------------------------------------------
+
+def _prepare(q, k, v, sm_scale, q_segment_ids, kv_segment_ids, p_dropout):
+    if sm_scale is None:
+        sm_scale = 1.0 / float(np.sqrt(q.shape[-1]))
+    if (q_segment_ids is None) != (kv_segment_ids is None):
+        raise ValueError("provide both or neither segment id array")
+    if not (0.0 <= p_dropout < 1.0):
+        raise ValueError(f"p_dropout must be in [0, 1), got {p_dropout}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(_TRAINING_SLICE)
+
+    def ready(t):
+        t = t.contiguous()
+        return t.clone() if t.is_cuda and t.data_ptr() % 16 else t
+
+    def seg(s):
+        return None if s is None else torch.as_tensor(
+            s, dtype=torch.int32, device=q.device).contiguous()
+
+    return (ready(q), ready(k), ready(v), seg(q_segment_ids),
+            seg(kv_segment_ids), float(sm_scale), float(p_dropout))
+
+
+def flash_attention(q, k, v, *, causal: bool = False,
+                    sm_scale: Optional[float] = None,
+                    q_segment_ids=None, kv_segment_ids=None,
+                    block_q: int = 1024, block_k: int = 1024,
+                    block_k_inner: Optional[int] = None,
+                    p_dropout: float = 0.0, dropout_seed=0,
+                    interpret: Optional[bool] = None):
+    """Flash attention forward. q ``[B, H, Sq, D]``, k/v ``[B, H, Skv, D]``;
+    optional int32 segment ids ``[B, Sq]`` / ``[B, Skv]`` (−1 = padding);
+    arbitrary sequence lengths. ``p_dropout``/``dropout_seed``: inverted
+    dropout on the probabilities from the counter hash, the same mask as the
+    JAX package's for the same seed.
+
+    ``block_q``, ``block_k``, ``block_k_inner`` and ``interpret`` are
+    accepted so that callers of the JAX function port unchanged; none of
+    them changes a result or a launch here: the kernels' tiles are their own
+    (64 query rows by 64 keys), the ragged edge is masked inside them, and
+    there is no interpreter (the tensors' device picks kernel or plain
+    version). Forward only: with autograd on and an input that requires
+    grad, raises ``NotImplementedError``."""
+    del block_q, block_k, block_k_inner, interpret
+    q, k, v, qs, ks, sm_scale, p_dropout = _prepare(
+        q, k, v, sm_scale, q_segment_ids, kv_segment_ids, p_dropout)
+    out, _, _ = _fwd_dispatch(q, k, v, qs, ks, dropout_seed, causal,
+                              sm_scale, p_dropout, save_residuals=False)
+    return out
+
+
+def flash_attention_with_lse(q, k, v, *, causal: bool = False,
+                             sm_scale: Optional[float] = None,
+                             q_segment_ids=None, kv_segment_ids=None,
+                             block_q: int = 1024, block_k: int = 1024,
+                             block_k_inner: Optional[int] = None,
+                             p_dropout: float = 0.0, dropout_seed=0,
+                             interpret: Optional[bool] = None):
+    """Forward returning ``(out, softmax_lse)``: lse ``[B, H, Sq]`` is the
+    PRE-dropout log-sum-exp of the masked scores, ``m + log(l)``, and
+    ``-inf`` on rows that never hit a valid key. Arguments as
+    :func:`flash_attention`."""
+    del block_q, block_k, block_k_inner, interpret
+    q, k, v, qs, ks, sm_scale, p_dropout = _prepare(
+        q, k, v, sm_scale, q_segment_ids, kv_segment_ids, p_dropout)
+    out, l, m = _fwd_dispatch(q, k, v, qs, ks, dropout_seed, causal,
+                              sm_scale, p_dropout, save_residuals=True)
+    hit = l > 0.0
+    lse = torch.where(hit, m + torch.log(torch.where(hit, l, 1.0)),
+                      -math.inf)
+    return out, lse
