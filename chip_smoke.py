@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py                  # build, check and measure
     python3 chip_smoke.py --profile DIR    # also writes torch.profiler tables
-                                           # of the serving paths to DIR
+                                           # of the serving and training
+                                           # paths to DIR
 
 Run from the repository root on a machine with one CUDA card and nvcc. It
 imports neither JAX nor the JAX package. Phases, each of which raises on a
@@ -41,14 +42,41 @@ failed check:
    first and then DIN on the same tables, checked against the host-side map
    of what was inserted and a float64 numpy forward pass (BST with a TF32
    control it must reject).
+8. Attention-backward kernels: ``flash_bwd_dkv`` and ``flash_bwd_dq`` held
+   against their plain versions and against float64 autograd through
+   ``reference_attention``, rerun bit for bit, and timed beside the plain
+   versions, the least time the card could take and the backward alone of
+   ``scaled_dot_product_attention`` (timed only): the bench's causal bf16
+   B4 H8 S2048 D128; BST's f32 heads with BST's request mask; dropout 0.2
+   at S1000 D64, causal and not, f32 and bf16; non-causal bf16 S2048 D128
+   with segments from lengths in 512-2048.
+9. ``flash_attention(causal=True)`` forward and backward x10 at the bench's
+   shape, in TFLOP/s counted as the JAX bench's ``grad=True`` leg.
+10. Training checks at the reference DCN's and BST's widths with tables of
+   2^14 rows: three steps from one state on the card and on the CPU (headers
+   and slots bit for bit, the rest within the stated tolerances), two runs
+   from cloned states bit for bit on the card, and a loss that falls over
+   ten steps on one batch.
+11. DCN training at the reference width: 26 tables of 2^20 rows with
+   GroupAdam's slot columns (payload 4·D), each filled with 2^19 keys, then
+   batch-2048 steps with 5 % unseen ids (GroupAdam 1e-3, dense Adam 1e-3).
+12. BST training at published widths: the item and user tables of phase 7
+   with Adam's slot columns (payload 3·D), batch-2048 steps (Adam 0.01,
+   dense Adam 0.01); every step launches the single-pass forward and both
+   backward kernels.
 
-Each path (the serving paths and the flash entry points) runs with the kernels' launch counts set to 0 just before
-it and read just after it. The line before the last is the
-``{"kernels": [...]}`` JSON; the last line is ``{"ok": true, "device":
-{...}}``. Without a card, or without the port beside it, the script exits
-non-zero and prints no result.
+Each path (the serving and training paths and the flash entry points) runs
+with the kernels' launch counts set to 0 just before it and read just after
+it. Each phase frees its tables before the next and prints the peak device
+memory it reached. The line before the last is the ``{"kernels": [...]}``
+JSON, after the ``{"serving": ...}`` and ``{"training": ...}`` lines; the
+last line is ``{"ok": true, "device": {...}}``. Without a card, or without
+the port beside it, the script exits non-zero and prints no result.
 """
 import argparse
+import copy
+import dataclasses
+import functools
 import json
 import os
 import statistics
@@ -76,6 +104,33 @@ PEAK_FLOPS = {"bfloat16": 989e12,  # H100 SXM dense bf16 tensor cores
 # (2^-7 relative) may differ: rtol 2^-6, atol 1e-5 for outputs near zero.
 ATTN_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-5, 2.0 ** -6)}
 SEQ_REQUESTS = 10
+# Backward kernels against their plain versions, (atol, rtol): f32 differs
+# in summation order only, and one flipped dropout bit moves a gradient by
+# about p·do/(1 - 0.2), some 1e-3 at S = 1000, a hundred times the limit;
+# bf16 rounds p_d and ds to 8 bits before their products on both sides, and
+# an intermediate that rounds the other way moves a gradient by a bf16 ulp
+# of one term, the output rounds to bf16 too: 1e-2. Against float64
+# autograd through reference_attention, |err| <= tol · max|grad|: 1e-5 for
+# f32 (summation order over at most 2048 terms) and 2e-2 for bf16 (inputs
+# exact in f64; p_d, ds, the output and di's o round to bf16).
+BWD_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 1e-2)}
+BWD_F64_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+TRAIN_STEPS = 10                 # timed training steps, after 2 warm-up
+CHECK_ROWS = 1 << 14             # table rows of the training checks
+CHECK_BATCH = 256                # batch of the card-against-CPU check
+CHECK_STEPS = 3                  # steps of the card-against-CPU and rerun checks
+# Card against CPU. Losses within 1e-5 (f32, other summation order). Step
+# 1's dense gradients within 1e-5 of each tensor's largest gradient (f32
+# sums over the batch in another order). After three steps, payloads, slot
+# columns and dense parameters within atol 2e-5, rtol 1e-4 (the port's CPU
+# parity limits) for all but 1e-3 of the elements, and every element within
+# one learning rate per step: each Adam-type step moves an element by
+# lr·m̂/(√v̂ + ε), and where a gradient lies within rounding of zero,
+# m̂/(√v̂ + ε) turns the rounding of the two devices' sums into different
+# steps of up to about lr (BST's dense tower after its step-2 loss spike
+# showed 2.2e-4 of its elements so, the largest 0.5·lr off, on an H100).
+TRAIN_TOL = {"loss": 1e-5, "grad": 1e-5, "atol": 2e-5, "rtol": 1e-4,
+             "share": 1e-3}
 HIST = 20                        # BST paper's history length (Table 2)
 ITEM_ROWS, ITEM_FILL = 1 << 23, 1 << 22
 USER_ROWS, USER_FILL = 1 << 22, 1 << 21
@@ -224,7 +279,9 @@ def _wrappers():
     from tfplus_tpu_torch.ops import flash_attention as fa, rowops
     return {"gather_rows": rowops.gather_rows,
             "scatter_rows": rowops.scatter_rows,
-            "flash_fwd": fa.flash_fwd, "flash_fwd_single": fa.flash_fwd_single}
+            "flash_fwd": fa.flash_fwd, "flash_fwd_single": fa.flash_fwd_single,
+            "flash_bwd_dkv": fa.flash_bwd_dkv,
+            "flash_bwd_dq": fa.flash_bwd_dq}
 
 
 def reset_launches():
@@ -691,25 +748,25 @@ def din_reference(np, model, p, e_item, e_user, feats):
     return _ref_dense(p, h, "dnn_logits")[:, 0]
 
 
-def sequence_batch(np, models, rng, keys, resident):
+def sequence_batch(np, models, rng, keys, resident, batch=BATCH):
     """One request: candidates and histories of resident items with 5 %
     unknown ids, pad id 0 (never inserted) behind each history, users with
     5 % unknown."""
-    mask = bst_token_mask(np, rng, BATCH)
-    item = keys["item"][rng.choice(resident["item"], (BATCH, HIST + 1))]
-    unknown = rng.rand(BATCH, HIST + 1) < 0.05
+    mask = bst_token_mask(np, rng, batch)
+    item = keys["item"][rng.choice(resident["item"], (batch, HIST + 1))]
+    unknown = rng.rand(batch, HIST + 1) < 0.05
     item[unknown] = rng.randint(1 << 41, 1 << 42, int(unknown.sum()),
                                 dtype=np.int64)
     seq = np.where(mask > 0, item[:, 1:], 0)
-    user = keys["user"][rng.choice(resident["user"], BATCH)]
-    unknown = rng.rand(BATCH) < 0.05
+    user = keys["user"][rng.choice(resident["user"], batch)]
+    unknown = rng.rand(batch) < 0.05
     user[unknown] = rng.randint(1 << 41, 1 << 42, int(unknown.sum()),
                                 dtype=np.int64)
     return {"ids": {"item": models.DIN.pack_item_ids(item[:, 0], seq),
                     "user": user},
-            "features": {"numeric": rng.randn(BATCH, 4).astype(np.float32),
+            "features": {"numeric": rng.randn(batch, 4).astype(np.float32),
                          "mask": mask},
-            "labels": rng.randint(0, 2, BATCH).astype(np.float32)}
+            "labels": rng.randint(0, 2, batch).astype(np.float32)}
 
 
 def serve_sequence_model(torch, np, name, model, step, state, batches,
@@ -854,6 +911,479 @@ def sequence_serving_phase(torch, np, kv, embedding, models, profile_dir):
     return out
 
 
+# ---------------------------------------------------------------------------
+# attention backward
+# ---------------------------------------------------------------------------
+
+def backward_bound(fa, q, k, qs, ks, causal, kernel):
+    """Least time of one backward kernel on these inputs, ``(ms, bound_by,
+    flops)``: the larger of its operations on the valid (row, key) pairs
+    (2·D per product: four for dkv, three for dq) over the peak rate of q's
+    type, and the bytes it must move over the HBM rate: q and do rows that
+    hit a key, k and v rows that some row hits, and l, m, di of the hit
+    rows, each read once; its outputs (dk and dv, or dq) written once; the
+    segment ids read once."""
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    esz = q.element_size()
+    mask = fa._attention_mask(sq, skv, qs, ks, causal, q.device).expand(
+        b, sq, skv)
+    flops = (8 if kernel == "dkv" else 6) * d * h * int(mask.sum())
+    rows, keys = int(mask.any(-1).sum()), int(mask.any(-2).sum())
+    nbytes = 2 * (rows + keys) * h * d * esz + 3 * 4 * rows * h
+    nbytes += (2 * b * h * skv if kernel == "dkv" else b * h * sq) * d * esz
+    if qs is not None:
+        nbytes += 4 * (qs.numel() + ks.numel())
+    t_bytes = bound_ms(nbytes)
+    t_ops = flops / PEAK_FLOPS[_dtype_name(q.dtype)] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), flops
+
+
+def sdpa_backward_call(torch, fa, q, k, v, qs, ks, causal, sm_scale, do):
+    """The backward alone of one ``scaled_dot_product_attention`` call on the
+    same inputs: the forward runs once here, untimed (a yardstick only; the
+    port never calls it)."""
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = sdpa_call(torch, fa, *leaves, qs, ks, causal, sm_scale)()
+    return lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+
+def backward_case(torch, np, fa, name, gen, q, k, v, causal, seg=None,
+                  p_dropout=0.0):
+    """Hold both backward kernels against their plain versions on the card
+    and against float64 autograd through ``reference_attention``, rerun them
+    bit for bit, and time kernel, plain version, bound and SDPA's
+    backward."""
+    b, h, s, d = q.shape
+    dtype = q.dtype
+    dname = _dtype_name(dtype)
+    do = torch.randn(q.shape, device=DEV, generator=gen).to(dtype)
+    qs = ks = seg
+    sm = 1.0 / float(np.sqrt(d))
+    out, l, m = fa._fwd_dispatch(q, k, v, qs, ks, SEED, causal, sm,
+                                 p_dropout, save_residuals=True)
+    di = fa._delta(do, out)
+    args = (q, k, v, qs, ks, SEED, do, l, m, di)
+    kw = dict(causal=causal, sm_scale=sm, p_dropout=p_dropout)
+    dk, dv = fa.flash_bwd_dkv(*args, **kw)
+    dq = fa.flash_bwd_dq(*args, **kw)
+    want_dk, want_dv = fa.bwd_dkv_plain(*args, **kw)
+    want_dq = fa.bwd_dq_plain(*args, **kw)
+    again = fa.flash_bwd_dkv(*args, **kw) + (fa.flash_bwd_dq(*args, **kw),)
+    torch.cuda.synchronize()
+    atol, rtol = BWD_TOL[dname]
+
+    def vs_plain(got, want):
+        g, w = got.float(), want.float()
+        return (float(((g - w).abs() / (atol + rtol * w.abs())).max()),
+                float((g - w).abs().max()))
+
+    leaves = [t.double().requires_grad_() for t in (q, k, v)]
+    ref = fa.reference_attention(*leaves, causal=causal, sm_scale=sm,
+                                 q_segment_ids=qs, kv_segment_ids=ks,
+                                 p_dropout=p_dropout, dropout_seed=SEED)
+    f64 = torch.autograd.grad(ref, leaves, do.double())
+    del ref, leaves
+    f64_ratio = [float((g.double() - w).abs().max())
+                 / max(float(w.abs().max()), 1e-30) / BWD_F64_TOL[dname]
+                 for g, w in zip((dq, dk, dv), f64)]
+    del f64
+    c = {"dtype": dname, "shape": [b, h, s, d], "causal": causal,
+         "segments": seg is not None, "p_dropout": p_dropout,
+         "rerun_bit_identical": all(torch.equal(x, y) for x, y in
+                                    zip(again, (dk, dv, dq))),
+         "f64_err_ratio_dq_dk_dv": f64_ratio}
+    for kernel, got, want in (("flash_bwd_dkv", (dk, dv), (want_dk, want_dv)),
+                              ("flash_bwd_dq", (dq,), (want_dq,))):
+        errs = [vs_plain(g, w) for g, w in zip(got, want)]
+        c[kernel] = {"err_ratio": max(e[0] for e in errs),
+                     "max_abs_err": max(e[1] for e in errs)}
+    check(c["flash_bwd_dkv"]["err_ratio"] <= 1
+          and c["flash_bwd_dq"]["err_ratio"] <= 1 and max(f64_ratio) <= 1
+          and c["rerun_bit_identical"],
+          f"backward case {name}: kernels differ: {json.dumps(c)}")
+    del again, want_dk, want_dv, want_dq
+    for kernel, fn, plain in (
+            ("flash_bwd_dkv", fa.flash_bwd_dkv, fa.bwd_dkv_plain),
+            ("flash_bwd_dq", fa.flash_bwd_dq, fa.bwd_dq_plain)):
+        e = c[kernel]
+        e["ms"] = time_ms(torch, lambda fn=fn: fn(*args, **kw))
+        e["plain_ms"] = time_ms(torch, lambda plain=plain: plain(*args, **kw),
+                                reps=5)
+        e["bound_ms"], e["bound_by"], flops = backward_bound(
+            fa, q, k, qs, ks, causal, kernel.split("_")[-1])
+        e["tflops"] = flops / e["ms"] / 1e9
+    c["library_ms"] = None if p_dropout else time_ms(
+        torch, sdpa_backward_call(torch, fa, q, k, v, qs, ks, causal, sm, do))
+    torch.cuda.empty_cache()
+    return c, (do, dq, dk, dv)
+
+
+def attention_backward_phase(torch, np, fa, bench):
+    """Four backward cases: (a) the bench shape, on the forward phase's
+    inputs, whose gradients the entry-point phase reproduces; (b) BST's
+    heads; (c) dropout at S1000; (d) segments from lengths."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 4)
+    rng = np.random.RandomState(SEED + 4)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def rand(b, h, s, d, dtype):
+        return [torch.randn(b, h, s, d, device=DEV, generator=gen).to(dtype)
+                for _ in range(3)]
+
+    tok = np.concatenate([bst_token_mask(np, rng, BATCH),
+                          np.ones((BATCH, 1), np.float32)], axis=1)
+    bst_seg = torch.from_numpy(np.pad(np.where(tok > 0, 0, -1), (
+        (0, 0), (0, 128 - tok.shape[1])), constant_values=-1)).to(
+            device=DEV, dtype=torch.int32)
+    bench_seg = fa.make_segment_ids_from_lengths(
+        torch.from_numpy(rng.randint(512, 2049, 4)).to(DEV), 2048)
+    specs = [("a_bench_causal_bf16", lambda: bench[:3], True, None, 0.0),
+             ("b_bst_f32", lambda: rand(BATCH, 8, 128, 8, f32), False,
+              bst_seg, 0.0)]
+    specs += [(f"c_s1000_dropout_{'causal' if c else 'full'}_"
+               f"{_dtype_name(t)}", lambda t=t: rand(2, 8, 1000, 64, t), c,
+               None, 0.2) for c in (True, False) for t in (f32, bf16)]
+    specs += [("d_segments_bf16", lambda: rand(4, 8, 2048, 128, bf16), False,
+               bench_seg, 0.0)]
+    cases, bench_grads = {}, None
+    for name, make, causal, seg, p in specs:
+        q, k, v = make()
+        cases[name], grads = backward_case(torch, np, fa, name, gen, q, k, v,
+                                           causal, seg, p)
+        if name == "a_bench_causal_bf16":
+            bench_grads = grads
+        del q, k, v, grads
+        print("backward case", name, json.dumps(cases[name]), flush=True)
+    torch.cuda.empty_cache()
+    return cases, bench_grads
+
+
+def flash_grad_path_phase(torch, fa, bench, bench_grads, reps=10):
+    """``flash_attention(causal=True)`` forward and backward at the bench's
+    shape, reported as the JAX bench's ``grad=True`` leg counts it (3.5 ×
+    the forward's operations, ``bench.py:116``)."""
+    do, dq, dk, dv = bench_grads
+    leaves = [t.detach().clone().requires_grad_() for t in bench[:3]]
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fa.flash_attention(*leaves, causal=True)
+        grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    check(launches["flash_fwd"] == reps and launches["flash_bwd_dkv"] == reps
+          and launches["flash_bwd_dq"] == reps,
+          f"flash gradients did not launch the kernels: {launches}")
+    check(all(torch.equal(g, w) for g, w in zip(grads, (dq, dk, dv))),
+          "flash_attention's gradients differ from the checked kernels'")
+    _, _, flops = attention_bound(fa, *leaves[:2], None, None, True, False)
+    tflops = reps * 3.5 * flops / dt / 1e12
+    print(f"flash gradients: {tflops:.4f} TFLOP/s (flash_attention forward "
+          f"+ backward x{reps}, causal bf16 B4 H8 S2048 D128, in {dt:.6f} s); "
+          f"launches {json.dumps(launches)}", flush=True)
+    return launches, tflops
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def peak_memory(torch, name):
+    """Print the phase's peak device memory, free its caches and reset."""
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"{name}: peak device memory {peak:.3f} GiB", flush=True)
+    return peak
+
+
+def dcn_batch(np, rng, keys, resident, batch, unseen=0.05):
+    ids = {}
+    for name, k in keys.items():
+        col = k[rng.choice(resident[name], batch)]
+        unknown = rng.rand(batch) < unseen
+        col[unknown] = rng.randint(1 << 41, 1 << 42, int(unknown.sum()),
+                                   dtype=np.int64)
+        ids[name] = col
+    return {"ids": ids, "features": rng.randn(batch, 13).astype(np.float32),
+            "labels": rng.randint(0, 2, batch).astype(np.float32)}
+
+
+def fill_tables(torch, np, kv, state, keys, gen):
+    """Insert ``keys[name]`` with random rows; returns the indices of the
+    keys each table placed."""
+    for name in sorted(state.tables):
+        t = state.tables[name]
+        kv.insert(t, kv.encode_ids(keys[name], device=DEV),
+                  torch.randn(keys[name].shape[0], t.dim, device=DEV,
+                              generator=gen), day=1)
+    resident = {}
+    for name, k in keys.items():
+        found = kv.find(state.tables[name],
+                        kv.encode_ids(k, device=DEV)).found.cpu().numpy()
+        check(found.mean() > 0.999, f"fill: {name} placed too few rows")
+        resident[name] = np.nonzero(found)[0]
+    return resident
+
+
+def train_path(torch, name, step, state, batches, per_step, profile_dir):
+    """Two warm-up steps, then the timed ones; the launch counts are reset
+    by the caller before the tables were filled."""
+    for b in batches[:2]:
+        state, loss, _ = step(state, b)
+    torch.cuda.synchronize()
+    before = read_launches()
+    t0 = time.perf_counter()
+    losses = []
+    for b in batches[2:]:
+        state, loss, preds = step(state, b)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    after = read_launches()
+    n = len(batches) - 2
+    check(all(bool(torch.isfinite(x)) for x in losses)
+          and bool(torch.isfinite(preds).all()), f"{name}: non-finite loss")
+    steps = {k: (after[k] - before[k]) / n for k in after}
+    for k in per_step:
+        check(steps[k] == per_step[k],
+              f"{name}: expected {per_step[k]} {k} per step: {steps}")
+    check(steps["gather_rows"] > 0 and steps["scatter_rows"] > 0,
+          f"{name}: the row kernels were not launched: {steps}")
+    rate = n * BATCH / dt
+    print(f"{name} training: {rate:.1f} examples/s ({n} steps of batch "
+          f"{BATCH} in {dt:.6f} s, loss {float(losses[0]):.6f} -> "
+          f"{float(losses[-1]):.6f}); kernel launches per step "
+          f"{json.dumps(steps)}", flush=True)
+    if profile_dir:
+        profile_calls(torch, f"{name.lower()}_train",
+                      [lambda b=b: step(state, b) for b in batches[2:5]],
+                      dt / n, profile_dir)
+    return state, after, rate, steps
+
+
+def dcn_training_phase(torch, np, kv, models, train, profile_dir):
+    """Reference-width DCN: GroupAdam 1e-3 and dense Adam 1e-3 (the JAX
+    bench's DCN leg), 26 tables of 2^20 rows with 2^19 keys each."""
+    model = models.DCN(capacity=C_ROWS)
+    opt = train.GroupAdamOptimizer()
+    rng = np.random.RandomState(SEED + 5)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 5)
+    keys = {f"C{i + 1}": rng.permutation(np.unique(rng.randint(
+        0, 1 << 40, FILL + FILL // 8, dtype=np.int64)))[:FILL]
+        for i in range(len(model.embedding_dims))}
+    reset_launches()
+    t0 = time.perf_counter()
+    state = models.init_state(model, opt,
+                              functools.partial(torch.optim.Adam, lr=1e-3),
+                              seed=SEED, device=DEV)
+    resident = fill_tables(torch, np, kv, state, keys, gen)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    payload_gib = sum(t.payload.numel() * t.payload.element_size()
+                      for t in state.tables.values()) / 2 ** 30
+    print(f"DCN training fill: 26 tables x {C_ROWS} rows x 4·D "
+          f"({payload_gib:.3f} GiB payload), {FILL} keys each, in "
+          f"{fill_s:.3f} s", flush=True)
+    batches = [dcn_batch(np, rng, keys, resident, BATCH)
+               for _ in range(TRAIN_STEPS + 2)]
+    step = models.make_train_step(model, opt, sparse_lr=1e-3)
+    state, launches, rate, per_step = train_path(
+        torch, "DCN", step, state, batches, {"flash_fwd": 0}, profile_dir)
+    del state
+    return launches, rate, per_step, peak_memory(torch, "DCN training")
+
+
+def bst_training_phase(torch, np, kv, models, train, profile_dir):
+    """BST at published widths: Adam 0.01 and dense Adam 0.01 (the paper's
+    Table 2 learning rate), the item and user tables of the serving phase
+    with Adam's slots."""
+    model = models.BST(**BST_CONFIG)
+    model.table_specs["user"]["capacity"] = USER_ROWS
+    opt = train.AdamOptimizer()
+    fills = {"item": ITEM_FILL, "user": USER_FILL}
+    rng = np.random.RandomState(SEED + 6)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 6)
+    keys = {name: rng.permutation(np.unique(rng.randint(
+        1, 1 << 40, n + n // 8, dtype=np.int64)))[:n]
+        for name, n in fills.items()}
+    reset_launches()
+    state = models.init_state(model, opt,
+                              functools.partial(torch.optim.Adam, lr=0.01),
+                              seed=SEED, device=DEV)
+    resident = fill_tables(torch, np, kv, state, keys, gen)
+    batches = [sequence_batch(np, models, rng, keys, resident)
+               for _ in range(TRAIN_STEPS + 2)]
+    step = models.make_train_step(model, opt, sparse_lr=0.01)
+    blocks = model.num_blocks
+    state, launches, rate, per_step = train_path(
+        torch, "BST", step, state, batches,
+        {"flash_fwd_single": blocks, "flash_bwd_dkv": blocks,
+         "flash_bwd_dq": blocks, "flash_fwd": 0}, profile_dir)
+    del state
+    return launches, rate, per_step, peak_memory(torch, "BST training")
+
+
+def copy_state(torch, convert, models, state, device, dense_tx):
+    """A copy of ``state`` on ``device`` with a fresh dense optimizer."""
+    tables = {n: dataclasses.replace(t, **{
+        f: getattr(t, f).to(device, copy=True) for f in convert.TABLE_FIELDS})
+        for n, t in state.tables.items()}
+    dense = copy.deepcopy(state.dense).to(device)
+    return models.TrainState(tables=tables, dense=dense,
+                             opt_state=dense_tx(dense.parameters()),
+                             step=state.step.to(device, copy=True))
+
+
+def check_setup(np, models, train, name, seed):
+    """Model, sparse optimizer, dense factory, sparse lr and a batch maker
+    for the training checks: the reference widths with every table cut to
+    2^14 rows, ids drawn from a few thousand per table (duplicates within
+    and across steps; every table starts empty, so step 1 inserts; BST's
+    batches add 5 % unknown ids, as its requests do)."""
+    rng = np.random.RandomState(seed)
+    if name == "DCN":
+        model = models.DCN(capacity=CHECK_ROWS)
+        universe = {n: rng.randint(0, 1 << 40, 4000, dtype=np.int64)
+                    for n in model.table_specs}
+
+        def batch(b):
+            return dcn_batch(np, rng, universe,
+                             {n: np.arange(4000) for n in universe}, b,
+                             unseen=0.0)
+        return model, train.GroupAdamOptimizer(), 1e-3, 1e-3, batch
+    model = models.BST(**dict(BST_CONFIG, capacity=CHECK_ROWS))
+    universe = {"item": rng.randint(1, 1 << 40, 4000, dtype=np.int64),
+                "user": rng.randint(1, 1 << 40, 3000, dtype=np.int64)}
+
+    def batch(b):
+        return sequence_batch(np, models, rng, universe,
+                              {n: np.arange(len(u))
+                               for n, u in universe.items()}, b)
+    return model, train.AdamOptimizer(), 0.01, 0.01, batch
+
+
+def run_steps(models, model, opt, lr, state, batches):
+    """Train on ``batches``: ``(state, losses, the dense gradients of the
+    first step)``."""
+    step = models.make_train_step(model, opt, sparse_lr=lr)
+    losses, first = [], None
+    for b in batches:
+        state, loss, _ = step(state, b)
+        losses.append(float(loss))
+        if first is None:
+            first = [p.grad.detach().cpu().clone()
+                     for p in state.dense.parameters()]
+    return state, losses, first
+
+
+def state_arrays(torch, state):
+    return ({n: (t.header.cpu(), t.payload.cpu())
+             for n, t in state.tables.items()},
+            {k: v.detach().cpu() for k, v in state.dense.state_dict().items()})
+
+
+def training_checks_phase(torch, np, kv, models, train, convert):
+    """(1) card against CPU, (2) determinism, (3) the loss falls; each at the
+    reference widths with tables of 2^14 rows."""
+    out = {}
+    for i, name in enumerate(("DCN", "BST")):
+        model, opt, lr, dense_lr, batch = check_setup(np, models, train, name,
+                                                      SEED + 10 + i)
+        tx = functools.partial(torch.optim.Adam, lr=dense_lr)
+        init = models.init_state(model, opt, tx, seed=SEED + 10 + i,
+                                 device="cpu")
+        # (1) batch-256 steps on the CPU and on the card
+        batches = [batch(CHECK_BATCH) for _ in range(CHECK_STEPS)]
+        states, losses, grads = {}, {}, {}
+        for dev in ("cpu", DEV):
+            states[dev], losses[dev], grads[dev] = run_steps(
+                models, model, opt, lr,
+                copy_state(torch, convert, models, init, dev, tx), batches)
+        (tc, pc), (tg, pg) = (state_arrays(torch, states[d])
+                              for d in ("cpu", DEV))
+        slots_equal = all(
+            torch.equal(kv.find(states["cpu"].tables[n], kv.encode_ids(
+                np.concatenate([b["ids"][n] for b in batches]),
+                device="cpu")).slot,
+                kv.find(states[DEV].tables[n], kv.encode_ids(
+                    np.concatenate([b["ids"][n] for b in batches]),
+                    device=DEV)).slot.cpu())
+            for n in tc)
+        atol, rtol = TRAIN_TOL["atol"], TRAIN_TOL["rtol"]
+
+        def diff(got, want, step_lr):
+            """Share of elements past the tight limit, and the largest
+            difference in learning rates."""
+            over = total = 0
+            worst = 0.0
+            for g, w in zip(got, want):
+                g, w = g.double(), w.double()
+                d = (g - w).abs()
+                over += int((d > atol + rtol * w.abs()).sum())
+                total += w.numel()
+                worst = max(worst, float(d.max()) / step_lr)
+            return {"share_past_tight": over / total, "elements": total,
+                    "max_abs_err_in_lr": worst}
+
+        c = {"headers_bit_identical": all(torch.equal(tc[n][0], tg[n][0])
+                                          for n in tc),
+             "slots_bit_identical": slots_equal,
+             "loss_cpu": losses["cpu"], "loss_card": losses[DEV],
+             "loss_max_abs_err": max(abs(a - b) for a, b in
+                                     zip(losses["cpu"], losses[DEV])),
+             # step 1's dense gradients, each tensor against its own scale
+             "grad_err_ratio": max(
+                 float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+                 for g, w in zip(grads[DEV], grads["cpu"]))
+             / TRAIN_TOL["grad"],
+             # the rows the steps placed (equal headers: equal rows)
+             "payload": diff(*([t[n][1][kv.occupied_mask(
+                 states["cpu"].tables[n])] for n in tc] for t in (tg, tc)),
+                 lr),
+             "dense": diff([pg[k] for k in pc], [pc[k] for k in pc],
+                           dense_lr)}
+        del states, tc, pc, tg, pg
+        # (2) two runs of batch-2048 steps on the card from clones of one
+        # state
+        batches = [batch(BATCH) for _ in range(CHECK_STEPS)]
+        runs = [state_arrays(torch, run_steps(
+            models, model, opt, lr,
+            copy_state(torch, convert, models, init, DEV, tx), batches)[0])
+            for _ in range(2)]
+        c["rerun_bit_identical"] = (
+            all(torch.equal(x, y) for n in runs[0][0]
+                for x, y in zip(runs[0][0][n], runs[1][0][n]))
+            and all(torch.equal(runs[0][1][k], runs[1][1][k])
+                    for k in runs[0][1]))
+        del runs
+        # (3) ten steps on one batch-2048 batch
+        _, falling, _ = run_steps(models, model, opt, lr,
+                               copy_state(torch, convert, models, init, DEV,
+                                          tx), [batches[0]] * 10)
+        c["loss_on_one_batch"] = [falling[0], falling[-1]]
+        print(f"{name} training checks:", json.dumps(c), flush=True)
+        check(c["headers_bit_identical"] and c["slots_bit_identical"]
+              and c["loss_max_abs_err"] <= TRAIN_TOL["loss"] * max(
+                  1.0, max(abs(x) for x in losses["cpu"]))
+              and c["grad_err_ratio"] <= 1
+              and all(c[k]["share_past_tight"] <= TRAIN_TOL["share"]
+                      and c[k]["max_abs_err_in_lr"] <= CHECK_STEPS
+                      for k in ("payload", "dense")),
+              f"{name}: training on the card differs from the CPU: {c}")
+        check(c["rerun_bit_identical"],
+              f"{name}: two runs of the same steps differ on the card")
+        check(falling[-1] < falling[0],
+              f"{name}: ten steps on one batch did not lower the loss")
+        out[name] = c
+    peak_memory(torch, "training checks")
+    return out
+
+
 def profile_calls(torch, name, calls, call_s, out_dir):
     """torch.profiler over a few calls of one path: device kernel time and
     kernel launches per call, and the device's busy share of an unprofiled
@@ -902,11 +1432,22 @@ def attention_entry(name, replaces, launches, cases, main_case):
             "library_ms": c["library_ms"]}
 
 
+def backward_entry(name, replaces, launches, cases, main_case):
+    c = cases[main_case][name]
+    return {"name": name, "route": "cuda",
+            "source": "tfplus_tpu_torch/ops/csrc/flash_bwd.cu",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(x[name]["max_abs_err"] for x in cases.values()),
+            "ms": c["ms"], "plain_ms": c["plain_ms"],
+            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+            "library_ms": cases[main_case]["library_ms"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR",
-                    help="write torch.profiler tables of the serving paths "
-                    "here")
+                    help="write torch.profiler tables of the serving and "
+                    "training paths here")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -915,7 +1456,7 @@ def main() -> int:
         return 1
     try:
         import numpy as np
-        from tfplus_tpu_torch import embedding, kv, models
+        from tfplus_tpu_torch import convert, embedding, kv, models, train
         from tfplus_tpu_torch.kv import hashing
         from tfplus_tpu_torch.ops import _build, rowops
         from tfplus_tpu_torch.ops import flash_attention as fa
@@ -933,21 +1474,33 @@ def main() -> int:
 
     cases = kernel_phase(torch, rowops)
     attn_cases, bench = attention_phase(torch, np, fa)
+    bwd_cases, bench_grads = attention_backward_phase(torch, np, fa, bench)
+    peak_memory(torch, "attention kernels")
     emb_launches, emb_rate = embedding_serving_phase(
         torch, np, kv, hashing, rowops, args.profile)
+    peak_memory(torch, "embedding serving")
     dcn_launches, dcn_rate, per_request = dcn_serving_phase(
         torch, np, kv, embedding, models, rowops, args.profile)
+    peak_memory(torch, "DCN serving")
     flash_launches = flash_path_phase(torch, fa, bench)
-    del bench
+    grad_launches, grad_tflops = flash_grad_path_phase(torch, fa, bench,
+                                                       bench_grads)
+    del bench, bench_grads
+    peak_memory(torch, "flash entry points")
     seq = sequence_serving_phase(torch, np, kv, embedding, models,
                                  args.profile)
+    peak_memory(torch, "BST/DIN serving")
+    checks = training_checks_phase(torch, np, kv, models, train, convert)
+    dcn_train = dcn_training_phase(torch, np, kv, models, train, args.profile)
+    bst_train = bst_training_phase(torch, np, kv, models, train, args.profile)
 
     errs = {k: [c[f"{k}_err"] for c in cases.values()]
             for k in ("gather", "scatter_set", "scatter_add")}
     check(max(max(v) for v in errs.values()) == 0.0,
           "a kernel differs from its plain version")
     paths = [emb_launches, dcn_launches, flash_launches,
-             seq["fill_launches"], seq["BST"][0], seq["DIN"][0]]
+             seq["fill_launches"], seq["BST"][0], seq["DIN"][0],
+             grad_launches, dcn_train[0], bst_train[0]]
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
     src = "tfplus_tpu_torch/ops/csrc/rowops.cu"
     main_case = cases[f"float32_w128_n{N_IDS}"]     # the serving-leg shape
@@ -965,6 +1518,14 @@ def main() -> int:
         attention_entry("flash_fwd_single",
                         "tfplus_tpu/ops/flash_attention.py:267",
                         launches["flash_fwd_single"], attn_cases, "bst_f32"),
+        backward_entry("flash_bwd_dkv",
+                       "tfplus_tpu/ops/flash_attention.py:589",
+                       launches["flash_bwd_dkv"], bwd_cases,
+                       "a_bench_causal_bf16"),
+        backward_entry("flash_bwd_dq",
+                       "tfplus_tpu/ops/flash_attention.py:636",
+                       launches["flash_bwd_dq"], bwd_cases,
+                       "a_bench_causal_bf16"),
     ]
     check(all(e["launches"] > 0 for e in kernels),
           f"a kernel was not launched on its path: {kernels}")
@@ -977,6 +1538,16 @@ def main() -> int:
         "bst_launches_per_request": seq["BST"][2],
         "din_examples_per_s": seq["DIN"][1],
         "din_launches_per_request": seq["DIN"][2]}}))
+    print(json.dumps({"training": {
+        "flash_grad_tflops": grad_tflops,
+        "flash_grad_launches": grad_launches,
+        "dcn_examples_per_s": dcn_train[1],
+        "dcn_launches_per_step": dcn_train[2],
+        "dcn_peak_gib": dcn_train[3],
+        "bst_examples_per_s": bst_train[1],
+        "bst_launches_per_step": bst_train[2],
+        "bst_peak_gib": bst_train[3],
+        "checks": checks}}))
     print(smi_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

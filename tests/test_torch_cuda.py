@@ -8,7 +8,11 @@ kernel is held against its plain version at odd lengths, head dims 8/64/128,
 f32 and bf16, causal, segments and dropout: f32 within ``atol = rtol =
 1e-5`` (another summation order; one flipped dropout bit moves an output by
 ~1e-3), bf16 within ``1e-2`` (one bf16 ulp of the output). BST and DIN
-served on the card give the CPU's predictions within ``1e-5``. Marked
+served on the card give the CPU's predictions within ``1e-5``. The flash
+backward kernels are held against their plain versions (same limits) and
+float64 autograd, run deterministically, and a CUDA backward never reaches
+a plain version; a few DCN and BST training steps on the card match the
+same steps on the CPU. Marked
 ``cuda``: every test skips without a card. On a machine with a card and
 without JAX, run
 
@@ -275,3 +279,182 @@ def test_sequence_models_serve_the_same_on_the_card(cuda, name):
     for a, b in zip(out["cpu"], out[str(cuda)]):
         np.testing.assert_allclose(b.numpy(), a.numpy(), atol=1e-5,
                                    rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# flash-attention backward
+# ---------------------------------------------------------------------------
+
+def _backward_inputs(seed, b, h, sq, skv, d, dtype, device, segments,
+                     causal, p_dropout):
+    q, k, v, qs, ks = _attention_inputs(seed, b, h, sq, skv, d, dtype, device,
+                                        segments)
+    out, l, m = fa.flash_fwd(q, k, v, qs, ks, 5, causal=causal, sm_scale=0.2,
+                             p_dropout=p_dropout)
+    gen = torch.Generator().manual_seed(seed + 1)
+    do = torch.randn(q.shape, generator=gen).to(device=device, dtype=dtype)
+    return q, k, v, qs, ks, do, l, m, fa._delta(do, out), out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 64, 128])
+@pytest.mark.parametrize("causal,segments,p_dropout", [
+    (False, False, 0.0), (True, False, 0.0), (False, True, 0.0),
+    (True, True, 0.2), (False, True, 0.2)])
+def test_flash_bwd_matches_plain(cuda, dtype, d, causal, segments, p_dropout):
+    """Both backward kernels at odd lengths against their plain versions:
+    f32 within 1e-5 (another summation order; one flipped dropout bit moves
+    a gradient by ~1e-2), bf16 within 1e-2 (an intermediate that rounds the
+    other way moves a gradient by a bf16 ulp of one term)."""
+    b, h, sq, skv = 2, 3, 333, 275 if causal else 400
+    q, k, v, qs, ks, do, l, m, di, _ = _backward_inputs(
+        d + 100, b, h, sq, skv, d, dtype, cuda, segments, causal, p_dropout)
+    kw = dict(causal=causal, sm_scale=0.2, p_dropout=p_dropout)
+    before = fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches
+    dk, dv = fa.flash_bwd_dkv(q, k, v, qs, ks, 5, do, l, m, di, **kw)
+    dq = fa.flash_bwd_dq(q, k, v, qs, ks, 5, do, l, m, di, **kw)
+    assert (fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches) == (
+        before[0] + 1, before[1] + 1)
+    torch.cuda.synchronize()
+    want_dk, want_dv = fa.bwd_dkv_plain(q, k, v, qs, ks, 5, do, l, m, di, **kw)
+    want_dq = fa.bwd_dq_plain(q, k, v, qs, ks, 5, do, l, m, di, **kw)
+    assert dq.dtype == dk.dtype == dv.dtype == dtype
+    _assert_close((dq, dk, dv), (want_dq, want_dk, want_dv), dtype)
+    # a rerun is bit-identical (no atomics)
+    assert torch.equal(fa.flash_bwd_dq(q, k, v, qs, ks, 5, do, l, m, di, **kw),
+                       dq)
+    assert all(torch.equal(a, b_) for a, b_ in zip(
+        fa.flash_bwd_dkv(q, k, v, qs, ks, 5, do, l, m, di, **kw), (dk, dv)))
+
+
+def test_flash_gradients_on_the_card_match_float64(cuda):
+    """``flash_attention``'s autograd through both backward kernels against
+    float64 autograd through ``reference_attention`` (f32, within 1e-5 of
+    the gradients' scale)."""
+    q, k, v, qs, ks = _attention_inputs(3, 2, 4, 200, 200, 32, torch.float32,
+                                        cuda, True)
+    do = torch.randn(q.shape, device=cuda)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention(*leaves, causal=True, q_segment_ids=qs,
+                             kv_segment_ids=ks, p_dropout=0.1,
+                             dropout_seed=4)
+    got = torch.autograd.grad(out, leaves, do)
+    ref_leaves = [t.double().requires_grad_() for t in (q, k, v)]
+    ref = fa.reference_attention(*ref_leaves, causal=True, q_segment_ids=qs,
+                                 kv_segment_ids=ks, p_dropout=0.1,
+                                 dropout_seed=4)
+    want = torch.autograd.grad(ref, ref_leaves, do.double())
+    for g, w in zip(got, want):
+        scale = float(w.abs().max())
+        assert float((g.double() - w).abs().max()) <= 1e-5 * scale
+
+
+def test_cuda_backward_never_runs_the_plain_versions(cuda, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    for name in ("bwd_plain", "bwd_dkv_plain", "bwd_dq_plain",
+                 "fwd_single_plain", "fwd_tiled_plain", "reference_attention"):
+        monkeypatch.setattr(fa, name, refuse)
+    launches = fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches
+    for causal in (False, True):
+        q, k, v, _, _ = _attention_inputs(0, 2, 8, 150, 150, 8,
+                                          torch.float32, cuda, False)
+        leaves = [t.requires_grad_() for t in (q, k, v)]
+        fa.flash_attention(*leaves, causal=causal).sum().backward()
+        assert all(bool(torch.isfinite(t.grad).all()) for t in leaves)
+    torch.cuda.synchronize()
+    assert (fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches) == (
+        launches[0] + 2, launches[1] + 2)
+
+
+@pytest.mark.parametrize("name", ["DCN", "BST"])
+def test_training_step_on_the_card_matches_the_cpu(cuda, name):
+    """Three training steps from one state on the card and on the CPU:
+    headers (keys and meta) bit for bit; losses within 1e-5, payloads and
+    dense parameters within atol 2e-5, rtol 1e-4 (the CPU parity tests'
+    limits: Adam steps whose error follows the gradients')."""
+    import functools
+
+    from tfplus_tpu_torch import train
+    if name == "DCN":
+        model = models.DCN(embedding_dims=(8, 16, 8), num_numeric=4,
+                           dnn_hidden=(32, 16), capacity=1024)
+        opt = train.GroupAdamOptimizer()
+    else:
+        model = _small_sequence_model("BST")
+        opt = train.AdamOptimizer()
+    rng = np.random.RandomState(6)
+    batches = []
+    for _ in range(3):
+        if name == "DCN":
+            batches.append({
+                "ids": {f"C{i + 1}": rng.randint(0, 500, 64) for i in range(3)},
+                "features": rng.randn(64, 4).astype(np.float32),
+                "labels": rng.randint(0, 2, 64).astype(np.float32)})
+        else:
+            lengths = rng.randint(0, 8, 64)
+            mask = (np.arange(7)[None, :] < lengths[:, None]).astype(
+                np.float32)
+            seq = np.where(mask > 0, rng.randint(1, 500, (64, 7)), 0)
+            batches.append({
+                "ids": {"item": model.pack_item_ids(rng.randint(1, 500, 64),
+                                                    seq),
+                        "user": rng.randint(1, 500, 64)},
+                "features": {"numeric": rng.randn(64, 3).astype(np.float32),
+                             "mask": mask},
+                "labels": rng.randint(0, 2, 64).astype(np.float32)})
+    out = {}
+    for dev in ("cpu", cuda):
+        state = models.init_state(model, opt,
+                                  functools.partial(torch.optim.Adam, lr=1e-2),
+                                  seed=2, device=dev)
+        step = models.make_train_step(model, opt, sparse_lr=0.05)
+        bwd = fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches
+        losses = []
+        for b in batches:
+            state, loss, _ = step(state, b)
+            losses.append(float(loss))
+        if dev != "cpu" and name == "BST":
+            assert (fa.flash_bwd_dkv.launches - bwd[0],
+                    fa.flash_bwd_dq.launches - bwd[1]) == (3, 3)
+        out[str(dev)] = (losses, {n: (t.header.cpu(), t.payload.cpu())
+                                  for n, t in state.tables.items()},
+                         [p.detach().cpu() for p in state.dense.parameters()])
+    (lc, tc, pc), (lg, tg, pg) = out["cpu"], out[str(cuda)]
+    np.testing.assert_allclose(lg, lc, atol=1e-5, rtol=1e-5)
+    for n in tc:
+        assert torch.equal(tc[n][0], tg[n][0])
+        np.testing.assert_allclose(tg[n][1].numpy(), tc[n][1].numpy(),
+                                   atol=2e-5, rtol=1e-4)
+    for a, b in zip(pc, pg):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), atol=2e-5, rtol=1e-4)
+
+
+def test_take_backward_is_deterministic_on_the_card(cuda):
+    """The embedding take's backward on the card (sort-based ``index_put_``
+    accumulate) reruns bit for bit with one id repeated 20,000 times, as
+    BST's pad id is, and agrees with the CPU's within f32 summation
+    order."""
+    from tfplus_tpu_torch import embedding
+    gen = torch.Generator().manual_seed(1)
+    n, u, d = 60_000, 2_000, 64
+    inverse = torch.randint(0, u, (n,), generator=gen, dtype=torch.int32)
+    inverse[::3] = 0
+    rows = torch.randn(u, d, generator=gen)
+    grad = torch.randn(n, d, generator=gen)
+
+    def rows_grad(device):
+        look = embedding.Lookup(rows=None, slot=None,
+                                inverse=inverse.to(device), counts=None,
+                                valid=torch.ones(n, dtype=torch.bool,
+                                                 device=device),
+                                num_unique=None)
+        leaf = rows.to(device).requires_grad_()
+        (embedding.gather(look, leaf) * grad.to(device)).sum().backward()
+        return leaf.grad.cpu()
+
+    got = rows_grad(cuda)
+    assert all(torch.equal(got, rows_grad(cuda)) for _ in range(3))
+    np.testing.assert_allclose(got.numpy(), rows_grad("cpu").numpy(),
+                               atol=1e-3, rtol=1e-5)

@@ -6,6 +6,8 @@ over a 3-shard list matches too.
 Tolerance for preds and loss: float32 with a different summation order in
 the matmuls on each side, so ``atol = rtol = 1e-5``. Table lookups are
 copies and must match bit for bit."""
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +18,7 @@ import torch
 from tfplus_tpu import embedding as jemb, kv as jkv, models as jmodels
 from tfplus_tpu import train as tft
 from tfplus_tpu_torch import convert, embedding as temb, models as tmodels
+from tfplus_tpu_torch import train as ttrain
 from tfplus_tpu_torch.nn import layers as tlayers
 from test_torch_table import assert_same, assert_same_table, to_port
 
@@ -117,18 +120,28 @@ def test_lookup_unique_train_matches_jax():
 
 
 def test_training_is_a_later_slice():
+    """``train=True`` trains: tables get the optimizer's slot columns, the
+    step counts, repeated steps on one batch lower the loss, and serving
+    after training reads the trained rows."""
     _, tmodel = _models()
-    with pytest.raises(NotImplementedError, match="training"):
-        tmodels.make_train_step(tmodel, train=True)
-    with pytest.raises(NotImplementedError, match="training"):
-        tmodels.init_state(tmodel, sparse_opt=object(), device="cpu")
-    state = tmodels.init_state(tmodel, seed=3, device="cpu")
+    opt = ttrain.GroupAdamOptimizer()
+    state = tmodels.init_state(tmodel, opt,
+                               functools.partial(torch.optim.Adam, lr=1e-2),
+                               seed=3, device="cpu")
     assert sorted(state.tables) == ["C1", "C2", "C3"]
     assert state.tables["C1"].capacity == 256
+    assert state.tables["C1"].payload.shape == (256, 4 * 8)
     rng = np.random.RandomState(3)
-    _, loss, preds = tmodels.make_train_step(tmodel, train=False)(
-        state, _batch(rng, np.arange(100)))
-    assert preds.shape == (BATCH,) and torch.isfinite(loss)
+    batch = _batch(rng, np.arange(100))
+    step = tmodels.make_train_step(tmodel, opt, sparse_lr=0.05)
+    losses = []
+    for _ in range(5):
+        state, loss, preds = step(state, batch)
+        losses.append(float(loss))
+    assert preds.shape == (BATCH,) and int(state.step) == 5
+    assert losses[-1] < losses[0]
+    _, loss, _ = tmodels.make_train_step(tmodel, train=False)(state, batch)
+    assert float(loss) < losses[0]
 
 
 @pytest.mark.parametrize("make", [

@@ -8,6 +8,7 @@ pv (and, for the tiled route, another tile width in the online softmax), so
 p·v/(1 − p_dropout), far above that. bfloat16 outputs round to 8 bits of
 mantissa after the same f32 arithmetic, so they may differ by one bf16 ulp:
 ``atol = rtol = 1e-2``. The keep mask is compared bit for bit."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -190,12 +191,104 @@ def test_layer_matches_the_jax_layer():
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
 
 
+# (name, b, h, s, d, causal, segments, dtype, p_dropout); JAX's gradient
+# runs _flash_bwd -> _bwd_pallas in interpret mode (the dkv and dq kernels)
+GRAD_CASES = [
+    ("causal", 1, 2, 256, 32, True, False, "f32", 0.0),
+    ("noncausal_d8", 2, 2, 128, 8, False, False, "f32", 0.0),
+    ("segments_padding", 3, 2, 128, 8, False, True, "f32", 0.0),
+    ("odd_causal_segments", 2, 1, 200, 32, True, True, "f32", 0.0),
+    ("odd_noncausal", 1, 2, 200, 8, False, False, "f32", 0.0),
+    ("bf16_causal", 1, 2, 256, 32, True, False, "bf16", 0.0),
+    ("bf16_segments", 2, 2, 128, 8, False, True, "bf16", 0.0),
+    ("dropout_segments", 2, 2, 128, 8, False, True, "f32", 0.3),
+    ("dropout_causal_odd", 1, 2, 200, 32, True, False, "f32", 0.3),
+]
+# Gradients sum over up to S rows or keys in another order: f32 within
+# atol = rtol = 1e-5 (they agree to about 6e-7 here). bf16: p_d and ds round
+# to bf16 before their products on both sides, and an intermediate that
+# lands on the other side of a rounding boundary moves a gradient by a bf16
+# ulp of one term: atol = rtol = 1e-2, as for the bf16 outputs.
+GRAD_TOL = {"f32": F32_TOL, "bf16": BF16_TOL}
+
+
+@pytest.mark.parametrize("name,b,h,s,d,causal,segments,dtype,p_dropout",
+                         GRAD_CASES, ids=[c[0] for c in GRAD_CASES])
+def test_gradients_match_the_pallas_backward(name, b, h, s, d, causal,
+                                             segments, dtype, p_dropout):
+    q, k, v = _inputs(b, h, s, s, d, seed=len(name) + 3)
+    do = np.random.RandomState(d).randn(b, h, s, d).astype(np.float32)
+    seg = _segments(b, s, seed=s) if segments else None
+    jdt = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    kw = dict(causal=causal, p_dropout=p_dropout, dropout_seed=9)
+    jseg = None if seg is None else jnp.asarray(seg)
+
+    def jloss(q, k, v):
+        out = jfa.flash_attention(q, k, v, q_segment_ids=jseg,
+                                  kv_segment_ids=jseg, block_q=128,
+                                  block_k=128, interpret=True, **kw)
+        return jnp.sum(out.astype(jnp.float32) * do)
+
+    jgrads = jax.grad(jloss, argnums=(0, 1, 2))(
+        *(jnp.asarray(x, jdt) for x in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(x).to(tdt).requires_grad_()
+                  for x in (q, k, v))
+    out = tfa.flash_attention(tq, tk, tv, q_segment_ids=seg,
+                              kv_segment_ids=seg, **kw)
+    (out.float() * torch.from_numpy(do)).sum().backward()
+    for name_, t, j in zip("qkv", (tq, tk, tv), jgrads):
+        assert t.grad.dtype == tdt and t.grad.shape == t.shape
+        np.testing.assert_allclose(_f32(t.grad), _f32(j), err_msg=name_,
+                                   **GRAD_TOL[dtype])
+    if seg is not None:            # padding rows and keys get no gradient
+        pad = np.broadcast_to((seg < 0)[:, None, :, None], (b, h, s, d))
+        for t in (tq, tk, tv):
+            assert (_f32(t.grad)[pad] == 0).all()
+
+
+@pytest.mark.parametrize("causal,p_dropout", [(False, 0.0), (True, 0.0),
+                                              (False, 0.25), (True, 0.25)])
+def test_bwd_plain_matches_the_dense_recompute(causal, p_dropout):
+    """From one set of residuals: the port's tile-by-tile plain backward
+    against the JAX package's dense XLA recompute (``_flash_bwd`` off the
+    TPU without interpret)."""
+    b, h, s, d = 2, 2, 256, 16
+    q, k, v = _inputs(b, h, s, s, d, seed=11)
+    do = np.random.RandomState(12).randn(b, h, s, d).astype(np.float32)
+    seg = _segments(b, s, seed=13)
+    seed = np.asarray([21], np.int32)
+    jq, jk, jv, jseg = (jnp.asarray(x) for x in (q, k, v, seg))
+    out, l, m = jfa._fwd_dispatch(jq, jk, jv, jseg, jseg, jnp.asarray(seed),
+                                  causal, 0.3, 128, 128, True,
+                                  save_residuals=True, p_dropout=p_dropout)
+    res = (jq, jk, jv, jseg, jseg, jnp.asarray(seed), out, l, m)
+    want = jfa._flash_bwd(causal, 0.3, 128, 128, False, p_dropout, None, res,
+                          jnp.asarray(do))[:3]
+    tseg = torch.from_numpy(seg)
+    got = tfa.bwd_plain(*(torch.from_numpy(x) for x in (q, k, v)), tseg,
+                        tseg, 21, *(torch.from_numpy(np.array(x))
+                                    for x in (out, l, m)),
+                        torch.from_numpy(do), causal=causal, sm_scale=0.3,
+                        p_dropout=p_dropout)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                   **GRAD_TOL["f32"])
+
+
 def test_gradients_are_a_later_slice():
+    """``flash_attention_with_lse`` stays primal-only, as in JAX, while
+    ``flash_attention`` is differentiable."""
     q, k, v = (torch.from_numpy(x) for x in _inputs(1, 1, 8, 8, 8, 0))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tfa.flash_attention(q.requires_grad_(), k, v)
+    with pytest.raises(NotImplementedError, match="primal-only"):
+        tfa.flash_attention_with_lse(q.requires_grad_(), k, v)
     with torch.no_grad():
-        assert tfa.flash_attention(q, k, v).shape == (1, 1, 8, 8)
+        out, lse = tfa.flash_attention_with_lse(q, k, v)
+        assert out.shape == (1, 1, 8, 8) and lse.shape == (1, 1, 8)
+    out = tfa.flash_attention(q, k, v)
+    assert out.requires_grad
+    out.sum().backward()
+    assert q.grad.shape == q.shape and torch.isfinite(q.grad).all()
     with pytest.raises(ValueError, match="both or neither"):
         tfa.flash_attention(q.detach(), k, v,
                             q_segment_ids=np.zeros((1, 8), np.int32))

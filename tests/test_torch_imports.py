@@ -1,5 +1,6 @@
-"""The port stands alone: importing tfplus_tpu_torch, every submodule and
-chip_smoke.py loads neither JAX nor the JAX package, and needs no nvcc."""
+"""The port stands alone: importing tfplus_tpu_torch, every submodule
+(the optimizer suite and the training step too) and chip_smoke.py loads
+neither JAX nor the JAX package, and needs no nvcc."""
 import os
 import subprocess
 import sys
@@ -20,11 +21,17 @@ bad = sorted(m for m in sys.modules
 assert not bad, bad
 new = {"tfplus_tpu_torch.ops.rowops", "tfplus_tpu_torch.ops.flash_attention",
        "tfplus_tpu_torch.nn.attention", "tfplus_tpu_torch.models.bst",
-       "tfplus_tpu_torch.models.din"}
+       "tfplus_tpu_torch.models.din", "tfplus_tpu_torch.optim.rules",
+       "tfplus_tpu_torch.optim.base", "tfplus_tpu_torch.optim.dense",
+       "tfplus_tpu_torch.train"}
 assert new <= set(names), sorted(new - set(names))
 from tfplus_tpu_torch.models import BST, DIN
 from tfplus_tpu_torch.nn import flash_attention_layer
-from tfplus_tpu_torch.ops import flash_fwd, flash_fwd_single
+from tfplus_tpu_torch.ops import (flash_bwd_dkv, flash_bwd_dq, flash_fwd,
+                                  flash_fwd_single)
+from tfplus_tpu_torch.models import make_train_step_scan, grow_if_needed
+from tfplus_tpu_torch.optim import SparseOptimizer, ALL_RULES
+from tfplus_tpu_torch.train import GroupAdamOptimizer, AdamOptimizer
 print(len(names))
 """
 
@@ -34,7 +41,7 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 16
+    assert int(out.stdout.strip().splitlines()[-1]) >= 21
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

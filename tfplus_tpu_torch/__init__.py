@@ -6,5 +6,5 @@ kernels become hand-written Hopper kernels (``ops/csrc``), built with nvcc at
 first use. Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``. This package imports neither JAX nor ``tfplus_tpu``.
 """
-from . import convert, embedding, kv, models, nn, ops, utils
+from . import convert, embedding, kv, models, nn, ops, optim, train, utils
 from .version import __version__

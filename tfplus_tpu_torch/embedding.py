@@ -1,7 +1,8 @@
 """Embedding lookups over KvTables.
 
-Counterpart of ``tfplus_tpu/embedding.py`` for the serving path: dedup →
-one table lookup (inserting on miss when training) → inverse-index take.
+Counterpart of ``tfplus_tpu/embedding.py``: dedup → one table lookup
+(inserting on miss when training) → inverse-index take, whose backward sums
+duplicate ids' gradients into the unique rows.
 Ragged inputs stay fixed-size ``[N]`` with a validity mask, as in the JAX
 package. The combiners and the ``*_sparse`` variants are not ported yet.
 """
@@ -72,12 +73,37 @@ def lookup_unique(table: kvt.KvTable, ids, *, train: bool = True,
                    payload_rows=prow, meta_rows=mrow), table)
 
 
+class _TakeRows(torch.autograd.Function):
+    """``rows[idx]`` whose backward sums the gradients of duplicate indices
+    in a fixed order, so a training step reruns bit for bit (the JAX
+    transpose of the take is a deterministic segment sum). Autograd's own
+    backward of indexing is ``index_put_(accumulate=True)``, which is
+    sort-based and deterministic on the card but adds with atomics from
+    several threads on the CPU; ``index_add_`` adds serially there."""
+
+    @staticmethod
+    def forward(ctx, rows, idx):
+        ctx.save_for_backward(idx)
+        ctx.num_rows = rows.shape[0]
+        return rows[idx]
+
+    @staticmethod
+    def backward(ctx, grad):
+        idx, = ctx.saved_tensors
+        out = grad.new_zeros((ctx.num_rows,) + grad.shape[1:])
+        if grad.is_cuda:
+            out.index_put_((idx,), grad, accumulate=True)
+        else:
+            out.index_add_(0, idx, grad)
+        return out, None
+
+
 def gather(look: Lookup, rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Expand unique rows back to input order: ``out[i] = rows[inverse[i]]``
     (zeros at invalid positions). Pass ``rows`` explicitly when gradients
     must flow to them."""
     rows = look.rows if rows is None else rows
-    out = rows[look.inverse.long()]
+    out = _TakeRows.apply(rows, look.inverse.long())
     return torch.where(look.valid[:, None], out, torch.zeros_like(out))
 
 

@@ -75,6 +75,14 @@ class KvConfig:
     def payload_width(self) -> int:
         return self.dim * (1 + sum(k for _, k in self.slot_layout))
 
+    def slot_columns(self) -> Dict[str, tuple]:
+        """name -> (start_col, num_cols) within the payload."""
+        out, col = {}, self.dim
+        for name, k in self.slot_layout:
+            out[name] = (col, k * self.dim)
+            col += k * self.dim
+        return out
+
 
 def _meta_i32(m: torch.Tensor) -> torch.Tensor:
     """Packed meta (int64 holding uint32) → bit-identical int32 lane word."""

@@ -1,28 +1,34 @@
-"""Flash attention forward, with segment-id varlen masking and dropout.
+"""Flash attention forward and backward, with segment-id varlen masking and
+dropout.
 
-Counterpart of the forward half of ``tfplus_tpu/ops/flash_attention.py``.
+Counterpart of ``tfplus_tpu/ops/flash_attention.py``.
 Shapes: q ``[B, H, Sq, D]``, k/v ``[B, H, Skv, D]``, float32 or bfloat16;
 optional int32 segment ids ``[B, Sq]`` / ``[B, Skv]`` (tokens attend only
 within their segment; ``segment_id < 0`` marks padding, which attends to
 nothing and outputs zeros).
 
-Two hand-written Hopper kernels (``csrc/flash_fwd.cu``) replace the two
-Pallas forward kernels:
+Four hand-written Hopper kernels replace the four Pallas kernels:
 
 * :func:`flash_fwd` replaces ``_fwd`` (``_fwd_kernel``): tiled online
   softmax over 64-key tiles, tiles above the diagonal skipped under causal
-  masking;
+  masking (``csrc/flash_fwd.cu``);
 * :func:`flash_fwd_single` replaces ``_fwd_single``
   (``_fwd_single_kernel``): the whole K and V of one (batch, head) in
-  shared memory, one qkᵀ, one softmax and one pv, no online rescale.
+  shared memory, one qkᵀ, one softmax and one pv, no online rescale
+  (``csrc/flash_fwd.cu``);
+* :func:`flash_bwd_dkv` replaces ``_bwd_pallas``'s ``_bwd_dkv_kernel``: dk
+  and dv of a 64-key tile, looping over the 64-row q tiles
+  (``csrc/flash_bwd.cu``);
+* :func:`flash_bwd_dq` replaces ``_bwd_pallas``'s ``_bwd_dq_kernel``: dq
+  of a q tile, looping over the kv tiles (``csrc/flash_bwd.cu``).
 
 Each wrapper launches its kernel on a CUDA tensor and runs the plain PyTorch
-version beside it (:func:`fwd_tiled_plain`, :func:`fwd_single_plain`) on a
-CPU tensor; the plain versions are also the oracles the kernels are held
-against on the card. There is no switch and no fallback: a CUDA tensor goes
-through a kernel or the wrapper raises. Each wrapper counts its launches in
-a plain integer attribute (``flash_fwd.launches``,
-``flash_fwd_single.launches``).
+version beside it (:func:`fwd_tiled_plain`, :func:`fwd_single_plain`,
+:func:`bwd_dkv_plain`, :func:`bwd_dq_plain`) on a CPU tensor; the plain
+versions are also the oracles the kernels are held against on the card.
+There is no switch and no fallback: a CUDA tensor goes through a kernel or
+the wrapper raises. Each wrapper counts its launches in a plain integer
+attribute (``flash_fwd.launches``, ...).
 
 Routing (:func:`_fwd_dispatch`) keeps the JAX decision "not causal, and the
 whole KV fits one block". On the TPU a block lives in VMEM (megabytes), so
@@ -38,8 +44,10 @@ Ragged lengths are masked inside the kernels (keys past Skv score
 position what the JAX package's padding with segment −1 gives; no copy of
 q, k or v is padded.
 
-Only the forward is ported: a call that would need a gradient raises
-``NotImplementedError`` (the backward kernels come with the training slice).
+Gradients: :func:`flash_attention` is a ``torch.autograd.Function``
+(``_Flash``, the counterpart of the JAX ``custom_vjp`` ``_flash``) whose
+forward saves the l/m residuals and whose backward runs the two backward
+kernels. :func:`flash_attention_with_lse` stays primal-only, as in JAX.
 """
 from __future__ import annotations
 
@@ -64,8 +72,6 @@ SMEM_PER_BLOCK = 232448          # bytes an H100 block may use (227 KB)
 _SINGLE_SMEM_MAX = SMEM_PER_BLOCK // 2
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_TRAINING_SLICE = ("the flash-attention backward is not ported yet; "
-                   "gradients come with the port's training slice")
 _ptr = ctypes.c_void_p
 _int = ctypes.c_int
 
@@ -132,11 +138,13 @@ def reference_attention(q, k, v, *, causal=False, sm_scale=None,
                         q_segment_ids=None, kv_segment_ids=None,
                         p_dropout: float = 0.0, dropout_seed=0):
     """Exact attention (einsum, softmax, einsum), with the same keep-mask as
-    the kernels; fully masked rows output 0."""
+    the kernels; fully masked rows output 0. Computes in float32, or in
+    float64 for float64 inputs (an autograd oracle for the kernels)."""
     b, h = q.shape[0], q.shape[1]
     if sm_scale is None:
         sm_scale = 1.0 / float(np.sqrt(q.shape[-1]))
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
+    acc = torch.float64 if q.dtype == torch.float64 else torch.float32
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(acc), k.to(acc)) * sm_scale
     mask = _attention_mask(q.shape[2], k.shape[2], q_segment_ids,
                            kv_segment_ids, causal, q.device)
     s = torch.where(mask[:, None], s, DEFAULT_MASK_VALUE)
@@ -146,7 +154,7 @@ def reference_attention(q, k, v, *, causal=False, sm_scale=None,
                                    p_dropout, device=q.device)
         p = torch.where(keep, p, 0.0) * (1.0 / (1.0 - p_dropout))
     any_valid = mask.any(dim=-1)[:, None, :, None]
-    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v.to(acc))
     return torch.where(any_valid, out, 0.0).to(q.dtype)
 
 
@@ -166,15 +174,16 @@ def make_segment_ids_from_lengths(lengths, seq_len: int,
 # to the scores; for bf16, p is rounded to v's dtype before the pv product.
 # ---------------------------------------------------------------------------
 
-def _scores(q, k, q_seg, kv_seg, sm_scale, causal, col0=0):
-    """Scaled, masked f32 scores of q against the key tile ``k`` that starts
-    at key ``col0``; ``q_seg`` None means no segment mask."""
+def _scores(q, k, q_seg, kv_seg, sm_scale, causal, col0=0, row0=0):
+    """Scaled, masked f32 scores of the query rows ``q`` that start at row
+    ``row0`` against the key tile ``k`` that starts at key ``col0``;
+    ``q_seg`` None means no segment mask."""
     s = torch.matmul(q.float(), k.float().transpose(-1, -2))
     if sm_scale != 1.0:
         s = s * sm_scale
     mask = None
     if causal:
-        row = torch.arange(q.shape[2], device=q.device)[:, None]
+        row = torch.arange(q.shape[2], device=q.device)[:, None] + row0
         col = torch.arange(k.shape[2], device=q.device)[None, :] + col0
         mask = (col <= row)[None]
     if q_seg is not None:
@@ -185,12 +194,12 @@ def _scores(q, k, q_seg, kv_seg, sm_scale, causal, col0=0):
     return s
 
 
-def _apply_dropout(p, seed, p_dropout, col0=0):
+def _apply_dropout(p, seed, p_dropout, col0=0, row0=0):
     if p_dropout <= 0.0:
         return p
     b, h, sq, skv = p.shape
-    keep = _dropout_keep_dense(seed, b, h, sq, skv, p_dropout, col0=col0,
-                               device=p.device)
+    keep = _dropout_keep_dense(seed, b, h, sq, skv, p_dropout, row0=row0,
+                               col0=col0, device=p.device)
     return torch.where(keep, p, 0.0) * (1.0 / (1.0 - p_dropout))
 
 
@@ -247,6 +256,98 @@ def fwd_tiled_plain(q, k, v, q_seg, kv_seg, seed, *, causal: bool,
 
 
 # ---------------------------------------------------------------------------
+# Plain versions of the two backward kernels, over the kernels' 64 × 64 tile
+# pairs, with the Pallas kernels' contract: the mask is ADDED to the scores;
+# p = exp(s − m)/l and 0 where l = 0; dv takes the DROPPED p_d, ds the
+# undropped p with dp gated and scaled by the keep mask; p_d and ds round to
+# q's dtype before their products, which sum in f32; causal tile pairs
+# wholly above the diagonal are skipped.
+# ---------------------------------------------------------------------------
+
+def _delta(do, out) -> torch.Tensor:
+    """``di = Σ(do·o)`` over D, in f32 ``[B, H, Sq]`` (one tensor op, as JAX
+    computes it outside its kernels)."""
+    return torch.sum(do.float() * out.float(), dim=-1)
+
+
+def _bwd_tile(q, k, v, do, l, m, di, q_seg, kv_seg, seed, q0, k0, *, causal,
+              sm_scale, p_dropout):
+    """``(p_d, ds)`` of the q rows starting at ``q0`` against the keys
+    starting at ``k0``, each rounded to q's dtype and widened to f32."""
+    s = _scores(q, k, q_seg, kv_seg, sm_scale, causal, col0=k0, row0=q0)
+    l2, m2 = l[..., None], m[..., None]
+    p = torch.exp(s - m2) / torch.where(l2 == 0.0, 1.0, l2)
+    p = torch.where(l2 == 0.0, 0.0, p)
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    if p_dropout > 0.0:
+        b, h, bq, bk = p.shape
+        keep = _dropout_keep_dense(seed, b, h, bq, bk, p_dropout, row0=q0,
+                                   col0=k0, device=p.device)
+        inv = 1.0 / (1.0 - p_dropout)
+        p_d = torch.where(keep, p, 0.0) * inv
+        dp = torch.where(keep, dp, 0.0) * inv
+    else:
+        p_d = p
+    ds = p * (dp - di[..., None]) * sm_scale
+    return p_d.to(q.dtype).float(), ds.to(q.dtype).float()
+
+
+def bwd_dkv_plain(q, k, v, q_seg, kv_seg, seed, do, l, m, di, *,
+                  causal: bool, sm_scale: float, p_dropout: float = 0.0):
+    """dk, dv: per 64-key tile, a loop over the q tiles (``_bwd_dkv_kernel``).
+    ``l``, ``m``, ``di`` are f32 ``[B, H, Sq]``."""
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros_like(dk)
+    for k0 in range(0, k.shape[2], BLOCK_K):
+        ks = slice(k0, k0 + BLOCK_K)
+        for q0 in range(0, q.shape[2], BLOCK_Q):
+            if causal and q0 + BLOCK_Q - 1 < k0:
+                continue                   # above the tile pair's diagonal
+            qs = slice(q0, q0 + BLOCK_Q)
+            p_d, ds = _bwd_tile(
+                q[:, :, qs], k[:, :, ks], v[:, :, ks], do[:, :, qs],
+                l[:, :, qs], m[:, :, qs], di[:, :, qs],
+                None if q_seg is None else q_seg[:, qs],
+                None if kv_seg is None else kv_seg[:, ks], seed, q0, k0,
+                causal=causal, sm_scale=sm_scale, p_dropout=p_dropout)
+            dv[:, :, ks] += torch.matmul(p_d.transpose(-1, -2),
+                                         do[:, :, qs].float())
+            dk[:, :, ks] += torch.matmul(ds.transpose(-1, -2),
+                                         q[:, :, qs].float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def bwd_dq_plain(q, k, v, q_seg, kv_seg, seed, do, l, m, di, *,
+                 causal: bool, sm_scale: float, p_dropout: float = 0.0):
+    """dq: per 64-row q tile, a loop over the kv tiles (``_bwd_dq_kernel``)."""
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    for q0 in range(0, q.shape[2], BLOCK_Q):
+        qs = slice(q0, q0 + BLOCK_Q)
+        for k0 in range(0, k.shape[2], BLOCK_K):
+            if causal and k0 > q0 + BLOCK_Q - 1:
+                break                      # above the tile pair's diagonal
+            ks = slice(k0, k0 + BLOCK_K)
+            _, ds = _bwd_tile(
+                q[:, :, qs], k[:, :, ks], v[:, :, ks], do[:, :, qs],
+                l[:, :, qs], m[:, :, qs], di[:, :, qs],
+                None if q_seg is None else q_seg[:, qs],
+                None if kv_seg is None else kv_seg[:, ks], seed, q0, k0,
+                causal=causal, sm_scale=sm_scale, p_dropout=p_dropout)
+            dq[:, :, qs] += torch.matmul(ds, k[:, :, ks].float())
+    return dq.to(q.dtype)
+
+
+def bwd_plain(q, k, v, q_seg, kv_seg, seed, out, l, m, do, *, causal: bool,
+              sm_scale: float, p_dropout: float = 0.0):
+    """The whole backward from the forward's residuals: ``(dq, dk, dv)``."""
+    di = _delta(do, out)
+    kw = dict(causal=causal, sm_scale=sm_scale, p_dropout=p_dropout)
+    dk, dv = bwd_dkv_plain(q, k, v, q_seg, kv_seg, seed, do, l, m, di, **kw)
+    dq = bwd_dq_plain(q, k, v, q_seg, kv_seg, seed, do, l, m, di, **kw)
+    return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
 # The kernels' wrappers
 # ---------------------------------------------------------------------------
 
@@ -277,17 +378,29 @@ def single_fits(skv: int, d: int, dtype: torch.dtype) -> bool:
     return single_smem_bytes(skv, d, dtype) <= _SINGLE_SMEM_MAX
 
 
+_TAIL = [ctypes.c_float, ctypes.c_float, ctypes.c_uint, ctypes.c_uint,
+         ctypes.c_float, _ptr]
+
+
 def _flash_lib() -> ctypes.CDLL:
     lib = _build.library("flash_fwd")
     if not getattr(lib, "_tfp_typed", False):
-        common = [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
-                  _int, _int, _int, _int, _int, _int]
-        tail = [ctypes.c_float, ctypes.c_float, ctypes.c_uint,
-                ctypes.c_uint, ctypes.c_float, _ptr]
-        lib.tfp_flash_fwd.argtypes = common + [_int] + tail
+        common = [_ptr] * 8 + [_int] * 6
+        lib.tfp_flash_fwd.argtypes = common + [_int] + _TAIL
         lib.tfp_flash_fwd.restype = _int
-        lib.tfp_flash_fwd_single.argtypes = common + tail
+        lib.tfp_flash_fwd_single.argtypes = common + _TAIL
         lib.tfp_flash_fwd_single.restype = _int
+        lib._tfp_typed = True
+    return lib
+
+
+def _flash_bwd_lib() -> ctypes.CDLL:
+    lib = _build.library("flash_bwd")
+    if not getattr(lib, "_tfp_typed", False):
+        lib.tfp_flash_bwd_dkv.argtypes = [_ptr] * 11 + [_int] * 7 + _TAIL
+        lib.tfp_flash_bwd_dkv.restype = _int
+        lib.tfp_flash_bwd_dq.argtypes = [_ptr] * 10 + [_int] * 7 + _TAIL
+        lib.tfp_flash_bwd_dq.restype = _int
         lib._tfp_typed = True
     return lib
 
@@ -326,6 +439,33 @@ def _check(q, k, v, q_seg, kv_seg) -> None:
                              "to 16 bytes")
 
 
+def _check_bwd(q, do, l, m, di) -> None:
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"do must match q: got {tuple(do.shape)} "
+                         f"{do.dtype} on {do.device}")
+    for t in (l, m, di):
+        if (t.shape != q.shape[:3] or t.dtype != torch.float32
+                or t.device != q.device):
+            raise ValueError("l, m and di must be float32 [B, H, Sq] on q's "
+                             "device")
+    if q.is_cuda:
+        if not all(t.is_contiguous() for t in (do, l, m, di)):
+            raise ValueError("the CUDA flash kernels take contiguous tensors")
+        if do.data_ptr() % 16:
+            raise ValueError("the CUDA flash kernels take do aligned to 16 "
+                             "bytes")
+
+
+def _kernel_tail(seed, sm_scale, p_dropout, device):
+    return [float(sm_scale), DEFAULT_MASK_VALUE, _seed_u32(seed),
+            _dropout_threshold(p_dropout) if p_dropout > 0 else 0,
+            1.0 / (1.0 - p_dropout), torch.cuda.current_stream(device).cuda_stream]
+
+
+def _ptr_of(t):
+    return None if t is None else t.data_ptr()
+
+
 def _launch(fn_name, q, k, v, q_seg, kv_seg, seed, sm_scale, p_dropout,
             save_residuals, causal=None):
     b, h, sq, d = q.shape
@@ -337,18 +477,12 @@ def _launch(fn_name, q, k, v, q_seg, kv_seg, seed, sm_scale, p_dropout,
         l = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
         m = torch.empty_like(l)
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    head = [q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(q_seg),
-            ptr(kv_seg), out.data_ptr(), ptr(l), ptr(m), b, h, sq,
-            k.shape[2], d, _DTYPES[q.dtype]]
+    head = [q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr_of(q_seg),
+            _ptr_of(kv_seg), out.data_ptr(), _ptr_of(l), _ptr_of(m), b, h,
+            sq, k.shape[2], d, _DTYPES[q.dtype]]
     mid = [] if causal is None else [int(causal)]
-    tail = [float(sm_scale), DEFAULT_MASK_VALUE, _seed_u32(seed),
-            _dropout_threshold(p_dropout) if p_dropout > 0 else 0,
-            1.0 / (1.0 - p_dropout),
-            torch.cuda.current_stream(q.device).cuda_stream]
-    err = getattr(_flash_lib(), fn_name)(*head, *mid, *tail)
+    err = getattr(_flash_lib(), fn_name)(
+        *head, *mid, *_kernel_tail(seed, sm_scale, p_dropout, q.device))
     if err != 0:
         raise RuntimeError(f"{fn_name} kernel launch failed: cudaError {err}")
     return out, l, m
@@ -408,9 +542,95 @@ def _fwd_dispatch(q, k, v, q_seg, kv_seg, seed, causal, sm_scale, p_dropout,
                      save_residuals=save_residuals)
 
 
+def _launch_bwd(fn_name, outs, q, k, v, q_seg, kv_seg, seed, do, l, m, di,
+                causal, sm_scale, p_dropout):
+    b, h, sq, d = q.shape
+    if q.numel() == 0 or k.shape[2] == 0:
+        raise ValueError("flash attention needs B, H, Sq, Skv > 0")
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            l.data_ptr(), m.data_ptr(), di.data_ptr(), _ptr_of(q_seg),
+            _ptr_of(kv_seg), *(t.data_ptr() for t in outs), b, h, sq,
+            k.shape[2], d, _DTYPES[q.dtype], int(causal)]
+    err = getattr(_flash_bwd_lib(), fn_name)(
+        *args, *_kernel_tail(seed, sm_scale, p_dropout, q.device))
+    if err != 0:
+        raise RuntimeError(f"{fn_name} kernel launch failed: cudaError {err}")
+
+
+def flash_bwd_dkv(q, k, v, q_seg, kv_seg, seed, do, l, m, di, *,
+                  causal: bool, sm_scale: float, p_dropout: float = 0.0):
+    """dk, dv from the forward's residuals l, m and ``di = Σ(do·o)`` (f32
+    ``[B, H, Sq]``), in k's and v's dtype."""
+    _check(q, k, v, q_seg, kv_seg)
+    _check_bwd(q, do, l, m, di)
+    kw = dict(causal=causal, sm_scale=sm_scale, p_dropout=p_dropout)
+    if not q.is_cuda:
+        return bwd_dkv_plain(q, k, v, q_seg, kv_seg, seed, do, l, m, di, **kw)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch_bwd("tfp_flash_bwd_dkv", (dk, dv), q, k, v, q_seg, kv_seg, seed,
+                do, l, m, di, **kw)
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0
+
+
+def flash_bwd_dq(q, k, v, q_seg, kv_seg, seed, do, l, m, di, *,
+                 causal: bool, sm_scale: float, p_dropout: float = 0.0):
+    """dq from the same inputs as :func:`flash_bwd_dkv`, in q's dtype."""
+    _check(q, k, v, q_seg, kv_seg)
+    _check_bwd(q, do, l, m, di)
+    kw = dict(causal=causal, sm_scale=sm_scale, p_dropout=p_dropout)
+    if not q.is_cuda:
+        return bwd_dq_plain(q, k, v, q_seg, kv_seg, seed, do, l, m, di, **kw)
+    dq = torch.empty_like(q)
+    _launch_bwd("tfp_flash_bwd_dq", (dq,), q, k, v, q_seg, kv_seg, seed, do,
+                l, m, di, **kw)
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+class _Flash(torch.autograd.Function):
+    """Counterpart of the JAX ``custom_vjp`` ``_flash``: the forward kernel
+    with residuals saved, and the two backward kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_seg, kv_seg, seed, causal, sm_scale,
+                p_dropout):
+        out, l, m = _fwd_dispatch(q, k, v, q_seg, kv_seg, seed, causal,
+                                  sm_scale, p_dropout, save_residuals=True)
+        ctx.save_for_backward(q, k, v, q_seg, kv_seg, out, l, m)
+        ctx.opts = (seed, dict(causal=causal, sm_scale=sm_scale,
+                               p_dropout=p_dropout))
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, q_seg, kv_seg, out, l, m = ctx.saved_tensors
+        seed, kw = ctx.opts
+        # autograd may hand back a strided view (flash_attention_layer's
+        # transpose)
+        do = _ready(do)
+        di = _delta(do, out)
+        dk, dv = flash_bwd_dkv(q, k, v, q_seg, kv_seg, seed, do, l, m, di,
+                               **kw)
+        dq = flash_bwd_dq(q, k, v, q_seg, kv_seg, seed, do, l, m, di, **kw)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
 # ---------------------------------------------------------------------------
 # Public surface
 # ---------------------------------------------------------------------------
+
+def _ready(t):
+    """Contiguous, and on the card 16-byte aligned, as the kernels take it."""
+    t = t.contiguous()
+    return t.clone() if t.is_cuda and t.data_ptr() % 16 else t
+
 
 def _prepare(q, k, v, sm_scale, q_segment_ids, kv_segment_ids, p_dropout):
     if sm_scale is None:
@@ -419,19 +639,17 @@ def _prepare(q, k, v, sm_scale, q_segment_ids, kv_segment_ids, p_dropout):
         raise ValueError("provide both or neither segment id array")
     if not (0.0 <= p_dropout < 1.0):
         raise ValueError(f"p_dropout must be in [0, 1), got {p_dropout}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(_TRAINING_SLICE)
-
-    def ready(t):
-        t = t.contiguous()
-        return t.clone() if t.is_cuda and t.data_ptr() % 16 else t
 
     def seg(s):
         return None if s is None else torch.as_tensor(
             s, dtype=torch.int32, device=q.device).contiguous()
 
-    return (ready(q), ready(k), ready(v), seg(q_segment_ids),
+    return (_ready(q), _ready(k), _ready(v), seg(q_segment_ids),
             seg(kv_segment_ids), float(sm_scale), float(p_dropout))
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def flash_attention(q, k, v, *, causal: bool = False,
@@ -441,7 +659,7 @@ def flash_attention(q, k, v, *, causal: bool = False,
                     block_k_inner: Optional[int] = None,
                     p_dropout: float = 0.0, dropout_seed=0,
                     interpret: Optional[bool] = None):
-    """Flash attention forward. q ``[B, H, Sq, D]``, k/v ``[B, H, Skv, D]``;
+    """Flash attention. q ``[B, H, Sq, D]``, k/v ``[B, H, Skv, D]``;
     optional int32 segment ids ``[B, Sq]`` / ``[B, Skv]`` (−1 = padding);
     arbitrary sequence lengths. ``p_dropout``/``dropout_seed``: inverted
     dropout on the probabilities from the counter hash, the same mask as the
@@ -452,11 +670,15 @@ def flash_attention(q, k, v, *, causal: bool = False,
     them changes a result or a launch here: the kernels' tiles are their own
     (64 query rows by 64 keys), the ragged edge is masked inside them, and
     there is no interpreter (the tensors' device picks kernel or plain
-    version). Forward only: with autograd on and an input that requires
-    grad, raises ``NotImplementedError``."""
+    version). Differentiable in q, k and v: with autograd on and an input
+    that requires grad, the forward saves its residuals and the backward
+    runs :func:`flash_bwd_dkv` and :func:`flash_bwd_dq`."""
     del block_q, block_k, block_k_inner, interpret
     q, k, v, qs, ks, sm_scale, p_dropout = _prepare(
         q, k, v, sm_scale, q_segment_ids, kv_segment_ids, p_dropout)
+    if _needs_grad(q, k, v):
+        return _Flash.apply(q, k, v, qs, ks, dropout_seed, causal, sm_scale,
+                            p_dropout)
     out, _, _ = _fwd_dispatch(q, k, v, qs, ks, dropout_seed, causal,
                               sm_scale, p_dropout, save_residuals=False)
     return out
@@ -472,8 +694,13 @@ def flash_attention_with_lse(q, k, v, *, causal: bool = False,
     """Forward returning ``(out, softmax_lse)``: lse ``[B, H, Sq]`` is the
     PRE-dropout log-sum-exp of the masked scores, ``m + log(l)``, and
     ``-inf`` on rows that never hit a valid key. Arguments as
-    :func:`flash_attention`."""
+    :func:`flash_attention`. Primal-only, as in the JAX package: with
+    autograd on and an input that requires grad, raises
+    ``NotImplementedError`` (use :func:`flash_attention` for gradients)."""
     del block_q, block_k, block_k_inner, interpret
+    if _needs_grad(q, k, v):
+        raise NotImplementedError("flash_attention_with_lse is primal-only; "
+                                  "use flash_attention for gradients")
     q, k, v, qs, ks, sm_scale, p_dropout = _prepare(
         q, k, v, sm_scale, q_segment_ids, kv_segment_ids, p_dropout)
     out, l, m = _fwd_dispatch(q, k, v, qs, ks, dropout_seed, causal,
