@@ -64,14 +64,34 @@ failed check:
    with Adam's slot columns (payload 3·D), batch-2048 steps (Adam 0.01,
    dense Adam 0.01); every step launches the single-pass forward and both
    backward kernels.
+13. Compactor: ``ops.compact`` (an entry point no engine path calls) at its
+   study shape, M = 1,572,864 x W = 256 f32, 2/3 live, R = 128, held bit
+   for bit against its plain version and timed beside it, its byte bound
+   and ``arena[live]``; then live shares 0-1, clustered dead runs, a single
+   block, ``out_rows > M`` and a bf16 arena, each also rerun bit for bit.
+14. Growth, checkpoint and resume at the reference DCN's width: every table
+   starts at 2^14 rows, 12 steps of 2,048 fresh ids per table with
+   ``grow_if_needed`` before each (every table doubles twice), a full
+   checkpoint at step 6 and deltas at 9 and 12 (``CheckpointManager``, dense
+   tower included), a restore into fresh 2^14-row templates by a second
+   manager, every table compared with the live one per key and the dense
+   tower bit for bit, and one more step from both states with equal losses.
+15. Repartition: examples/checkpoint_resume.py's configuration (4 shards of
+   dim 16, 30 steps, full + 2 deltas) restored into 6 shards, a 64-id sample
+   bit for bit, then 5 more steps.
+16. One growth at reference size: a dim-128 GroupAdam table of 2^20 rows with
+   2^19 keys grown to 2^21, then compacted after a third of its keys are
+   deleted, each timed against its byte bound and checked row for row.
 
-Each path (the serving and training paths and the flash entry points) runs
+Each path (the serving and training paths, the flash entry points, the
+compactor entry point and the growth, checkpoint and repartition paths) runs
 with the kernels' launch counts set to 0 just before it and read just after
 it. Each phase frees its tables before the next and prints the peak device
 memory it reached. The line before the last is the ``{"kernels": [...]}``
-JSON, after the ``{"serving": ...}`` and ``{"training": ...}`` lines; the
-last line is ``{"ok": true, "device": {...}}``. Without a card, or without
-the port beside it, the script exits non-zero and prints no result.
+JSON, after the ``{"serving": ...}``, ``{"training": ...}`` and
+``{"growth": ...}`` lines; the last line is ``{"ok": true, "device":
+{...}}``. Without a card, or without the port beside it, the script exits
+non-zero and prints no result.
 """
 import argparse
 import copy
@@ -147,6 +167,14 @@ BST_CONFIG = dict(embedding_dim=64, seq_len=HIST, num_numeric=4, num_heads=8,
 DIN_CONFIG = dict(embedding_dim=64, seq_len=HIST, num_numeric=4,
                   att_hidden=(64, 32), dnn_hidden=(200, 80),
                   capacity=ITEM_ROWS)
+# the compactor's study shape (scripts/prof_compactor.py): 1.5M rows x 256
+# f32 lanes, 2/3 live, 128-row blocks
+COMPACT_M, COMPACT_W, COMPACT_R = 1_572_864, 256, 128
+# growth, checkpoint and resume: tables start at 2^14 rows (a cut), 12 steps
+# of 2,048 fresh ids per table, a full save at step 6 and deltas at 9 and 12
+GROW_START_ROWS = 1 << 14
+GROW_STEPS = 12
+GROW_SAVES = (6, 9, 12)
 
 
 def check(cond, what):
@@ -276,12 +304,13 @@ def kernel_phase(torch, rowops):
 
 
 def _wrappers():
-    from tfplus_tpu_torch.ops import flash_attention as fa, rowops
+    from tfplus_tpu_torch.ops import compactor, rowops
+    from tfplus_tpu_torch.ops import flash_attention as fa
     return {"gather_rows": rowops.gather_rows,
             "scatter_rows": rowops.scatter_rows,
             "flash_fwd": fa.flash_fwd, "flash_fwd_single": fa.flash_fwd_single,
             "flash_bwd_dkv": fa.flash_bwd_dkv,
-            "flash_bwd_dq": fa.flash_bwd_dq}
+            "flash_bwd_dq": fa.flash_bwd_dq, "compact": compactor.compact}
 
 
 def reset_launches():
@@ -1092,12 +1121,17 @@ def flash_grad_path_phase(torch, fa, bench, bench_grads, reps=10):
 # training
 # ---------------------------------------------------------------------------
 
+_START = time.perf_counter()
+
+
 def peak_memory(torch, name):
-    """Print the phase's peak device memory, free its caches and reset."""
+    """Print the phase's peak device memory and the script's run time so
+    far, free the phase's caches and reset the peak."""
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    print(f"{name}: peak device memory {peak:.3f} GiB", flush=True)
+    print(f"{name}: peak device memory {peak:.3f} GiB; "
+          f"{time.perf_counter() - _START:.1f} s since the start", flush=True)
     return peak
 
 
@@ -1411,6 +1445,394 @@ def profile_calls(torch, name, calls, call_s, out_dir):
           f"({call_s * 1e3:.4f} ms); table in {path}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# compactor, growth, checkpoints and resume
+# ---------------------------------------------------------------------------
+
+def compactor_case(torch, compactor, name, gen, m, w, r, live, dtype,
+                   out_rows=None, arena=None):
+    """Hold the compactor kernel bit for bit against its plain version on
+    one arena, and a rerun against the first run. Returns the case's
+    record and the arena."""
+    if arena is None:
+        arena = torch.randn(m, w, device=DEV, generator=gen).to(dtype)
+    got = compactor.compact(arena, live, block_rows=r, out_rows=out_rows)
+    again = compactor.compact(arena, live, block_rows=r, out_rows=out_rows)
+    want = compactor.compact_plain(arena, live, out_rows=out_rows)
+    n = min(int(live.sum()), out_rows or m)
+    check(torch.equal(got[0][:n], want[0][:n])
+          and torch.equal(got[1], want[1]),
+          f"compact {name} differs from its plain version")
+    check(torch.equal(got[0][:n], again[0][:n])
+          and torch.equal(got[1], again[1]),
+          f"compact {name}: a rerun differs")
+    err = (got[0][:n] - want[0][:n]).abs().max().item() if n else 0.0
+    return {"m": m, "w": w, "block_rows": r, "live": n,
+            "dtype": str(dtype).split(".")[-1], "max_abs_err": err}
+
+
+def compactor_phase(torch, ops, compactor):
+    """The compactor's own entry point (no engine path calls it) at the
+    study shape of ``scripts/prof_compactor.py`` (M = 1,572,864 rows x
+    W = 256 f32, 2/3 live, R = 128), then the cases of
+    ``tests/test_compactor.py`` at the card's scale: live shares 0, 0.3,
+    2/3, 0.97 and 1, clustered dead runs with whole empty blocks, a single
+    block, ``out_rows > M`` and a bf16 arena. The bound counts the live rows
+    read and written once, the mask read and ``new_loc`` written."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 20)
+    m, w, r = COMPACT_M, COMPACT_W, COMPACT_R
+    arena = torch.randn(m, w, device=DEV, generator=gen)
+    live = torch.rand(m, device=DEV, generator=gen) < 2 / 3
+    torch.cuda.synchronize()
+    reset_launches()
+    ops.compact(arena, live, block_rows=r)          # the path: one call
+    torch.cuda.synchronize()
+    launches = read_launches()
+    cases = {"study": compactor_case(torch, compactor, "study", gen, m, w, r,
+                                     live, torch.float32, arena=arena)}
+    n = cases["study"]["live"]
+    timing = {
+        "ms": time_ms(torch, lambda: compactor.compact(arena, live,
+                                                       block_rows=r)),
+        "plain_ms": time_ms(torch, lambda: compactor.compact_plain(arena,
+                                                                   live)),
+        "library_ms": time_ms(torch, lambda: arena[live]),
+        "bound_ms": bound_ms(2 * n * w * 4 + m + m * 4)}
+    del arena, live
+    torch.cuda.empty_cache()
+    sm, sw = 1 << 18, 256
+    for frac in (0.0, 0.3, 2 / 3, 0.97, 1.0):
+        live = torch.rand(sm, device=DEV, generator=gen) < frac
+        cases[f"live_{frac:.3f}"] = compactor_case(
+            torch, compactor, f"live {frac:.3f}", gen, sm, sw, 128, live,
+            torch.float32)
+    live = torch.zeros(sm, dtype=torch.bool, device=DEV)
+    live[:64 * 128] = True                          # solid live run
+    live[200 * 128:200 * 128 + 8] = True            # a tiny island
+    live[300 * 128:] = True                         # tail run
+    cases["clustered"] = compactor_case(torch, compactor, "clustered", gen,
+                                        sm, sw, 128, live, torch.float32)
+    live = torch.rand(128, device=DEV, generator=gen) < 0.5
+    cases["single_block"] = compactor_case(torch, compactor, "single block",
+                                           gen, 128, sw, 128, live,
+                                           torch.float32)
+    live = torch.rand(1 << 16, device=DEV, generator=gen) < 0.5
+    cases["out_rows_gt_m"] = compactor_case(
+        torch, compactor, "out_rows > M", gen, 1 << 16, sw, 128, live,
+        torch.float32, out_rows=(1 << 16) + 4096)
+    live = torch.rand(sm, device=DEV, generator=gen) < 0.6
+    cases["bf16"] = compactor_case(torch, compactor, "bf16", gen, sm, sw,
+                                   128, live, torch.bfloat16)
+    print(f"compactor: study shape M={m} W={w} R={r}, {n} live rows: "
+          f"{json.dumps(timing)}; cases {json.dumps(cases)}; launches "
+          f"{json.dumps(launches)}", flush=True)
+    check(launches["compact"] == 1, f"compact entry point: {launches}")
+    return launches, cases, timing, peak_memory(torch, "compactor")
+
+
+def payload_bytes(tbundle, prefix):
+    """Bytes of the values and slot columns in one bundle."""
+    index = tbundle.BundleReader(prefix)._index
+    return sum(e.get("nbytes", 0) for k, e in index.items()
+               if k.endswith("-values") or "-slot-" in k)
+
+
+def table_by_key(np, kv, rowops, t, day):
+    """A table's rows by key: sorted keys, the full payload rows (values and
+    slot columns), the reference meta words and the blacklist."""
+    ex = kv.export_arrays(t, as_of_unix_day=day)
+    order = np.argsort(ex["keys"])
+    keys = ex["keys"][order]
+    fr = kv.find(t, kv.encode_ids(keys, device=DEV))
+    check(bool(fr.found.all()), "table_by_key: an exported key not found")
+    return (keys, rowops.gather_rows(t.payload, fr.slot),
+            ex["meta"][order], np.sort(ex["blacklist"]))
+
+
+def fresh_batch(np, rng, model, batch):
+    """A batch of fresh ids (drawn from 2^40) for every table."""
+    return {"ids": {n: rng.randint(1, 1 << 40, batch, dtype=np.int64)
+                    for n in model.table_specs},
+            "features": rng.randn(batch, 13).astype(np.float32),
+            "labels": rng.randint(0, 2, batch).astype(np.float32)}
+
+
+def growth_checkpoint_phase(torch, np, kv, models, train, checkpoint,
+                            tbundle, rowops, profile_dir):
+    """The port's twin of examples/checkpoint_resume.py on the reference
+    DCN: every table starts at 2^14 rows (a cut; the training phase's are
+    2^20) and each step brings 2,048 fresh ids per table, so
+    ``grow_if_needed`` doubles every table twice within 12 steps; a full
+    checkpoint at step 6 and deltas at 9 and 12 through
+    ``CheckpointManager`` with the dense tower; a second manager restores
+    into fresh 2^14-row templates (which must grow); every table equals the
+    live one per key, bit for bit, and the dense tower too; one more step
+    from each state on one batch gives the same loss."""
+    import tempfile
+    model = models.DCN(capacity=GROW_START_ROWS)
+    opt = train.GroupAdamOptimizer()
+    tx = functools.partial(torch.optim.Adam, lr=1e-3)
+    rng = np.random.RandomState(SEED + 30)
+    batches = [fresh_batch(np, rng, model, BATCH)
+               for _ in range(GROW_STEPS + 1)]
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    out = {"grows": 0, "saves": {}}
+    try:
+        state = models.init_state(model, opt, tx, seed=SEED, device=DEV)
+        step = models.make_train_step(model, opt, sparse_lr=1e-3)
+        mgr = checkpoint.CheckpointManager(os.path.join(workdir, "ckpts"))
+        torch.cuda.synchronize()
+        reset_launches()
+        train_s, save_bytes = 0.0, 0
+        for i in range(1, GROW_STEPS + 1):
+            t0 = time.perf_counter()
+            caps = {n: t.capacity for n, t in state.tables.items()}
+            state = models.grow_if_needed(state, BATCH)
+            out["grows"] += sum(state.tables[n].capacity != c
+                                for n, c in caps.items())
+            state, loss, _ = step(state, batches[i - 1])
+            torch.cuda.synchronize()
+            train_s += time.perf_counter() - t0
+            if i in GROW_SAVES:
+                full = i == GROW_SAVES[0]
+                t0 = time.perf_counter()
+                tables = mgr.save(state.tables, state.dense, step=i,
+                                  full=full)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                state = state._replace(tables=tables)
+                kind = "full" if full else "delta"
+                nbytes = payload_bytes(tbundle, os.path.join(
+                    workdir, "ckpts", f"ckpt-{kind}-{i}"))
+                save_bytes += nbytes
+                out["saves"][f"{kind}@{i}"] = {
+                    "s": dt, "payload_bytes": nbytes,
+                    "gb_per_s": nbytes / dt / 1e9}
+        caps = {n: t.capacity for n, t in state.tables.items()}
+        # "crash": a second manager restores into fresh 2^14-row templates
+        dense = model.init_dense(torch.Generator().manual_seed(SEED + 31),
+                                 DEV)
+        templates = model.init_tables(opt, seed=SEED + 32, device=DEV)
+        t0 = time.perf_counter()
+        restored, dense, at = checkpoint.CheckpointManager(
+            os.path.join(workdir, "ckpts")).restore(templates, dense)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        import shutil
+        shutil.rmtree(workdir, ignore_errors=True)
+    out.update({
+        "examples_per_s": GROW_STEPS * BATCH / train_s, "train_s": train_s,
+        "restore_s": restore_s, "restore_gb_per_s": save_bytes / restore_s / 1e9,
+        "capacity_min": min(caps.values()), "capacity_max": max(caps.values()),
+        "restored_capacity_min": min(t.capacity for t in restored.values())})
+    check(at == GROW_STEPS, f"restored step {at}")
+    check(all(c >= GROW_START_ROWS * 4 for c in caps.values()),
+          f"every table should have doubled at least twice: {caps}")
+    check(all(t.capacity > GROW_START_ROWS for t in restored.values()),
+          "the restore did not grow its templates")
+    day = 20000
+    for n in sorted(state.tables):
+        a = table_by_key(np, kv, rowops, state.tables[n], day)
+        b = table_by_key(np, kv, rowops, restored[n], day)
+        check(np.array_equal(a[0], b[0]) and torch.equal(a[1], b[1])
+              and np.array_equal(a[2], b[2]) and np.array_equal(a[3], b[3]),
+              f"restored table {n} differs from the live one")
+    live_dense = state.dense.state_dict()
+    check(all(torch.equal(v, live_dense[k])
+              for k, v in dense.state_dict().items()),
+          "restored dense tower differs")
+    # one more step from both states on one batch: the loss comes before
+    # any update, so the two must be equal
+    resumed = models.TrainState(tables=restored, dense=dense,
+                                opt_state=tx(dense.parameters()),
+                                step=state.step.clone())
+    reset_launches()
+    state, loss_live, _ = step(models.grow_if_needed(state, BATCH),
+                               batches[-1])
+    resumed, loss_resumed, _ = step(models.grow_if_needed(resumed, BATCH),
+                                    batches[-1])
+    torch.cuda.synchronize()
+    more = read_launches()
+    launches = {k: launches[k] + more[k] for k in launches}
+    out["loss_live"], out["loss_resumed"] = float(loss_live), float(
+        loss_resumed)
+    check(torch.equal(loss_live, loss_resumed),
+          f"resumed loss {out['loss_resumed']} != live {out['loss_live']}")
+    check(launches["gather_rows"] > 0 and launches["scatter_rows"] > 0,
+          f"growth path: the row kernels were not launched: {launches}")
+    out["launches"] = launches
+    print(f"growth/checkpoint/resume: {json.dumps(out)}", flush=True)
+    if profile_dir:
+        profile_calls(torch, "dcn_growth_train",
+                      [lambda b=b: step(state, b) for b in batches[:3]],
+                      train_s / GROW_STEPS, profile_dir)
+    del state, resumed, restored, templates
+    out["peak_gib"] = peak_memory(torch, "growth/checkpoint/resume")
+    return launches, out
+
+
+def repartition_phase(torch, np, kv, train, checkpoint):
+    """examples/checkpoint_resume.py's own configuration on the card: 4
+    shards of dim 16 at 2^12 rows, GroupAdam lr 0.05, 30 steps of 256 ids
+    drawn from 5,000, a full checkpoint at 20 and deltas at 25 and 30,
+    restored into 6 shards (a 64-id sample must match bit for bit), then 5
+    more steps."""
+    import shutil
+    import tempfile
+    rng = np.random.RandomState(0)
+    opt = train.GroupAdamOptimizer(learning_rate=0.05)
+
+    def train_steps(shards, start, n_steps):
+        ns = len(shards)
+        for s in range(start, start + n_steps):
+            ids = rng.randint(0, 5000, 256)
+            for i in range(ns):
+                sel = np.unique(ids[ids % ns == i])
+                res = kv.lookup_or_insert(shards[i],
+                                          kv.encode_ids(sel, device=DEV))
+                shards[i] = opt.apply(res.table, res.slot,
+                                      res.rows * 0.1 + 0.01, lr=0.05, step=s,
+                                      payload_rows=res.payload_rows,
+                                      meta_rows=res.meta_rows)
+        return shards
+
+    def lookup_all(shards, ids):
+        out = torch.zeros(len(ids), 16)
+        for i in range(len(shards)):
+            sel = ids % len(shards) == i
+            if sel.any():
+                out[torch.from_numpy(sel)] = kv.lookup_or_zeros(
+                    shards[i], kv.encode_ids(ids[sel], device=DEV)).cpu()
+        return out
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_repart_")
+    try:
+        reset_launches()
+        mgr = checkpoint.CheckpointManager(os.path.join(workdir, "ckpts"))
+        shards = [opt.init(kv.create(16, 1 << 12, seed=i,
+                                     name=f"emb/part_{i}", device=DEV))
+                  for i in range(4)]
+        shards = train_steps(shards, 1, 20)
+        shards = mgr.save({"emb": shards}, step=20, full=True)["emb"]
+        shards = train_steps(shards, 21, 5)
+        shards = mgr.save({"emb": shards}, step=25, full=False)["emb"]
+        shards = train_steps(shards, 26, 5)
+        mgr.save({"emb": shards}, step=30, full=False)
+        sample = rng.randint(0, 5000, 64).astype(np.int64)
+        templates = [opt.init(kv.create(16, 1 << 12, seed=99 + i,
+                                        name=f"emb/part_{i}", device=DEV))
+                     for i in range(6)]
+        restored, _, at = checkpoint.CheckpointManager(
+            os.path.join(workdir, "ckpts")).restore({"emb": templates})
+        launches = read_launches()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    want = lookup_all(shards, sample)
+    new = restored["emb"]
+    got = lookup_all(new, sample)
+    rows = sum(int(kv.size(s)) for s in shards)
+    check(at == 30 and torch.equal(got, want),
+          "4 -> 6 repartition: the 64-id sample differs")
+    check(sum(int(kv.size(s)) for s in new) == rows,
+          "4 -> 6 repartition lost rows")
+    reset_launches()
+    new = train_steps(new, at + 1, 5)
+    torch.cuda.synchronize()
+    more = read_launches()
+    launches = {k: launches[k] + more[k] for k in launches}
+    after = sum(int(kv.size(s)) for s in new)
+    check(after >= rows and all(bool(torch.isfinite(s.payload).all())
+                                for s in new),
+          "training on 6 shards after the restore failed")
+    out = {"rows_before": rows, "rows_after_5_steps": after,
+           "launches": launches}
+    print(f"repartition 4 -> 6: {json.dumps(out)}", flush=True)
+    return launches, out
+
+
+def reference_growth_phase(torch, np, kv, train, packing, rowops):
+    """One dim-128 GroupAdam table (payload 4·128 f32) at 2^20 rows holding
+    2^19 keys, with random values, slot columns and meta words written by
+    ``insert_raw``: ``grow`` to 2^21, then ``compact`` after deleting a
+    third of the keys. Each is timed once and checked to keep every row
+    (size, and each key's full payload row and meta word). Bound: the live
+    rows read and written once, the new table's other rows zeroed, the old
+    header read and the new one written (16 B per slot), over 3.35 TB/s."""
+    opt = train.GroupAdamOptimizer()
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 40)
+    rng = np.random.RandomState(SEED + 40)
+    keys = rng.permutation(np.unique(rng.randint(
+        0, 1 << 40, FILL + FILL // 8, dtype=np.int64)))[:FILL]
+    t = opt.init(kv.create(128, C_ROWS, seed=SEED, device=DEV))
+    w = t.payload.shape[1]
+    q = kv.encode_ids(keys, device=DEV)
+    meta = packing.pack(torch.randint(1, 1000, (FILL,), device=DEV,
+                                      generator=gen), 7)
+    kv.insert_raw(t, q, torch.randn(FILL, w, device=DEV, generator=gen),
+                  meta)
+    n0 = int(kv.size(t))
+    check(n0 > 0.999 * FILL, "reference growth: the fill placed too few")
+
+    def rows_of(table, qq):
+        fr = kv.find(table, qq)
+        check(bool(fr.found.all()), "a key was lost")
+        return (rowops.gather_rows(table.payload, fr.slot),
+                table.meta[fr.slot.long()])
+
+    placed = kv.find(t, q).found
+    qk = q[placed]
+    want = rows_of(t, qk)
+    row_bytes = w * 4
+
+    def bound(n, c_old, c_new):
+        return bound_ms(2 * n * row_bytes + (c_new - n) * row_bytes
+                        + 16 * (c_old + c_new))
+
+    out = {"rows": n0, "row_bytes": row_bytes}
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    g = kv.grow(t, 2 * C_ROWS)
+    torch.cuda.synchronize()
+    out["grow_ms"] = (time.perf_counter() - t0) * 1e3
+    out["grow_launches"] = read_launches()
+    out["grow_bound_ms"] = bound(n0, C_ROWS, 2 * C_ROWS)
+    del t
+    got = rows_of(g, qk)
+    check(g.capacity == 2 * C_ROWS and int(kv.size(g)) == n0
+          and torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          "grow to 2^21 lost or changed a row")
+    gone = qk[:n0 // 3]
+    kv.delete(g, gone)
+    keep = qk[n0 // 3:]
+    want = (want[0][n0 // 3:], want[1][n0 // 3:])
+    n1 = int(kv.size(g))
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    c = kv.compact(g)
+    torch.cuda.synchronize()
+    out["compact_ms"] = (time.perf_counter() - t0) * 1e3
+    out["compact_launches"] = read_launches()
+    out["compact_bound_ms"] = bound(n1, 2 * C_ROWS, 2 * C_ROWS)
+    got = rows_of(c, keep)
+    check(c.capacity == 2 * C_ROWS and int(kv.size(c)) == n1 == n0 - n0 // 3
+          and torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+          and not bool(kv.hashing.is_tombstone(c.keys).any()),
+          "compact lost or changed a row")
+    out["compact_rows"] = n1
+    print(f"reference-size growth: {json.dumps(out)}", flush=True)
+    launches = {k: out["grow_launches"][k] + out["compact_launches"][k]
+                for k in out["grow_launches"]}
+    check(launches["scatter_rows"] >= 2,
+          f"grow/compact did not move rows through the kernel: {launches}")
+    del g, c, got, want
+    out["peak_gib"] = peak_memory(torch, "reference-size growth")
+    return launches, out
+
+
 def kernel_entry(name, src, replaces, launches, errs, case, key):
     return {"name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches,
@@ -1456,10 +1878,13 @@ def main() -> int:
         return 1
     try:
         import numpy as np
-        from tfplus_tpu_torch import convert, embedding, kv, models, train
+        from tfplus_tpu_torch import (checkpoint, convert, embedding, kv,
+                                      models, ops, train)
+        from tfplus_tpu_torch.checkpoint import bundle as tbundle
         from tfplus_tpu_torch.kv import hashing
-        from tfplus_tpu_torch.ops import _build, rowops
+        from tfplus_tpu_torch.ops import _build, compactor, rowops
         from tfplus_tpu_torch.ops import flash_attention as fa
+        from tfplus_tpu_torch.utils import packing
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
               file=sys.stderr)
@@ -1493,6 +1918,14 @@ def main() -> int:
     checks = training_checks_phase(torch, np, kv, models, train, convert)
     dcn_train = dcn_training_phase(torch, np, kv, models, train, args.profile)
     bst_train = bst_training_phase(torch, np, kv, models, train, args.profile)
+    comp_launches, comp_cases, comp_time, comp_peak = compactor_phase(
+        torch, ops, compactor)
+    grow_launches, grow = growth_checkpoint_phase(
+        torch, np, kv, models, train, checkpoint, tbundle, rowops,
+        args.profile)
+    rep_launches, rep = repartition_phase(torch, np, kv, train, checkpoint)
+    ref_launches, ref = reference_growth_phase(torch, np, kv, train, packing,
+                                               rowops)
 
     errs = {k: [c[f"{k}_err"] for c in cases.values()]
             for k in ("gather", "scatter_set", "scatter_add")}
@@ -1500,7 +1933,8 @@ def main() -> int:
           "a kernel differs from its plain version")
     paths = [emb_launches, dcn_launches, flash_launches,
              seq["fill_launches"], seq["BST"][0], seq["DIN"][0],
-             grad_launches, dcn_train[0], bst_train[0]]
+             grad_launches, dcn_train[0], bst_train[0], comp_launches,
+             grow_launches, rep_launches, ref_launches]
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
     src = "tfplus_tpu_torch/ops/csrc/rowops.cu"
     main_case = cases[f"float32_w128_n{N_IDS}"]     # the serving-leg shape
@@ -1526,6 +1960,14 @@ def main() -> int:
                        "tfplus_tpu/ops/flash_attention.py:636",
                        launches["flash_bwd_dq"], bwd_cases,
                        "a_bench_causal_bf16"),
+        {"name": "compact", "route": "cuda",
+         "source": "tfplus_tpu_torch/ops/csrc/compactor.cu",
+         "replaces": "tfplus_tpu/ops/compactor.py:141",
+         "launches": launches["compact"],
+         "max_abs_err": max(c["max_abs_err"] for c in comp_cases.values()),
+         "ms": comp_time["ms"], "plain_ms": comp_time["plain_ms"],
+         "bound_ms": comp_time["bound_ms"], "bound_by": "bytes",
+         "library_ms": comp_time["library_ms"]},
     ]
     check(all(e["launches"] > 0 for e in kernels),
           f"a kernel was not launched on its path: {kernels}")
@@ -1548,6 +1990,10 @@ def main() -> int:
         "bst_launches_per_step": bst_train[2],
         "bst_peak_gib": bst_train[3],
         "checks": checks}}))
+    print(json.dumps({"growth": {
+        "compactor": dict(comp_time, peak_gib=comp_peak),
+        "growth_checkpoint_resume": grow, "repartition_4_to_6": rep,
+        "reference_size_growth": ref}}))
     print(smi_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

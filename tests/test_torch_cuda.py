@@ -12,7 +12,9 @@ served on the card give the CPU's predictions within ``1e-5``. The flash
 backward kernels are held against their plain versions (same limits) and
 float64 autograd, run deterministically, and a CUDA backward never reaches
 a plain version; a few DCN and BST training steps on the card match the
-same steps on the CPU. Marked
+same steps on the CPU. The compactor kernel matches its plain version bit
+for bit, and table growth, compaction, export and a checkpoint round trip
+on the card leave the same tables as on the CPU. Marked
 ``cuda``: every test skips without a card. On a machine with a card and
 without JAX, run
 
@@ -22,7 +24,8 @@ import numpy as np
 import pytest
 import torch
 
-from tfplus_tpu_torch import kv, models
+from tfplus_tpu_torch import checkpoint, kv, models
+from tfplus_tpu_torch.ops import compactor
 from tfplus_tpu_torch.ops import flash_attention as fa
 from tfplus_tpu_torch.ops import rowops
 
@@ -40,7 +43,8 @@ def _values(gen, c, w, dtype, device):
     return torch.randn(c, w, generator=gen).to(device=device, dtype=dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("width", [1, 3, 64, 129, 384])
 def test_gather_matches_plain(cuda, dtype, width):
     gen = torch.Generator().manual_seed(width)
@@ -55,7 +59,8 @@ def test_gather_matches_plain(cuda, dtype, width):
     assert torch.equal(got, rowops.gather_rows_plain(values, idx))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("width", [1, 3, 64, 129, 384])
 @pytest.mark.parametrize("add", [False, True])
 def test_scatter_matches_plain(cuda, dtype, width, add):
@@ -98,8 +103,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         rowops.gather_rows(values, idx.cpu())               # two devices
     with pytest.raises(TypeError):
-        rowops.scatter_rows(values.half(), idx, torch.zeros(4, 8, device=cuda,
-                                                            dtype=torch.half))
+        rowops.scatter_rows(values.double(), idx,
+                            torch.zeros(4, 8, device=cuda,
+                                        dtype=torch.double))
 
 
 def test_serving_calls_on_the_card_match_the_cpu(cuda):
@@ -458,3 +464,90 @@ def test_take_backward_is_deterministic_on_the_card(cuda):
     assert all(torch.equal(got, rows_grad(cuda)) for _ in range(3))
     np.testing.assert_allclose(got.numpy(), rows_grad("cpu").numpy(),
                                atol=1e-3, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# compactor, growth and checkpoints
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m,w,r,frac,out_rows,dtype", [
+    (512, 128, 32, 0.0, None, torch.float32),
+    (512, 128, 32, 0.3, None, torch.float32),
+    (4096, 256, 128, 2 / 3, None, torch.float32),
+    (4096, 128, 128, 0.97, None, torch.float32),
+    (512, 128, 32, 1.0, None, torch.float32),
+    (64, 128, 16, 0.5, None, torch.float32),
+    (1000, 384, 1000, 0.5, None, torch.float32),      # one block, R > 256
+    (512, 256, 32, 0.5, 640, torch.float32),          # out_rows > M
+    (512, 256, 32, 0.5, 128, torch.float32),          # live rows dropped
+    (2048, 128, 64, 0.6, None, torch.bfloat16),
+    (2048, 128, 64, 0.6, None, torch.float16)])
+def test_compactor_matches_plain(cuda, m, w, r, frac, out_rows, dtype):
+    gen = torch.Generator().manual_seed(m + w)
+    arena = torch.randn(m, w, generator=gen).to(dtype)
+    live = torch.rand(m, generator=gen) < frac
+    if m == 4096:                         # whole dead and live blocks too
+        live[:512] = True
+        live[1024:1536] = False
+    want_p, want_l = compactor.compact_plain(arena, live, out_rows=out_rows)
+    n = min(int(live.sum()), out_rows or m)
+    before = compactor.compact.launches
+    got_p, got_l = compactor.compact(arena.to(cuda), live.to(cuda),
+                                     block_rows=r, out_rows=out_rows)
+    again_p, again_l = compactor.compact(arena.to(cuda), live.to(cuda),
+                                         block_rows=r, out_rows=out_rows)
+    torch.cuda.synchronize()
+    assert compactor.compact.launches == before + 2
+    assert torch.equal(got_p[:n].cpu(), want_p[:n])
+    assert torch.equal(got_l.cpu(), want_l)
+    assert torch.equal(got_p[:n], again_p[:n]) and torch.equal(got_l,
+                                                               again_l)
+
+
+def test_compactor_refuses_what_the_kernel_does_not_take(cuda):
+    arena = torch.zeros(64, 256, device=cuda)
+    live = torch.ones(64, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError):
+        compactor.compact(arena[:, :128], live, block_rows=16)  # strided
+    with pytest.raises(ValueError):
+        compactor.compact(arena, live.cpu(), block_rows=16)
+    with pytest.raises(TypeError):
+        compactor.compact(arena.double(), live, block_rows=16)
+
+
+def test_growth_and_checkpoint_on_the_card_match_the_cpu(cuda, tmp_path):
+    """grow, grow_to_fit, compact, export and a full + delta checkpoint
+    round trip on the card leave the tables the same calls leave on the
+    CPU, bit for bit (rows and slot columns written with ``insert_raw``:
+    pure data movement, no arithmetic that may round apart)."""
+    from tfplus_tpu_torch import train
+    from tfplus_tpu_torch.utils import packing
+    rng = np.random.RandomState(4)
+    opt = train.GroupAdamOptimizer(learning_rate=0.05)
+    ids = np.unique(rng.randint(0, 1 << 40, 720).astype(np.int64))[:700]
+    more = rng.randint(0, 1 << 40, 300).astype(np.int64)
+    rows = torch.from_numpy(rng.randn(700, 64).astype(np.float32))
+    meta = packing.pack(torch.from_numpy(rng.randint(1, 900, 700)), 3)
+    out = {}
+    for d in ("cpu", cuda):
+        t = opt.init(kv.create(16, 1024, max_probes=8, init_pool_rows=100,
+                               seed=5, device=d))
+        kv.insert_raw(t, kv.encode_ids(ids, device=d), rows.to(d),
+                      meta.to(d))
+        t = kv.grow(t)
+        t = kv.grow_to_fit(t, 5000)
+        kv.delete(t, kv.encode_ids(ids[:400], device=d))
+        t = kv.compact(t)
+        mgr = checkpoint.CheckpointManager(str(tmp_path / str(d)))
+        t = mgr.save({"t": t}, step=1, full=True)["t"]
+        kv.lookup_or_insert(t, kv.encode_ids(more, device=d), day=4)
+        t = mgr.save({"t": t}, step=2, full=False)["t"]
+        template = opt.init(kv.create(16, 256, seed=1, device=d))
+        restored, _, _ = mgr.restore({"t": template})
+        ex = kv.export_arrays(restored["t"], as_of_unix_day=20000)
+        out[d] = [t.header, t.payload, restored["t"].header,
+                  restored["t"].payload] + [torch.from_numpy(
+                      np.asarray(ex[k]).astype(np.float64))
+                      for k in ("keys", "values", "meta")]
+    for a, b in zip(out["cpu"], out[cuda]):
+        assert torch.equal(a, b.cpu())

@@ -1,6 +1,7 @@
 """The port stands alone: importing tfplus_tpu_torch, every submodule
-(the optimizer suite and the training step too) and chip_smoke.py loads
-neither JAX nor the JAX package, and needs no nvcc."""
+(the optimizer suite, the training step, the checkpoint package, the
+filesystems, the progress bar and the compactor too) and chip_smoke.py
+loads neither JAX nor the JAX package, and needs no nvcc."""
 import os
 import subprocess
 import sys
@@ -23,7 +24,12 @@ new = {"tfplus_tpu_torch.ops.rowops", "tfplus_tpu_torch.ops.flash_attention",
        "tfplus_tpu_torch.nn.attention", "tfplus_tpu_torch.models.bst",
        "tfplus_tpu_torch.models.din", "tfplus_tpu_torch.optim.rules",
        "tfplus_tpu_torch.optim.base", "tfplus_tpu_torch.optim.dense",
-       "tfplus_tpu_torch.train"}
+       "tfplus_tpu_torch.train", "tfplus_tpu_torch.checkpoint",
+       "tfplus_tpu_torch.checkpoint.bundle", "tfplus_tpu_torch.checkpoint.saver",
+       "tfplus_tpu_torch.checkpoint.manager",
+       "tfplus_tpu_torch.checkpoint.repartition", "tfplus_tpu_torch.io",
+       "tfplus_tpu_torch.io.filesystem", "tfplus_tpu_torch.utils.progress",
+       "tfplus_tpu_torch.ops.compactor"}
 assert new <= set(names), sorted(new - set(names))
 from tfplus_tpu_torch.models import BST, DIN
 from tfplus_tpu_torch.nn import flash_attention_layer
@@ -32,6 +38,12 @@ from tfplus_tpu_torch.ops import (flash_bwd_dkv, flash_bwd_dq, flash_fwd,
 from tfplus_tpu_torch.models import make_train_step_scan, grow_if_needed
 from tfplus_tpu_torch.optim import SparseOptimizer, ALL_RULES
 from tfplus_tpu_torch.train import GroupAdamOptimizer, AdamOptimizer
+from tfplus_tpu_torch.checkpoint import (CheckpointManager, UnionReader,
+                                         restore, save, save_async)
+from tfplus_tpu_torch.io import MemFileSystem, get_filesystem
+from tfplus_tpu_torch.kv import export_arrays, grow, grow_to_fit, compact
+from tfplus_tpu_torch.ops import compact as compact_rows
+from tfplus_tpu_torch.utils.progress import ProgressBar
 print(len(names))
 """
 
@@ -41,7 +53,7 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 21
+    assert int(out.stdout.strip().splitlines()[-1]) >= 30
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

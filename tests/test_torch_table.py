@@ -15,14 +15,16 @@ from tfplus_tpu_torch import convert
 from tfplus_tpu_torch import kv as tkv
 
 TORCH_DTYPE = {np.dtype(jnp.float32): torch.float32,
-               np.dtype(jnp.bfloat16): torch.bfloat16}
+               np.dtype(jnp.bfloat16): torch.bfloat16,
+               np.dtype(jnp.float16): torch.float16}
 
 
 def port_config(cfg):
     return tkv.KvConfig(dim=cfg.dim, enter_threshold=cfg.enter_threshold,
                         max_probes=cfg.max_probes,
                         value_dtype=TORCH_DTYPE[np.dtype(cfg.value_dtype)],
-                        name=cfg.name, slot_layout=cfg.slot_layout)
+                        name=cfg.name, slot_layout=cfg.slot_layout,
+                        support_prediction_delta=cfg.support_prediction_delta)
 
 
 def to_port(jt):
@@ -34,13 +36,13 @@ def to_port(jt):
 def bits(x):
     """Exact bit pattern of a JAX array or a torch tensor, as int64."""
     if isinstance(x, torch.Tensor):
-        if x.dtype == torch.bfloat16:
+        if x.dtype in (torch.bfloat16, torch.float16):
             x = x.view(torch.int16)
         elif x.dtype == torch.float32:
             x = x.view(torch.int32)
         return x.numpy().astype(np.int64)
     a = np.asarray(jax.device_get(x))
-    if a.dtype == np.dtype(jnp.bfloat16):
+    if a.dtype in (np.dtype(jnp.bfloat16), np.float16):
         a = a.view(np.int16)
     elif a.dtype == np.float32:
         a = a.view(np.int32)
@@ -184,16 +186,21 @@ def test_import_arrays_from_jax_export(clear):
 
 
 def test_import_that_needs_growth_raises():
-    data = {"keys": np.arange(1, 200, dtype=np.int64),
-            "values": np.zeros((199, 4), np.float32)}
-    t = tkv.create(4, 256, device="cpu")
-    with pytest.raises(NotImplementedError, match="growth"):
-        tkv.import_arrays(t, data)
-    # below the load factor but past what max_probes=1 can place
-    t = tkv.create(4, 256, max_probes=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="growth"):
-        tkv.import_arrays(t, {"keys": data["keys"][:170],
-                              "values": data["values"][:170]})
+    """Growth is ported: an import past what ``max_probes=8`` can place
+    grows and re-inserts, places every row and leaves the JAX package's
+    table bit for bit; only an import that four grows cannot place
+    (``max_probes=1``) raises, as in the JAX package."""
+    data = {"keys": np.arange(1, 171, dtype=np.int64),
+            "values": np.arange(170 * 4, dtype=np.float32).reshape(170, 4)}
+    jt = jkv.import_arrays(jkv.create(4, 256, max_probes=8, seed=0), data,
+                           day=7)
+    tt = tkv.import_arrays(to_port(jkv.create(4, 256, max_probes=8, seed=0)),
+                           data, day=7)
+    assert tt.capacity > 256 and int(tkv.size(tt)) == 170
+    assert_same_table(jt, tt)
+    with pytest.raises(RuntimeError, match="after 4 grows"):
+        tkv.import_arrays(tkv.create(4, 256, max_probes=1, device="cpu"),
+                          data)
 
 
 def test_table_from_numpy_round_trip():

@@ -26,7 +26,21 @@ from tfplus_tpu import models as jmodels
 from tfplus_tpu import train as jtrain
 from tfplus_tpu_torch import convert, models as tmodels
 from tfplus_tpu_torch import train as ttrain
+from tfplus_tpu import kv as jkv
+from tfplus_tpu_torch.kv import size as tkv_size
 from test_torch_table import to_port
+
+
+def _to_jax(tt):
+    """A JAX table holding the port table's arrays (f32 payloads)."""
+    import dataclasses
+    jt = jkv.create(tt.dim, tt.capacity, init_pool_rows=1)
+    jt = jkv.ensure_slots(jt, dict(tt.config.slot_layout))
+    return dataclasses.replace(jt, **{
+        f: jnp.asarray(getattr(tt, f).numpy())
+        for f in ("header", "payload", "init_pool", "deleted_keys",
+                  "deleted_count", "deleted_overflow", "deleted_seen_train",
+                  "deleted_seen_pred")})
 
 BATCH = 16
 HIST = 6
@@ -156,8 +170,17 @@ def test_scan_equals_single_steps():
     for p, q in zip(a.dense.parameters(), b.dense.parameters()):
         assert torch.equal(p, q)
     assert tmodels.grow_if_needed(b, 10) is b
-    with pytest.raises(NotImplementedError, match="growth"):
-        tmodels.grow_if_needed(b, 10_000)
+    # growth is ported: a table past the load factor is replaced by a grown
+    # copy holding the same rows, bit for bit as the JAX package grows it
+    grown = tmodels.grow_if_needed(b, 1_000)
+    assert grown is not b and int(grown.step) == 3
+    for n, t in b.tables.items():
+        g = grown.tables[n]
+        assert g.capacity >= 2048 and int(tkv_size(g)) == int(tkv_size(t))
+        jt = jkv.grow_to_fit(_to_jax(t), 1_000)
+        np.testing.assert_array_equal(g.header.numpy(), np.asarray(jt.header))
+        np.testing.assert_array_equal(g.payload.numpy(),
+                                      np.asarray(jt.payload))
 
 
 def test_train_step_needs_its_optimizers():

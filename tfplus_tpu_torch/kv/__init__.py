@@ -6,6 +6,7 @@ from .table import (KvConfig, KvTable, LookupResult, FindResult, create, find,
                     lookup_or_insert, lookup_or_zeros, lookup_with_init,
                     insert, insert_raw, delete, size, sum_freq, stats,
                     occupied_mask, load_factor, needs_grow, ensure_slots,
-                    import_arrays,
+                    get_slot, set_slot_rows, grow, grow_to_fit, compact,
+                    export_arrays, import_arrays, clear_deltalist,
                     FLAG_BLACKLIST, FLAG_TOUCH_TRAIN, FLAG_TOUCH_PRED)
 from .unique import unique_with_counts, UniqueResult

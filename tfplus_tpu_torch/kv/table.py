@@ -14,13 +14,16 @@ the JAX ones. A table handed to a mutating call is the table that comes back.
 Payload rows move through :mod:`tfplus_tpu_torch.ops.rowops`, whose CUDA
 kernels run for tables on the card.
 
-Device syncs: ``_claim_insert``'s rounds and ``lookup_or_insert``'s
-any-miss gate are Python control flow (the JAX package's
-``lax.while_loop`` and ``lax.cond``), so each reads one boolean back from
-the device: one read before the rounds, one per round, one for the gate.
+Growth (:func:`grow`, :func:`grow_to_fit`, :func:`compact`) and a clearing
+import (:func:`import_arrays` with ``clear=True``) return a NEW table: the
+header and payload are reallocated at the new capacity, and the old table's
+tensors must not be used for the new one.
 
-Growth (``grow`` / ``_rehash_double_core``) is not ported yet: an
-:func:`import_arrays` that would need it raises ``NotImplementedError``.
+Device syncs: ``_claim_insert``'s rounds, ``lookup_or_insert``'s any-miss
+gate and the doubling's spill gate are Python control flow (the JAX
+package's ``lax.while_loop`` and ``lax.cond``), so each reads one boolean
+back from the device: one read before the rounds, one per round, one for
+each gate. Growth also reads the live count before and after each rebuild.
 """
 from __future__ import annotations
 
@@ -46,8 +49,6 @@ GROW_LOAD_FACTOR = 0.7
 DELETED_LOG_CAPACITY = 4096
 
 _B = hashing.BUCKET_SIZE
-_GROWTH_SLICE = ("table growth (grow / _rehash_double_core) is not ported "
-                 "yet; it comes with the port's growth-and-checkpoint slice")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +60,9 @@ class KvConfig:
     value_dtype: Any = torch.float32
     name: str = "kv_table"
     slot_layout: tuple = ()           # ((name, k), ...): k*dim columns each
+    #: keep deletions visible to BOTH delta streams (train + pred) until each
+    #: has exported them; off: a delta export clears the deletion log
+    support_prediction_delta: bool = False
 
     def __post_init__(self):
         if not isinstance(self.value_dtype, torch.dtype):
@@ -116,6 +120,14 @@ def _set_meta_at(header: torch.Tensor, idx: torch.Tensor,
     keep = idx < header.shape[0] * _B
     flat = header.view(-1)
     flat[_hpos_meta(idx[keep].long())] = _meta_i32(meta[keep])
+    return header
+
+
+def _set_all_meta(header: torch.Tensor, meta: torch.Tensor) -> torch.Tensor:
+    """Replace the whole meta plane (``meta`` holds C uint32 values), in
+    place."""
+    g = header.shape[0]
+    header.view(g, 4, _B)[:, 2, :] = _meta_i32(meta).view(g, _B)
     return header
 
 
@@ -188,6 +200,7 @@ def create(dim: int,
            max_probes: int = DEFAULT_MAX_PROBES,
            value_dtype=torch.float32,
            name: str = "kv_table",
+           support_prediction_delta: bool = False,
            seed: int = 0,
            device="cuda") -> KvTable:
     """Create an empty table on ``device``.
@@ -203,7 +216,8 @@ def create(dim: int,
         raise ValueError(f"capacity must be >= {2 * _B}")
     dev = _dev.resolve(device)
     cfg = KvConfig(dim=dim, enter_threshold=enter_threshold,
-                   max_probes=max_probes, value_dtype=value_dtype, name=name)
+                   max_probes=max_probes, value_dtype=value_dtype, name=name,
+                   support_prediction_delta=support_prediction_delta)
     gen = torch.Generator().manual_seed(seed)
     if initializer is None:
         pool = torch.empty((init_pool_rows, dim))
@@ -586,19 +600,294 @@ def ensure_slots(table: KvTable, slot_specs: Dict[str, int]) -> KvTable:
     return dataclasses.replace(table, payload=payload, config=cfg)
 
 
+
+
+def get_slot(table: KvTable, name: str) -> torch.Tensor:
+    """Whole slot segment [C, k*dim] (a view of the payload columns)."""
+    s, w = table.config.slot_columns()[name]
+    return table.payload[..., s:s + w]
+
+
+def set_slot_rows(table: KvTable, name: str, idx: torch.Tensor,
+                  rows: torch.Tensor) -> KvTable:
+    """Overwrite ``rows`` of one slot segment at row indices ``idx``, in
+    place (out-of-range indices dropped). Checkpoint-restore helper, not a
+    hot path: it gathers and rewrites full payload rows through the row
+    kernels."""
+    s, w = table.config.slot_columns()[name]
+    ok = (idx >= 0) & (idx < table.capacity)
+    gidx = torch.where(ok, idx, -1).to(torch.int32)
+    cur = rowops.gather_rows(table.payload, gidx)
+    cur[:, s:s + w] = rows.to(device=cur.device, dtype=cur.dtype)
+    rowops.scatter_rows(table.payload, gidx, cur)
+    return table
+
+
 # ---------------------------------------------------------------------------
-# host-side import (checkpoint restore)
+# growth / rehash (each returns a NEW table)
 # ---------------------------------------------------------------------------
+
+def _move_rows(table: KvTable, header: torch.Tensor, payload: torch.Tensor,
+               dst: torch.Tensor) -> None:
+    """Copy every old row ``i`` with ``dst[i] >= 0`` to new slot ``dst[i]``:
+    its payload row through the row-scatter kernel (-1 rows dropped, as the
+    JAX package's ``mode="drop"`` sentinel) and its meta word."""
+    rowops.scatter_rows(payload, dst.to(torch.int32), table.payload)
+    _set_meta_at(header, torch.where(dst >= 0, dst, payload.shape[0]),
+                 table.meta)
+
+
+def _rehash_core(table: KvTable, new_capacity: int):
+    """Generic rehash: claim-insert every live key into an empty table of
+    ``new_capacity``. Returns ``(new_table, lost)``, ``lost`` the count of
+    live rows that found no slot (a 0-d tensor)."""
+    occ = occupied_mask(table)
+    header, placed = _claim_insert(
+        _empty_header(new_capacity // _B, table.device), table.keys, occ,
+        max(table.config.max_probes, 2 * _B))
+    payload = table.payload.new_zeros((new_capacity, table.payload.shape[1]))
+    _move_rows(table, header, payload, torch.where(occ, placed, -1))
+    lost = (occ & (placed < 0)).sum()
+    return dataclasses.replace(table, header=header, payload=payload), lost
+
+
+def _rehash_double_core(table: KvTable, new_capacity: int):
+    """Doubling rehash as a bucket-split permutation.
+
+    At 2× capacity both bucket hashes gain one bit, so a row's new bucket is
+    its old bucket or that plus ``g`` (the old bucket count): every new
+    bucket receives a subset of exactly one old bucket's ≤ 16 rows, ranked
+    by a per-bucket exclusive cumsum, with no claim rounds. Rows outside
+    both computed choices (the rare ``b2 == b1 → +1`` adjustment edge)
+    spill into one claim-insert pass; that pass is gated on one boolean
+    read. Returns ``(new_table, lost)`` like :func:`_rehash_core`.
+    """
+    cap = table.capacity
+    assert new_capacity == 2 * cap
+    dev = table.device
+    occ = occupied_mask(table)
+    keys = table.keys
+    g_old = cap // _B
+    b1o, b2o = hashing.bucket_choices(keys, cap)
+    b1n, b2n = hashing.bucket_choices(keys, new_capacity)
+    slot_bucket = torch.arange(cap, device=dev) // _B
+    via1 = slot_bucket == b1o
+    via2 = ~via1 & (slot_bucket == b2o)
+    target = torch.where(via1, b1n, torch.where(via2, b2n, -1))
+    beta = target == slot_bucket + g_old              # high-half bit
+    in_split = occ & ((target == slot_bucket) | beta)
+    ind0 = (in_split & ~beta).view(g_old, _B).to(torch.int32)
+    ind1 = (in_split & beta).view(g_old, _B).to(torch.int32)
+    r0 = ind0.cumsum(1) - ind0                        # exclusive rank ≤ 15
+    r1 = ind1.cumsum(1) - ind1
+    lane = torch.where(beta, r1.view(-1), r0.view(-1))
+    placed = torch.where(in_split, target * _B + lane, -1)
+
+    header = _empty_header(new_capacity // _B, dev)
+    flat = header.view(-1)
+    d = placed[in_split]
+    flat[_hpos_lo(d)] = keys[in_split, 0]
+    flat[_hpos_hi(d)] = keys[in_split, 1]
+    payload = table.payload.new_zeros((new_capacity, table.payload.shape[1]))
+    _move_rows(table, header, payload, placed)
+    out = dataclasses.replace(table, header=header, payload=payload)
+
+    spill = occ & (placed < 0)
+    if not bool(spill.any()):
+        return out, torch.zeros((), dtype=torch.int64, device=dev)
+    _, placed2 = _claim_insert(header, keys, spill,
+                               max(table.config.max_probes, 2 * _B))
+    _move_rows(table, header, payload, torch.where(spill, placed2, -1))
+    return out, (spill & (placed2 < 0)).sum()
+
+
+def _rehash_core_fast(table: KvTable, target: int):
+    """Best-path rehash to ``target``: chained doublings for growth, the
+    generic claim rehash for a same-size rebuild (compaction)."""
+    if target == table.capacity:
+        return _rehash_core(table, target)
+    t = table
+    lost = torch.zeros((), dtype=torch.int64, device=table.device)
+    while t.capacity < target:
+        t, n = _rehash_double_core(t, t.capacity * 2)
+        lost = lost + n
+    return t, lost
+
+
+def _rehash_verified(table: KvTable, new_capacity: int) -> KvTable:
+    """Rehash, but never lose rows: if a rebuild places fewer rows than
+    the table holds (a pathological bucket-pair collision), rebuild from
+    the ORIGINAL table at twice the capacity, at most 5 times."""
+    before = int(size(table))
+    cap = new_capacity
+    for _ in range(5):
+        out, _ = _rehash_core_fast(table, cap)
+        if int(size(out)) == before:
+            return out
+        del out
+        cap *= 2
+    raise RuntimeError(
+        f"rehash lost rows even at {cap // 2}x capacity ({before} live)")
+
+
+def grow(table: KvTable, new_capacity: Optional[int] = None) -> KvTable:
+    """Growth between steps: a NEW table at 2× (or the given) capacity
+    holding every live row."""
+    new_capacity = new_capacity or table.capacity * 2
+    if new_capacity & (new_capacity - 1):
+        raise ValueError("new_capacity must be a power of two")
+    if new_capacity < table.capacity:
+        raise ValueError("cannot shrink below current capacity")
+    return _rehash_verified(table, new_capacity)
+
+
+def grow_to_fit(table: KvTable, incoming: int = 0,
+                threshold: float = GROW_LOAD_FACTOR) -> KvTable:
+    """Grow by as many doublings as needed so that the current rows plus
+    ``incoming`` sit under the load factor. Returns ``table`` itself when it
+    already fits, else a NEW table."""
+    cur = int(size(table))
+    cap = table.capacity
+    while (cur + incoming) > threshold * cap:
+        cap *= 2
+    if cap == table.capacity:
+        return table
+    return _rehash_verified(table, cap)
+
+
+def compact(table: KvTable) -> KvTable:
+    """A NEW table rebuilt at the same capacity without tombstones (grows
+    instead if the rebuild cannot place every row)."""
+    return _rehash_verified(table, table.capacity)
+
+
+# ---------------------------------------------------------------------------
+# delta streams
+# ---------------------------------------------------------------------------
+
+def _consume_deletes(table: KvTable, deltalist: str) -> KvTable:
+    """Advance ``deltalist``'s watermark past the deletion log, in place.
+
+    Without ``config.support_prediction_delta`` the log simply resets. With
+    it, entries stay until BOTH streams have exported them; fully consumed
+    entries compact away, and the overflow flag clears only once no stream
+    has entries pending."""
+    dev = table.device
+
+    def scalar(v, dtype=torch.int32):
+        return torch.tensor(v, dtype=dtype, device=dev)
+
+    if not table.config.support_prediction_delta:
+        table.deleted_keys = torch.full_like(table.deleted_keys,
+                                             hashing.EMPTY_LO)
+        table.deleted_count = scalar(0)
+        table.deleted_overflow = scalar(False, torch.bool)
+        table.deleted_seen_train = scalar(0)
+        table.deleted_seen_pred = scalar(0)
+        return table
+    count = int(table.deleted_count)
+    seen_t = count if deltalist == "train" else int(table.deleted_seen_train)
+    seen_p = count if deltalist == "pred" else int(table.deleted_seen_pred)
+    keep_from = min(seen_t, seen_p)
+    rb = table.deleted_keys.shape[0]
+    live = torch.arange(rb, device=dev)[:, None] < (count - keep_from)
+    table.deleted_keys = torch.where(
+        live, torch.roll(table.deleted_keys, -keep_from, 0),
+        hashing.EMPTY_LO).to(torch.int32)
+    table.deleted_count = scalar(count - keep_from)
+    table.deleted_overflow = table.deleted_overflow & (count > keep_from)
+    table.deleted_seen_train = scalar(seen_t - keep_from)
+    table.deleted_seen_pred = scalar(seen_p - keep_from)
+    return table
+
+
+def pending_delete_span(table: KvTable, deltalist: str = "train"):
+    """(start, count) of the deletion-log entries pending for this stream."""
+    start = (table.deleted_seen_train if deltalist == "train"
+             else table.deleted_seen_pred)
+    return start, table.deleted_count
+
+
+def clear_deltalist(table: KvTable, deltalist: str = "train") -> KvTable:
+    """Reset this stream's delta-touch bits and consume its deletion log,
+    in place (the reference's deltalist swap on export)."""
+    bit = FLAG_TOUCH_TRAIN if deltalist == "train" else FLAG_TOUCH_PRED
+    _set_all_meta(table.header, table.meta & ~bit)
+    return _consume_deletes(table, deltalist)
+
+
+# ---------------------------------------------------------------------------
+# host-side export / import (feeds tfplus_tpu_torch.checkpoint)
+# ---------------------------------------------------------------------------
+
+def _occupied_np(keys: np.ndarray) -> np.ndarray:
+    return ~(((keys[:, 0] == hashing.EMPTY_LO)
+              | (keys[:, 0] == hashing.TOMB_LO))
+             & (keys[:, 1] == hashing.EMPTY_HI))
+
+
+def export_arrays(table: KvTable, *, enable_cutoff: bool = False,
+                  cutoff_value: float = 1e-20,
+                  delta: bool = False,
+                  deltalist: str = "train",
+                  clear_deltalist: Optional[bool] = None,
+                  as_of_unix_day: Optional[int] = None) -> Dict[str, np.ndarray]:
+    """The table's logical checkpoint tensors on the host, as the JAX
+    package's ``export_arrays`` gives them: ``keys`` (uint64), ``values``
+    (f32[n, D]), ``init_table``, ``blacklist``, ``freq_keys``/
+    ``freq_values`` (uint16) and ``meta``, the reference's ``freq |
+    unix_day<<16`` word. The selected rows come through the row-gather
+    kernel. ``delta=True`` keeps the rows this stream touched and adds its
+    pending ``delete_keys`` and ``need_full_import``; clearing (the default
+    with ``delta``) updates the table in place and returns it under
+    ``"table"``. ``enable_cutoff`` drops rows with max|v| < cutoff
+    (blacklisted rows keep their keys)."""
+    dim = table.config.dim
+    keys = table.keys.cpu().numpy()
+    meta = table.meta.cpu().numpy().astype(np.uint32)
+    occ = _occupied_np(keys)
+    sel = occ
+    if delta:
+        bit = FLAG_TOUCH_TRAIN if deltalist == "train" else FLAG_TOUCH_PRED
+        sel = sel & ((meta & np.uint32(bit)) != 0)
+    black = (meta & np.uint32(FLAG_BLACKLIST)) != 0
+    if enable_cutoff:
+        vmax = table.payload[:, :dim].abs().amax(dim=1).float().cpu().numpy()
+        sel = sel & ((vmax >= cutoff_value) | black)
+    idx = torch.from_numpy(np.nonzero(sel)[0].astype(np.int32))
+    values = rowops.gather_rows(table.payload, idx.to(table.device))[:, :dim]
+    out_keys = hashing.decode_ids_np(keys[sel])
+    out = {
+        "keys": out_keys,
+        "values": values.float().cpu().numpy(),
+        "init_table": table.init_pool.float().cpu().numpy(),
+        "blacklist": hashing.decode_ids_np(keys[occ & black]),
+        "freq_keys": out_keys,
+        "freq_values": (meta[sel] & packing.FREQ_MASK).astype(np.uint16),
+        "meta": packing.reference_word_np(meta, as_of_unix_day)[sel],
+    }
+    if delta:
+        start, count = pending_delete_span(table, deltalist)
+        dk = table.deleted_keys.cpu().numpy()
+        out["delete_keys"] = hashing.decode_ids_np(dk[int(start):int(count)])
+        out["need_full_import"] = bool(table.deleted_overflow)
+    if clear_deltalist is None:
+        clear_deltalist = delta
+    if clear_deltalist:
+        bit = FLAG_TOUCH_TRAIN if deltalist == "train" else FLAG_TOUCH_PRED
+        _set_all_meta(table.header, table.meta & ~bit)
+        out["table"] = _consume_deletes(table, deltalist)
+    return out
+
 
 def import_arrays(table: KvTable, data: Dict[str, np.ndarray], *,
                   clear: bool = True, delete_keys: Optional[np.ndarray] = None,
                   day: Optional[int] = None) -> KvTable:
-    """Load exported tensors back (the JAX package's ``export_arrays``
-    format). ``clear=False`` gives delta/merge upsert semantics.
-
-    Where the JAX version would grow the table — the rows do not fit under
-    the load factor, or a bucket overflows — this raises
-    ``NotImplementedError``: it never places fewer rows than given.
+    """Load exported tensors back (the :func:`export_arrays` format).
+    ``clear=True`` starts from a NEW empty table with the data's init pool;
+    ``clear=False`` upserts into ``table`` (delta/merge semantics). Grows as
+    needed before inserting, and grows and re-inserts (at most 4 times) when
+    a bucket pair overflows: an import never places fewer rows than given.
     """
     n = int(np.asarray(data["keys"]).shape[0])
     dev = table.device
@@ -612,11 +901,12 @@ def import_arrays(table: KvTable, data: Dict[str, np.ndarray], *,
                        value_dtype=table.config.value_dtype,
                        name=table.config.name, device=dev)
         table = ensure_slots(fresh, dict(table.config.slot_layout))
+    cap = table.capacity
     cur = 0 if clear else int(size(table))
-    if (cur + n) > GROW_LOAD_FACTOR * table.capacity:
-        raise NotImplementedError(
-            f"import of {n} rows into {cur} of {table.capacity} needs the "
-            f"table to grow: {_GROWTH_SLICE}")
+    while (cur + n) > GROW_LOAD_FACTOR * cap:
+        cap *= 2
+    if cap != table.capacity:
+        table = grow(table, cap)
 
     # deletes FIRST, then upserts: a key deleted and re-inserted between
     # exports appears in both lists, and the upsert must win
@@ -647,14 +937,20 @@ def import_arrays(table: KvTable, data: Dict[str, np.ndarray], *,
         freq_t = torch.from_numpy(freq.astype(np.int64)).to(dev)
         black_t = torch.from_numpy(black_np).to(dev)
         table = insert(table, q, vals, freq=freq_t, blacklist=black_t, day=0)
-        # a checkpoint restore must never lose rows; the JAX version grows
-        # and re-inserts on bucket overflow
+        # a bucket pair can overflow under the load factor; a restore must
+        # never lose rows: grow (which disperses the pair) and re-insert
+        # (idempotent: values, freq and flags are set, not accumulated)
         fr = find(table, q)
-        missing = int((~fr.found).sum())
-        if missing:
-            raise NotImplementedError(
-                f"import could not place {missing} rows without growing the "
-                f"table: {_GROWTH_SLICE}")
+        for _ in range(4):
+            if not bool((~fr.found).any()):
+                break
+            table = grow(table)
+            table = insert(table, q, vals, freq=freq_t, blacklist=black_t,
+                           day=0)
+            fr = find(table, q)
+        else:
+            raise RuntimeError(f"import could not place "
+                               f"{int((~fr.found).sum())} rows after 4 grows")
         # overwrite meta with exact packed values (restores per-row day,
         # keeps the just-set touch/blacklist flag bits)
         fl = (packing.FLAG_TOUCH_BOTH

@@ -20,9 +20,6 @@ from ..kv import table as kvt
 from ..utils import device as _dev
 from ..utils import packing
 
-_GROWTH_SLICE = ("table growth is not ported yet; it comes with the port's "
-                 "growth-and-checkpoint slice (size the tables for the run)")
-
 
 class SparseModel:
     """Protocol: subclass and define table_specs / init_dense / apply / loss."""
@@ -191,10 +188,17 @@ def make_train_step_scan(model: SparseModel, sparse_opt, dense_tx=None, *,
 
 
 def grow_if_needed(state: TrainState, incoming_per_table: int) -> TrainState:
-    """Between-steps growth check for every table. Growth is not ported
-    yet: returns ``state`` when no table needs to grow and raises
-    ``NotImplementedError`` when one does."""
-    for name, t in state.tables.items():
+    """Between-steps growth check for every table: a table that would pass
+    the load factor with ``incoming_per_table`` more rows is replaced by a
+    grown copy (:func:`kv.table.grow_to_fit`), which carries its optimizer
+    slot columns with its rows. Returns ``state`` itself when nothing grew,
+    else a new state whose ``tables`` dict holds the new tables: keep the
+    returned state, not the old one's tables. The train step reads
+    ``state.tables`` on every call, so it caches no table."""
+    tables = dict(state.tables)
+    changed = False
+    for name, t in tables.items():
         if kvt.needs_grow(t, incoming_per_table):
-            raise NotImplementedError(f"table {name}: {_GROWTH_SLICE}")
-    return state
+            tables[name] = kvt.grow_to_fit(t, incoming_per_table)
+            changed = True
+    return state._replace(tables=tables) if changed else state

@@ -28,6 +28,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace {
@@ -40,6 +41,7 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) {
   return x;
@@ -47,6 +49,9 @@ template <> __device__ __forceinline__ float from_float<float>(float x) {
 template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(
     float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch rounds
+}
+template <> __device__ __forceinline__ __half from_float<__half>(float x) {
+  return __float2half(x);      // round to nearest even
 }
 
 // Elementwise a + b over the T values packed in one word V.
@@ -163,7 +168,7 @@ int tfp_gather_rows(const void* values, const void* idx, void* out, long long n,
   return static_cast<int>(cudaGetLastError());
 }
 
-// dtype: 0 = float32, 1 = bfloat16. add: 0 = set, 1 = accumulate.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. add: 0 = set, 1 = accumulate.
 int tfp_scatter_rows(void* values, const void* idx, const void* rows, long long n,
                      long long c, long long row_bytes, int dtype, int add,
                      void* stream) {
@@ -174,6 +179,8 @@ int tfp_scatter_rows(void* values, const void* idx, const void* rows, long long 
     dispatch_scatter<float>(values, ix, rows, n, c, row_bytes, add, s);
   } else if (dtype == 1) {
     dispatch_scatter<__nv_bfloat16>(values, ix, rows, n, c, row_bytes, add, s);
+  } else if (dtype == 2) {
+    dispatch_scatter<__half>(values, ix, rows, n, c, row_bytes, add, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

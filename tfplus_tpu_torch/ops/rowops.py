@@ -19,7 +19,7 @@ import torch
 
 from . import _build
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _c_int64 = ctypes.c_longlong
 _ptr = ctypes.c_void_p
 
@@ -43,7 +43,7 @@ def _check(values: torch.Tensor, idx: torch.Tensor, rows=None) -> None:
         raise ValueError(f"values must be [C, W], got {tuple(values.shape)}")
     if values.dtype not in _DTYPES:
         raise TypeError(f"values dtype {values.dtype} not supported "
-                        "(float32, bfloat16)")
+                        "(float32, bfloat16, float16)")
     if idx.dtype != torch.int32 or idx.dim() != 1:
         raise TypeError(f"idx must be int32[N], got {idx.dtype} "
                         f"{tuple(idx.shape)}")
@@ -78,7 +78,7 @@ def gather_rows_plain(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def gather_rows(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``values[idx]`` for row tables ([C, W] f32/bf16), idx int32[N].
+    """``values[idx]`` for row tables ([C, W] f32/bf16/f16), idx int32[N].
     Negative idx rows return row 0 and idx >= C returns row C - 1 (as JAX
     clamps) — mask downstream."""
     _check(values, idx)

@@ -1,2 +1,2 @@
-"""Host-side helpers: meta-word packing and device resolution."""
-from . import device, packing
+"""Host-side helpers: meta-word packing, device resolution, progress."""
+from . import device, packing, progress
