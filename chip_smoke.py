@@ -11,7 +11,8 @@ imports neither JAX nor the JAX package. Phases, each of which raises on a
 failed check:
 
 1. The card's name and power limit; the CUDA kernels are built from
-   ``tfplus_tpu_torch/ops/csrc`` and the build time printed.
+   ``tfplus_tpu_torch/ops/csrc`` and the build time printed, with ptxas's
+   registers, shared memory and spills of the tensor-core flash kernels.
 2. Kernels: every row kernel is held bit-exact against its plain PyTorch
    version at the shapes the serving paths give it (f32 and bf16, widths
    64/128/384; 32,768 indices with negative, duplicated and edge values;
@@ -29,12 +30,16 @@ failed check:
    PyTorch version and timed beside it, beside the least time the card could
    take and beside ``scaled_dot_product_attention`` (timed only; the port
    never calls it): the bench's causal bf16 B4 H8 S2048 D128 and the same
-   non-causal with segments from lengths (tiled kernel); BST's f32 heads,
-   B2048 H8 S128 D8 with BST's request mask, without and with dropout
-   (single-pass kernel); dropout 0.2 at S1000, causal and not, f32 and bf16;
+   non-causal with segments from lengths (tiled kernel, tensor-core route);
+   BST's f32 heads, B2048 H8 S128 D8 with BST's request mask, without and
+   with dropout (single-pass kernel); dropout 0.2 at S1000 D64, causal and
+   not, f32 (CUDA-core route) and bf16 (tensor-core route);
    ``flash_attention_with_lse``'s residuals and its -inf on padding rows.
+   Each case records the route it took; at the bench shape the CUDA-core
+   kernel is also timed on the same bf16 inputs, as the earlier route.
 6. Flash entry points: ``flash_attention(causal=True)`` and
-   ``flash_attention_with_lse`` at the bench's shape.
+   ``flash_attention_with_lse`` at the bench's shape, every forward launch
+   on the tensor-core route.
 7. BST and DIN serving at published widths: an item table of 2^23 rows
    filled with 2^22 keys and a user table of 2^22 rows filled with 2^21,
    dim 64, then batch-2048 requests (histories of 1-20 items, 2 % of users
@@ -49,9 +54,12 @@ failed check:
    ``scaled_dot_product_attention`` (timed only): the bench's causal bf16
    B4 H8 S2048 D128; BST's f32 heads with BST's request mask; dropout 0.2
    at S1000 D64, causal and not, f32 and bf16; non-causal bf16 S2048 D128
-   with segments from lengths in 512-2048.
+   with segments from lengths in 512-2048. dk/dv takes the tensor-core
+   route on the bf16 cases and the CUDA-core one on the f32 cases; at the
+   bench shape the CUDA-core dk/dv kernel is also timed on the same inputs.
 9. ``flash_attention(causal=True)`` forward and backward x10 at the bench's
-   shape, in TFLOP/s counted as the JAX bench's ``grad=True`` leg.
+   shape, in TFLOP/s counted as the JAX bench's ``grad=True`` leg, every
+   forward and dk/dv launch on the tensor-core route.
 10. Training checks at the reference DCN's and BST's widths with tables of
    2^14 rows: three steps from one state on the card and on the CPU (headers
    and slots bit for bit, the rest within the stated tolerances), two runs
@@ -63,7 +71,7 @@ failed check:
 12. BST training at published widths: the item and user tables of phase 7
    with Adam's slot columns (payload 3·D), batch-2048 steps (Adam 0.01,
    dense Adam 0.01); every step launches the single-pass forward and both
-   backward kernels.
+   backward kernels, dk/dv on the CUDA-core route (f32 heads).
 13. Compactor: ``ops.compact`` (an entry point no engine path calls) at its
    study shape, M = 1,572,864 x W = 256 f32, 2/3 live, R = 128, held bit
    for bit against its plain version and timed beside it, its byte bound
@@ -123,6 +131,15 @@ PEAK_FLOPS = {"bfloat16": 989e12,  # H100 SXM dense bf16 tensor cores
 # arithmetic, then the output rounds to 8 significant bits, so one bf16 ulp
 # (2^-7 relative) may differ: rtol 2^-6, atol 1e-5 for outputs near zero.
 ATTN_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-5, 2.0 ** -6)}
+# That bf16 limit holds where the kernel's f32 sums are the plain version's
+# bit for bit (the CUDA-core kernels sum q·k by FMA in the same order as the
+# f32 matmul). The tensor cores sum in another order, so s differs in its
+# last bits and a p within that of a bf16 rounding tie may round the other
+# way, moving an output by one bf16 ulp of p·|v|/l: on the tensor-core route
+# the output's limit adds, per element, that move for every p of the plain
+# version within TIE_ULPS of a tie (tie_allowance); l and m keep the f32
+# limits, and the strict ratio is reported beside.
+TIE_ULPS = 128                   # of the 2^16 f32 ulps between bf16 values
 SEQ_REQUESTS = 10
 # Backward kernels against their plain versions, (atol, rtol): f32 differs
 # in summation order only, and one flipped dropout bit moves a gradient by
@@ -313,13 +330,37 @@ def _wrappers():
             "flash_bwd_dq": fa.flash_bwd_dq, "compact": compactor.compact}
 
 
+ROUTED = ("flash_fwd", "flash_bwd_dkv")     # wrappers with two routes
+ROUTES = ("tc", "cuda_core")
+
+
 def reset_launches():
-    for fn in _wrappers().values():
+    for name, fn in _wrappers().items():
         fn.launches = 0
+        if name in ROUTED:
+            fn.tc_launches = fn.cuda_core_launches = 0
 
 
 def read_launches():
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    """Launches per wrapper, and per route (``flash_fwd.tc``, ...) for the
+    two wrappers that have two."""
+    out = {}
+    for name, fn in _wrappers().items():
+        out[name] = fn.launches
+        if name in ROUTED:
+            for route in ROUTES:
+                out[f"{name}.{route}"] = getattr(fn, f"{route}_launches")
+    return out
+
+
+def route_of(fn, call):
+    """Run ``call`` and return the route ``fn`` (a routed wrapper) took."""
+    before = [getattr(fn, f"{r}_launches") for r in ROUTES]
+    out = call()
+    taken = [r for r, b in zip(ROUTES, before)
+             if getattr(fn, f"{r}_launches") > b]
+    check(len(taken) == 1, f"{fn.__name__}: expected one routed launch")
+    return taken[0], out
 
 
 def embedding_serving_phase(torch, np, kv, hashing, rowops, profile_dir):
@@ -571,6 +612,38 @@ def sdpa_call(torch, fa, q, k, v, qs, ks, causal, sm_scale):
     return lambda: sdpa(q, k, v, attn_mask=mask, scale=sm_scale)
 
 
+def tie_allowance(torch, fa, q, k, v, qs, ks, seed, causal, sm_scale,
+                  p_dropout):
+    """How far p's rounding ties may move each output, ``[B, H, Sq, D]``:
+    the plain version's online softmax (``fwd_tiled_plain``) over the same
+    64-key tiles, where each dropped, scaled p within ``TIE_ULPS`` f32 ulps
+    of a bf16 tie may round one bf16 ulp either way, times |v|, rescaled
+    and divided by l as the output is."""
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    m = torch.full((b, h, sq, 1), -3.4028234663852886e38, device=q.device)
+    l = torch.zeros((b, h, sq, 1), device=q.device)
+    allow = torch.zeros((b, h, sq, d), device=q.device)
+    for c0 in range(0, skv, fa.BLOCK_K):
+        if causal and c0 > sq - 1:
+            break
+        c1 = min(c0 + fa.BLOCK_K, skv)
+        s = fa._scores(q, k[:, :, c0:c1], qs,
+                       None if ks is None else ks[:, c0:c1], sm_scale, causal,
+                       col0=c0)
+        m_next = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_next)
+        p = torch.exp(s - m_next)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        bits = fa._apply_dropout(p, seed, p_dropout, c0).view(torch.int32)
+        tie = ((bits & 0xFFFF) - 0x8000).abs() < TIE_ULPS
+        ulp = (bits & 0x7F800000).view(torch.float32) * 2.0 ** -7
+        allow = allow * alpha + torch.matmul(torch.where(tie, ulp, 0.0),
+                                             v[:, :, c0:c1].float().abs())
+        m = m_next
+    return allow / torch.where(l == 0.0, 1.0, l)
+
+
 def bst_token_mask(np, rng, batch):
     """BST's request mask: histories of 1-20 items, 2 % of users with none."""
     lengths = rng.randint(1, HIST + 1, batch)
@@ -590,9 +663,15 @@ def attention_case(torch, np, fa, name, gen, b, h, s, d, dtype, causal,
     kernel, plain = ((fa.flash_fwd_single, fa.fwd_single_plain) if single
                      else (fa.flash_fwd, fa.fwd_tiled_plain))
     kw = dict(sm_scale=1.0 / float(np.sqrt(d)), p_dropout=p_dropout)
-    if not single:
+    route = None
+    if single:
+        got = kernel(q, k, v, qs, ks, SEED, **kw)
+    else:
         kw["causal"] = causal
-    got = kernel(q, k, v, qs, ks, SEED, **kw)
+        route, got = route_of(kernel, lambda: kernel(q, k, v, qs, ks, SEED,
+                                                     **kw))
+        check(route == fa.flash_route(dtype, d),
+              f"attention case {name} took the {route} route")
     want = plain(q, k, v, qs, ks, SEED, **kw)
     out, lse = fa.flash_attention_with_lse(
         q, k, v, causal=causal, q_segment_ids=qs, kv_segment_ids=ks,
@@ -604,6 +683,15 @@ def attention_case(torch, np, fa, name, gen, b, h, s, d, dtype, causal,
                                   + [ATTN_TOL["float32"]] * 2):
         g, w = g.float(), w.float()
         ratios.append(float(((g - w).abs() / (atol + rtol * w.abs())).max()))
+    strict_out = ratios[0]
+    if route == "tc":
+        atol, rtol = ATTN_TOL[dname]
+        allow = tie_allowance(torch, fa, q, k, v, qs, ks, SEED, causal,
+                              kw["sm_scale"], p_dropout)
+        g, w = got[0].float(), want[0].float()
+        ratios[0] = float(((g - w).abs()
+                           / (atol + rtol * w.abs() + allow)).max())
+        del allow, g, w
     err = float((got[0].float() - want[0].float()).abs().max())
     hit = want[1] > 0
     want_lse = torch.where(hit, want[2] + torch.log(torch.where(
@@ -614,16 +702,22 @@ def attention_case(torch, np, fa, name, gen, b, h, s, d, dtype, causal,
     if seg is not None:         # padding rows hit nothing
         lse_ok = lse_ok and bool(torch.isneginf(
             lse.transpose(0, 1)[:, seg < 0]).all())
-    c = {"kernel": kernel.__name__, "dtype": dname, "shape": [b, h, s, d],
-         "causal": causal, "segments": seg is not None,
+    c = {"kernel": kernel.__name__, "route": route, "dtype": dname,
+         "shape": [b, h, s, d], "causal": causal, "segments": seg is not None,
          "p_dropout": p_dropout, "max_abs_err": err,
-         "err_ratio_out_l_m": ratios, "lse_ok": lse_ok,
+         "err_ratio_out_l_m": ratios, "strict_out_ratio": strict_out,
+         "lse_ok": lse_ok,
          "entry_point_equals_kernel": torch.equal(out, got[0])}
     check(max(ratios) <= 1 and lse_ok and c["entry_point_equals_kernel"],
           f"attention case {name}: kernel differs from its plain version: "
           f"{json.dumps(c)}")
     c["ms"] = time_ms(torch, lambda: kernel(q, k, v, qs, ks, SEED,
                                             save_residuals=False, **kw))
+    if route == "tc" and name.startswith("bench"):
+        # the CUDA-core kernel on the same bf16 inputs: the earlier route
+        c["cuda_core_ms"] = time_ms(torch, lambda: fa._launch(
+            fa._flash_lib(), "tfp_flash_fwd", q, k, v, qs, ks, SEED,
+            kw["sm_scale"], p_dropout, False, causal=causal))
     c["plain_ms"] = time_ms(torch, lambda: plain(q, k, v, qs, ks, SEED,
                                                  **kw))
     c["library_ms"] = None if p_dropout else time_ms(
@@ -663,6 +757,11 @@ def attention_phase(torch, np, fa):
           and cases["bench_segments_bf16"]["kernel"] == "flash_fwd"
           and cases["bst_f32"]["kernel"] == "flash_fwd_single",
           "attention cases did not take the expected routes")
+    check(all(c["route"] == ("tc" if c["dtype"] == "bfloat16" else
+                             "cuda_core")
+              for c in cases.values() if c["kernel"] == "flash_fwd"),
+          "tiled attention cases: bf16 D64/D128 must take the tensor-core "
+          "route and f32 the CUDA-core one")
     torch.cuda.empty_cache()
     return cases, bench
 
@@ -681,8 +780,10 @@ def flash_path_phase(torch, fa, bench, reps=10):
     dt = time.perf_counter() - t0
     launches = read_launches()
     check(launches["flash_fwd"] == reps + 1
+          and launches["flash_fwd.tc"] == reps + 1
           and launches["flash_fwd_single"] == 0,
-          f"flash entry points did not launch the tiled kernel: {launches}")
+          f"flash entry points did not launch the tensor-core tiled kernel: "
+          f"{launches}")
     check(torch.equal(out, kernel_out) and torch.equal(out2, kernel_out)
           and bool(torch.isfinite(lse).all()),
           "flash entry points differ from the checked kernel output")
@@ -995,7 +1096,10 @@ def backward_case(torch, np, fa, name, gen, q, k, v, causal, seg=None,
     di = fa._delta(do, out)
     args = (q, k, v, qs, ks, SEED, do, l, m, di)
     kw = dict(causal=causal, sm_scale=sm, p_dropout=p_dropout)
-    dk, dv = fa.flash_bwd_dkv(*args, **kw)
+    route, (dk, dv) = route_of(fa.flash_bwd_dkv,
+                               lambda: fa.flash_bwd_dkv(*args, **kw))
+    check(route == fa.flash_route(dtype, d),
+          f"backward case {name}: dk/dv took the {route} route")
     dq = fa.flash_bwd_dq(*args, **kw)
     want_dk, want_dv = fa.bwd_dkv_plain(*args, **kw)
     want_dq = fa.bwd_dq_plain(*args, **kw)
@@ -1019,7 +1123,8 @@ def backward_case(torch, np, fa, name, gen, q, k, v, causal, seg=None,
                  for g, w in zip((dq, dk, dv), f64)]
     del f64
     c = {"dtype": dname, "shape": [b, h, s, d], "causal": causal,
-         "segments": seg is not None, "p_dropout": p_dropout,
+         "dkv_route": route, "segments": seg is not None,
+         "p_dropout": p_dropout,
          "rerun_bit_identical": all(torch.equal(x, y) for x, y in
                                     zip(again, (dk, dv, dq))),
          "f64_err_ratio_dq_dk_dv": f64_ratio}
@@ -1043,6 +1148,14 @@ def backward_case(torch, np, fa, name, gen, q, k, v, causal, seg=None,
         e["bound_ms"], e["bound_by"], flops = backward_bound(
             fa, q, k, qs, ks, causal, kernel.split("_")[-1])
         e["tflops"] = flops / e["ms"] / 1e9
+    if route == "tc" and "bench" in name:
+        # the CUDA-core dk/dv kernel on the same inputs: the earlier route
+        def cuda_core_dkv():
+            outs = torch.empty_like(k), torch.empty_like(v)
+            fa._launch_bwd(fa._flash_bwd_lib(), "tfp_flash_bwd_dkv", outs,
+                           *args, **kw)
+        c["flash_bwd_dkv"]["cuda_core_ms"] = time_ms(torch, cuda_core_dkv,
+                                                     reps=5)
     c["library_ms"] = None if p_dropout else time_ms(
         torch, sdpa_backward_call(torch, fa, q, k, v, qs, ks, causal, sm, do))
     torch.cuda.empty_cache()
@@ -1105,8 +1218,11 @@ def flash_grad_path_phase(torch, fa, bench, bench_grads, reps=10):
     dt = time.perf_counter() - t0
     launches = read_launches()
     check(launches["flash_fwd"] == reps and launches["flash_bwd_dkv"] == reps
-          and launches["flash_bwd_dq"] == reps,
-          f"flash gradients did not launch the kernels: {launches}")
+          and launches["flash_bwd_dq"] == reps
+          and launches["flash_fwd.tc"] == reps
+          and launches["flash_bwd_dkv.tc"] == reps,
+          f"flash gradients did not launch the tensor-core kernels: "
+          f"{launches}")
     check(all(torch.equal(g, w) for g, w in zip(grads, (dq, dk, dv))),
           "flash_attention's gradients differ from the checked kernels'")
     _, _, flops = attention_bound(fa, *leaves[:2], None, None, True, False)
@@ -1257,6 +1373,7 @@ def bst_training_phase(torch, np, kv, models, train, profile_dir):
     state, launches, rate, per_step = train_path(
         torch, "BST", step, state, batches,
         {"flash_fwd_single": blocks, "flash_bwd_dkv": blocks,
+         "flash_bwd_dkv.cuda_core": blocks, "flash_bwd_dkv.tc": 0,
          "flash_bwd_dq": blocks, "flash_fwd": 0}, profile_dir)
     del state
     return launches, rate, per_step, peak_memory(torch, "BST training")
@@ -1842,27 +1959,54 @@ def kernel_entry(name, src, replaces, launches, errs, case, key):
             "library_ms": case[f"{key}_library_ms"]}
 
 
-def attention_entry(name, replaces, launches, cases, main_case):
+CSRC = "tfplus_tpu_torch/ops/csrc/"
+
+
+def routes_entry(name, launches, main, f32_case, f32_ms):
+    """The keys a routed kernel adds to its entry: the main case is the
+    tensor-core route's; the CUDA-core route keeps its source, its launches
+    and its time at an f32 case and, on the main case's bf16 inputs, the
+    earlier route's time."""
+    return {"launches_by_route": {r: launches[f"{name}.{r}"] for r in ROUTES},
+            "cuda_core_source": CSRC + ("flash_fwd.cu" if name == "flash_fwd"
+                                        else "flash_bwd.cu"),
+            "cuda_core_case": f32_case, "cuda_core_ms": f32_ms,
+            "cuda_core_ms_on_main_case": main["cuda_core_ms"]}
+
+
+def attention_entry(name, replaces, launches, cases, main_case,
+                    f32_case=None):
     c = cases[main_case]
-    return {"name": name, "route": "cuda",
-            "source": "tfplus_tpu_torch/ops/csrc/flash_fwd.cu",
-            "replaces": replaces, "launches": launches,
-            "max_abs_err": max(x["max_abs_err"] for x in cases.values()
-                               if x["kernel"] == name),
-            "ms": c["ms"], "plain_ms": c["plain_ms"],
-            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
-            "library_ms": c["library_ms"]}
+    routed = name in ROUTED
+    e = {"name": name, "route": "cuda",
+         "source": CSRC + ("flash_fwd_tc.cu" if routed else "flash_fwd.cu"),
+         "replaces": replaces, "launches": launches[name],
+         "max_abs_err": max(x["max_abs_err"] for x in cases.values()
+                            if x["kernel"] == name),
+         "ms": c["ms"], "plain_ms": c["plain_ms"],
+         "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+         "library_ms": c["library_ms"]}
+    if routed:
+        e.update(routes_entry(name, launches, c, f32_case,
+                              cases[f32_case]["ms"]))
+    return e
 
 
-def backward_entry(name, replaces, launches, cases, main_case):
+def backward_entry(name, replaces, launches, cases, main_case,
+                   f32_case=None):
     c = cases[main_case][name]
-    return {"name": name, "route": "cuda",
-            "source": "tfplus_tpu_torch/ops/csrc/flash_bwd.cu",
-            "replaces": replaces, "launches": launches,
-            "max_abs_err": max(x[name]["max_abs_err"] for x in cases.values()),
-            "ms": c["ms"], "plain_ms": c["plain_ms"],
-            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
-            "library_ms": cases[main_case]["library_ms"]}
+    routed = name in ROUTED
+    e = {"name": name, "route": "cuda",
+         "source": CSRC + ("flash_bwd_tc.cu" if routed else "flash_bwd.cu"),
+         "replaces": replaces, "launches": launches[name],
+         "max_abs_err": max(x[name]["max_abs_err"] for x in cases.values()),
+         "ms": c["ms"], "plain_ms": c["plain_ms"],
+         "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+         "library_ms": cases[main_case]["library_ms"]}
+    if routed:
+        e.update(routes_entry(name, launches, c, f32_case,
+                              cases[f32_case][name]["ms"]))
+    return e
 
 
 def main() -> int:
@@ -1896,6 +2040,9 @@ def main() -> int:
     libs = _build.build_all()
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.3f} s",
           flush=True)
+    for name in ("flash_fwd_tc", "flash_bwd_tc"):
+        print(f"ptxas {name}: " + " | ".join(_build.ptxas_report(name)),
+              flush=True)
 
     cases = kernel_phase(torch, rowops)
     attn_cases, bench = attention_phase(torch, np, fa)
@@ -1947,19 +2094,18 @@ def main() -> int:
                      errs["scatter_set"] + errs["scatter_add"], main_case,
                      "scatter"),
         attention_entry("flash_fwd", "tfplus_tpu/ops/flash_attention.py:328",
-                        launches["flash_fwd"], attn_cases,
-                        "bench_causal_bf16"),
+                        launches, attn_cases, "bench_causal_bf16",
+                        "s1000_dropout_causal_float32"),
         attention_entry("flash_fwd_single",
                         "tfplus_tpu/ops/flash_attention.py:267",
-                        launches["flash_fwd_single"], attn_cases, "bst_f32"),
+                        launches, attn_cases, "bst_f32"),
         backward_entry("flash_bwd_dkv",
                        "tfplus_tpu/ops/flash_attention.py:589",
-                       launches["flash_bwd_dkv"], bwd_cases,
-                       "a_bench_causal_bf16"),
+                       launches, bwd_cases, "a_bench_causal_bf16",
+                       "c_s1000_dropout_causal_float32"),
         backward_entry("flash_bwd_dq",
                        "tfplus_tpu/ops/flash_attention.py:636",
-                       launches["flash_bwd_dq"], bwd_cases,
-                       "a_bench_causal_bf16"),
+                       launches, bwd_cases, "a_bench_causal_bf16"),
         {"name": "compact", "route": "cuda",
          "source": "tfplus_tpu_torch/ops/csrc/compactor.cu",
          "replaces": "tfplus_tpu/ops/compactor.py:141",

@@ -18,7 +18,8 @@ import torch
 from tfplus_tpu import models as jmodels
 from tfplus_tpu import train as tft
 from tfplus_tpu_torch import convert, models as tmodels
-from test_torch_table import assert_same_table, to_port
+from test_torch_table import (assert_same_table, jax_init_dense,
+                              jax_init_state, to_port)
 
 BATCH = 16
 HIST = 6
@@ -63,7 +64,7 @@ def test_serving_matches_jax(name):
     jmodel, tmodel = _models(name)
     opt = tft.AdagradOptimizer(learning_rate=0.05)
     tx = optax.adam(0.01)
-    state = jmodels.init_state(jmodel, opt, tx, seed=0)
+    state = jax_init_state(jmodel, opt, tx, seed=0)
     step = jmodels.make_train_step(jmodel, opt, tx, sparse_lr=0.05)
     for _ in range(2):
         state, _, _ = step(state, _jax_batch(_batch(jmodel, rng, universe)))
@@ -122,7 +123,7 @@ def test_features_dict_passes_through():
     ("DIN", {"att.0.w", "att_out.b", "dnn.1.w", "dnn_logits.w"})])
 def test_state_dict_names_follow_the_jax_pytree(name, keys):
     jmodel, tmodel = _models(name)
-    jdense = jax.device_get(jmodel.init_dense(jax.random.PRNGKey(0)))
+    jdense = jax.device_get(jax_init_dense(jmodel, 0))
     tdense = tmodel.init_dense(torch.Generator().manual_seed(0), "cpu")
     convert.dense_from_numpy(tdense, jdense)         # raises on a mismatch
     assert keys <= set(tdense.state_dict())

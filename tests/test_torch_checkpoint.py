@@ -31,7 +31,7 @@ from tfplus_tpu_torch.checkpoint import saver as tsaver
 from tfplus_tpu_torch.io import filesystem as tfs
 from tfplus_tpu_torch.utils import progress as tprogress
 from test_torch_growth import _filled
-from test_torch_table import assert_same_table, to_port
+from test_torch_table import assert_same_table, jax_init_dense, to_port
 
 
 def _tenc(ids):
@@ -172,7 +172,7 @@ def _dcn_dense():
     """The small DCN's dense state in both packages, equal values."""
     kw = dict(embedding_dims=(8, 8), num_numeric=3, dnn_hidden=(8, 4),
               capacity=32)
-    jdense = jmodels.DCN(**kw).init_dense(jax.random.PRNGKey(3))
+    jdense = jax_init_dense(jmodels.DCN(**kw), 3)
     jdense = jax.tree_util.tree_map(np.asarray, jax.device_get(jdense))
     tmodel = tmodels.DCN(**kw)
     tdense = tmodel.init_dense(torch.Generator().manual_seed(0), "cpu")

@@ -4,10 +4,16 @@ Each row kernel is held bit for bit against its plain PyTorch version (these
 are copies and single adds), including the narrow-word paths for odd widths
 and misaligned rows, and the table engine's serving calls on the card leave
 the same header and payload as the same calls on the CPU. Each flash-forward
-kernel is held against its plain version at odd lengths, head dims 8/64/128,
-f32 and bf16, causal, segments and dropout: f32 within ``atol = rtol =
-1e-5`` (another summation order; one flipped dropout bit moves an output by
-~1e-3), bf16 within ``1e-2`` (one bf16 ulp of the output). BST and DIN
+kernel is held against its plain version at odd lengths (Sq 333 against
+Skv 275/400, a single query row, fewer keys than one tile), head dims
+8/64/128, f32 and bf16, causal, segments and dropout: f32 within ``atol =
+rtol = 1e-5`` (another summation order; one flipped dropout bit moves an
+output by ~1e-3), bf16 within ``1e-2`` (one bf16 ulp of the output). bf16
+at D 64/128 takes the tensor-core kernels and everything else the
+CUDA-core ones (``flash_route``), which the per-route launch counters
+show; a case with p_dropout 0.5 over 40 keys, where any one flipped keep
+bit moves a result past the tolerance, holds each tensor-core kernel's
+dropout bit for bit. BST and DIN
 served on the card give the CPU's predictions within ``1e-5``. The flash
 backward kernels are held against their plain versions (same limits) and
 float64 autograd, run deterministically, and a CUDA backward never reaches
@@ -161,19 +167,43 @@ def _assert_close(got, want, dtype):
                                                else torch.float32])
 
 
+def _lengths(lengths, causal):
+    """(Sq, Skv): odd lengths that divide no tile, one query row, or fewer
+    keys than one 64-key tile."""
+    return {"odd": (333, 275 if causal else 400), "one_row": (1, 40),
+            "short_kv": (150, 40)}[lengths]
+
+
+def _route_counts(fn):
+    return fn.launches, fn.tc_launches, fn.cuda_core_launches
+
+
+def _assert_one_launch(fn, before, dtype, d):
+    """One launch more, on the route that dtype and D pick: bf16 at D 64 or
+    128 on the tensor cores, everything else on the CUDA cores."""
+    route = "tc" if dtype == torch.bfloat16 and d in (64, 128) else "cuda_core"
+    assert fa.flash_route(dtype, d) == route
+    want = (before[0] + 1, before[1] + (route == "tc"),
+            before[2] + (route == "cuda_core"))
+    assert _route_counts(fn) == want
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [8, 64, 128])
 @pytest.mark.parametrize("causal,segments,p_dropout", [
     (False, False, 0.0), (True, False, 0.0), (False, True, 0.0),
     (True, True, 0.2), (False, True, 0.2)])
-def test_flash_fwd_matches_plain(cuda, dtype, d, causal, segments, p_dropout):
-    b, h, sq, skv = 2, 3, 333, 275 if causal else 400
+@pytest.mark.parametrize("lengths", ["odd", "one_row", "short_kv"])
+def test_flash_fwd_matches_plain(cuda, dtype, d, causal, segments, p_dropout,
+                                 lengths):
+    b, h = 2, 3
+    sq, skv = _lengths(lengths, causal)
     q, k, v, qs, ks = _attention_inputs(d, b, h, sq, skv, d, dtype, cuda,
                                         segments)
-    before = fa.flash_fwd.launches
+    before = _route_counts(fa.flash_fwd)
     got = fa.flash_fwd(q, k, v, qs, ks, 11, causal=causal, sm_scale=0.2,
                        p_dropout=p_dropout)
-    assert fa.flash_fwd.launches == before + 1
+    _assert_one_launch(fa.flash_fwd, before, dtype, d)
     torch.cuda.synchronize()
     want = fa.fwd_tiled_plain(q, k, v, qs, ks, 11, causal=causal,
                               sm_scale=0.2, p_dropout=p_dropout)
@@ -210,6 +240,34 @@ def test_flash_fwd_single_matches_plain(cuda, dtype, d, s, segments,
                   dtype)
 
 
+def _flipped_bit_moves(p, x, tol):
+    """Whether flipping any one keep bit of the inverted dropout at 0.5
+    (which adds or removes 2·p·x, with x the value that p weighs) moves some
+    element of the result by more than ``tol`` (atol + rtol·|result|): the
+    least such move over all (row, key) pairs, over tol."""
+    move = (2 * p[..., None] * x[:, :, None]).abs()     # [B, H, Sq, Skv, D]
+    return float((move / tol[:, :, :, None]).amax(-1).min())
+
+
+def test_flash_fwd_tc_dropout_is_bit_exact(cuda):
+    """bf16 D64 over 40 keys at p_dropout 0.5 with nearly flat scores: any
+    one flipped keep bit would move an output past the bf16 tolerance, so
+    passing holds the tensor-core forward's dropout to the plain version's
+    mask bit for bit."""
+    q, k, v, _, _ = _attention_inputs(31, 2, 3, 70, 40, 64, torch.bfloat16,
+                                      cuda, False)
+    kw = dict(causal=False, sm_scale=0.01, p_dropout=0.5)
+    before = _route_counts(fa.flash_fwd)
+    got = fa.flash_fwd(q, k, v, None, None, 9, **kw)
+    _assert_one_launch(fa.flash_fwd, before, torch.bfloat16, 64)
+    torch.cuda.synchronize()
+    want = fa.fwd_tiled_plain(q, k, v, None, None, 9, **kw)
+    _assert_close(got, want, torch.bfloat16)
+    p = torch.softmax(0.01 * q.double() @ k.double().transpose(-1, -2), -1)
+    tol = 1e-2 + 1e-2 * want[0].double().abs()
+    assert _flipped_bit_moves(p, v.double(), tol) > 1
+
+
 def test_cuda_calls_never_run_the_plain_versions(cuda, monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError("a CUDA tensor reached a plain version")
@@ -219,6 +277,7 @@ def test_cuda_calls_never_run_the_plain_versions(cuda, monkeypatch):
     q, k, v, _, _ = _attention_inputs(0, 2, 8, 150, 150, 8, torch.float32,
                                       cuda, False)
     launches = fa.flash_fwd.launches, fa.flash_fwd_single.launches
+    routes = fa.flash_fwd.tc_launches, fa.flash_fwd.cuda_core_launches
     fa.flash_attention(q, k, v)                              # single
     fa.flash_attention(q, k, v, causal=True)                 # tiled
     out, lse = fa.flash_attention_with_lse(q, k, v, p_dropout=0.1)
@@ -226,6 +285,16 @@ def test_cuda_calls_never_run_the_plain_versions(cuda, monkeypatch):
     assert (fa.flash_fwd.launches, fa.flash_fwd_single.launches) == (
         launches[0] + 1, launches[1] + 2)
     assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(lse).all())
+    # bf16 at D 64 and 128: the tensor-core route, causal and not
+    for d in (64, 128):
+        q, k, v, _, _ = _attention_inputs(d, 2, 4, 300, 300, d,
+                                          torch.bfloat16, cuda, False)
+        out = fa.flash_attention(q, k, v, causal=True)
+        out2, lse = fa.flash_attention_with_lse(q, k, v, p_dropout=0.1)
+        torch.cuda.synchronize()
+        assert all(bool(torch.isfinite(t).all()) for t in (out, out2, lse))
+    assert (fa.flash_fwd.tc_launches, fa.flash_fwd.cuda_core_launches) == (
+        routes[0] + 4, routes[1] + 1)
 
 
 def test_flash_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -307,20 +376,23 @@ def _backward_inputs(seed, b, h, sq, skv, d, dtype, device, segments,
 @pytest.mark.parametrize("causal,segments,p_dropout", [
     (False, False, 0.0), (True, False, 0.0), (False, True, 0.0),
     (True, True, 0.2), (False, True, 0.2)])
-def test_flash_bwd_matches_plain(cuda, dtype, d, causal, segments, p_dropout):
+@pytest.mark.parametrize("lengths", ["odd", "one_row", "short_kv"])
+def test_flash_bwd_matches_plain(cuda, dtype, d, causal, segments, p_dropout,
+                                 lengths):
     """Both backward kernels at odd lengths against their plain versions:
     f32 within 1e-5 (another summation order; one flipped dropout bit moves
     a gradient by ~1e-2), bf16 within 1e-2 (an intermediate that rounds the
     other way moves a gradient by a bf16 ulp of one term)."""
-    b, h, sq, skv = 2, 3, 333, 275 if causal else 400
+    b, h = 2, 3
+    sq, skv = _lengths(lengths, causal)
     q, k, v, qs, ks, do, l, m, di, _ = _backward_inputs(
         d + 100, b, h, sq, skv, d, dtype, cuda, segments, causal, p_dropout)
     kw = dict(causal=causal, sm_scale=0.2, p_dropout=p_dropout)
-    before = fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches
+    before = _route_counts(fa.flash_bwd_dkv), fa.flash_bwd_dq.launches
     dk, dv = fa.flash_bwd_dkv(q, k, v, qs, ks, 5, do, l, m, di, **kw)
     dq = fa.flash_bwd_dq(q, k, v, qs, ks, 5, do, l, m, di, **kw)
-    assert (fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches) == (
-        before[0] + 1, before[1] + 1)
+    _assert_one_launch(fa.flash_bwd_dkv, before[0], dtype, d)
+    assert fa.flash_bwd_dq.launches == before[1] + 1
     torch.cuda.synchronize()
     want_dk, want_dv = fa.bwd_dkv_plain(q, k, v, qs, ks, 5, do, l, m, di, **kw)
     want_dq = fa.bwd_dq_plain(q, k, v, qs, ks, 5, do, l, m, di, **kw)
@@ -331,6 +403,34 @@ def test_flash_bwd_matches_plain(cuda, dtype, d, causal, segments, p_dropout):
                        dq)
     assert all(torch.equal(a, b_) for a, b_ in zip(
         fa.flash_bwd_dkv(q, k, v, qs, ks, 5, do, l, m, di, **kw), (dk, dv)))
+
+
+def test_flash_bwd_dkv_tc_dropout_is_bit_exact(cuda):
+    """bf16 D128 over 40 keys at p_dropout 0.5 with nearly flat scores: any
+    one flipped keep bit would move a dv element past the bf16 tolerance,
+    so passing holds the tensor-core dk/dv kernel's dropout to the plain
+    version's mask bit for bit; a rerun is bit-identical."""
+    q, k, v, _, _ = _attention_inputs(41, 2, 3, 70, 40, 128, torch.bfloat16,
+                                      cuda, False)
+    kw = dict(causal=False, sm_scale=0.01, p_dropout=0.5)
+    out, l, m = fa.flash_fwd(q, k, v, None, None, 3, **kw)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(2)).to(
+        device=cuda, dtype=torch.bfloat16)
+    di = fa._delta(do, out)
+    before = _route_counts(fa.flash_bwd_dkv)
+    got = fa.flash_bwd_dkv(q, k, v, None, None, 3, do, l, m, di, **kw)
+    _assert_one_launch(fa.flash_bwd_dkv, before, torch.bfloat16, 128)
+    torch.cuda.synchronize()
+    want = fa.bwd_dkv_plain(q, k, v, None, None, 3, do, l, m, di, **kw)
+    _assert_close(got, want, torch.bfloat16)
+    again = fa.flash_bwd_dkv(q, k, v, None, None, 3, do, l, m, di, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+    # dv[key] = sum over rows of p_d[row, key] do[row]: a flip at (row, key)
+    # moves dv[key] by 2 p do[row]
+    p = torch.softmax(0.01 * q.double() @ k.double().transpose(-1, -2), -1)
+    tol = 1e-2 + 1e-2 * want[1].double().abs()            # [B, H, Skv, D]
+    move = (2 * p[..., None] * do.double()[:, :, :, None]).abs()
+    assert float((move / tol[:, :, None]).amax(-1).min()) > 1
 
 
 def test_flash_gradients_on_the_card_match_float64(cuda):
@@ -363,15 +463,22 @@ def test_cuda_backward_never_runs_the_plain_versions(cuda, monkeypatch):
                  "fwd_single_plain", "fwd_tiled_plain", "reference_attention"):
         monkeypatch.setattr(fa, name, refuse)
     launches = fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches
-    for causal in (False, True):
-        q, k, v, _, _ = _attention_inputs(0, 2, 8, 150, 150, 8,
-                                          torch.float32, cuda, False)
-        leaves = [t.requires_grad_() for t in (q, k, v)]
-        fa.flash_attention(*leaves, causal=causal).sum().backward()
-        assert all(bool(torch.isfinite(t.grad).all()) for t in leaves)
+    routes = fa.flash_bwd_dkv.tc_launches, fa.flash_bwd_dkv.cuda_core_launches
+    # f32 D8 (CUDA cores), then bf16 D64 and D128 (tensor cores)
+    for dtype, d in ((torch.float32, 8), (torch.bfloat16, 64),
+                     (torch.bfloat16, 128)):
+        for causal in (False, True):
+            q, k, v, _, _ = _attention_inputs(0, 2, 8, 150, 150, d, dtype,
+                                              cuda, False)
+            leaves = [t.requires_grad_() for t in (q, k, v)]
+            fa.flash_attention(*leaves, causal=causal).float().sum().backward()
+            assert all(bool(torch.isfinite(t.grad).all()) for t in leaves)
     torch.cuda.synchronize()
     assert (fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches) == (
-        launches[0] + 2, launches[1] + 2)
+        launches[0] + 6, launches[1] + 6)
+    assert (fa.flash_bwd_dkv.tc_launches,
+            fa.flash_bwd_dkv.cuda_core_launches) == (routes[0] + 4,
+                                                     routes[1] + 2)
 
 
 @pytest.mark.parametrize("name", ["DCN", "BST"])

@@ -20,7 +20,8 @@ from tfplus_tpu import train as tft
 from tfplus_tpu_torch import convert, embedding as temb, models as tmodels
 from tfplus_tpu_torch import train as ttrain
 from tfplus_tpu_torch.nn import layers as tlayers
-from test_torch_table import assert_same, assert_same_table, to_port
+from test_torch_table import (assert_same, assert_same_table, jax_init_state,
+                              to_port)
 
 DIMS = (8, 8, 8)
 NUM_NUMERIC = 5
@@ -54,7 +55,7 @@ def test_dcn_serving_matches_jax():
     jmodel, tmodel = _models()
     opt = tft.AdagradOptimizer(learning_rate=0.05)
     tx = optax.adam(0.01)
-    state = jmodels.init_state(jmodel, opt, tx, seed=0)
+    state = jax_init_state(jmodel, opt, tx, seed=0)
     step = jmodels.make_train_step(jmodel, opt, tx, sparse_lr=0.05)
     for _ in range(2):
         state, _, _ = step(state, _jax_batch(_batch(rng, universe)))

@@ -292,3 +292,45 @@ def test_gradients_are_a_later_slice():
     with pytest.raises(ValueError, match="both or neither"):
         tfa.flash_attention(q.detach(), k, v,
                             q_segment_ids=np.zeros((1, 8), np.int32))
+
+
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 64, "tc"), (torch.bfloat16, 128, "tc"),
+    (torch.bfloat16, 8, "cuda_core"), (torch.bfloat16, 32, "cuda_core"),
+    (torch.bfloat16, 96, "cuda_core"), (torch.float32, 8, "cuda_core"),
+    (torch.float32, 64, "cuda_core"), (torch.float32, 128, "cuda_core")])
+def test_route_is_chosen_from_dtype_and_head_dim(dtype, d, route):
+    """bf16 at D 64 or 128 takes the tensor-core kernels; f32 (whose only
+    tensor-core input is TF32) and the other bf16 widths keep the CUDA-core
+    ones. Nothing but dtype and D decides, so the decision is the same for
+    every shape, causal or not."""
+    assert tfa.flash_route(dtype, d) == route
+
+
+def test_cpu_calls_count_no_route():
+    """A CPU tensor runs the plain version: neither route counts a launch."""
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16)
+               for x in _inputs(1, 1, 70, 70, 64, 3))
+    before = [(f.launches, f.tc_launches, f.cuda_core_launches)
+              for f in (tfa.flash_fwd, tfa.flash_bwd_dkv)]
+    out, l, m = tfa.flash_fwd(q, k, v, None, None, 0, causal=True,
+                              sm_scale=0.125)
+    tfa.flash_bwd_dkv(q, k, v, None, None, 0, q, l, m, tfa._delta(q, out),
+                      causal=True, sm_scale=0.125)
+    assert [(f.launches, f.tc_launches, f.cuda_core_launches)
+            for f in (tfa.flash_fwd, tfa.flash_bwd_dkv)] == before
+
+
+@pytest.mark.parametrize("d,fwd,dkv", [(64, 42496, 52224),
+                                       (128, 83456, 101376)])
+def test_tensor_core_shared_memory(d, fwd, dkv):
+    """The Python mirrors of the tensor-core kernels' ``Layout`` structs.
+    Forward: Q plus two stages of K and V (five 64-row bf16 tiles), two
+    stages of 64 key segment ids and 1 KB of alignment slack; dk/dv: K, V and two stages of Q and dO (six
+    tiles), two stages of the q tile's l, m, di and segment ids, and the
+    slack. Each fits twice on an SM (228 KB, 1 KB reserved per block), so
+    two blocks share one."""
+    assert tfa.tc_fwd_smem_bytes(d) == fwd
+    assert tfa.tc_dkv_smem_bytes(d) == dkv
+    for n in (fwd, dkv):
+        assert n <= tfa.SMEM_PER_BLOCK and 2 * (n + 1024) <= 228 * 1024

@@ -22,7 +22,7 @@ from tfplus_tpu_torch import convert, kv as tkv
 from tfplus_tpu_torch import models as tmodels
 from tfplus_tpu_torch import train as ttrain
 from tfplus_tpu_torch.kv import table as ttable
-from test_torch_table import assert_same_table, to_port
+from test_torch_table import assert_same_table, jax_init_state, to_port
 
 
 CHUNK = 64
@@ -203,7 +203,7 @@ def test_grow_if_needed_during_dcn_training_matches_jax():
     jmodel, tmodel = jmodels.DCN(**kw), tmodels.DCN(**kw)
     jopt, topt = jtrain.AdagradOptimizer(), ttrain.AdagradOptimizer()
     tx = optax.adam(0.01)
-    jstate = jmodels.init_state(jmodel, jopt, tx, seed=0)
+    jstate = jax_init_state(jmodel, jopt, tx, seed=0)
     dense = tmodel.init_dense(torch.Generator().manual_seed(1), "cpu")
     convert.dense_from_numpy(dense, jax.device_get(jstate.dense))
     tstate = tmodels.TrainState(

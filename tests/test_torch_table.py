@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from tfplus_tpu import kv as jkv
+from tfplus_tpu import models as jmodels
 from tfplus_tpu_torch import convert
 from tfplus_tpu_torch import kv as tkv
 
@@ -49,6 +50,22 @@ def bits(x):
     return a.astype(np.int64)
 
 
+def jax_init_dense(model, seed):
+    """The JAX package's ``model.init_dense(PRNGKey(seed))`` under one
+    ``jax.jit``: the same function, compiled once rather than op by op for
+    every weight shape (the port copies whatever weights it returns)."""
+    return jax.jit(model.init_dense)(jax.random.PRNGKey(seed))
+
+
+def jax_init_state(model, sparse_opt, tx, seed=0):
+    """The JAX package's ``models.init_state`` with its dense init and the
+    dense optimizer's init jitted (see :func:`jax_init_dense`)."""
+    dense = jax_init_dense(model, seed)
+    return jmodels.TrainState(tables=model.init_tables(sparse_opt, seed),
+                              dense=dense, opt_state=jax.jit(tx.init)(dense),
+                              step=jnp.zeros((), jnp.int32))
+
+
 def assert_same_table(jt, tt):
     for f in convert.TABLE_FIELDS:
         np.testing.assert_array_equal(bits(getattr(jt, f)),
@@ -66,8 +83,12 @@ def assert_same(a, b, what=""):
     np.testing.assert_array_equal(bits(a), bits(b), what)
 
 
+# every op takes batches of one size, so that JAX compiles each op once per
+# table shape (its first step) and not once per batch size too
+BATCH = 40
+
+
 def keys(rng, n, universe):
-    # fixed batch sizes keep JAX's per-shape compiles to the first step
     ids = rng.choice(universe, n, replace=False)
     return ids, jkv.encode_ids_np_to_device(ids), \
         tkv.encode_ids_np_to_device(ids, device="cpu")
@@ -104,14 +125,14 @@ def test_op_sequence(seed, capacity, max_probes, slots, dtype):
     for step in range(3):
         day = 10 + step
         # insert
-        _, jq, tq = keys(rng, 40, universe)
+        _, jq, tq = keys(rng, BATCH, universe)
         jr, tr = rows_pair(rng, jq.shape[0], dim, dtype)
         jt = jkv.insert(jt, jq, jr, day=day)
         tt = tkv.insert(tt, tq, tr, day=day)
         assert_same_table(jt, tt)
         # lookup_or_insert, with and without defer_meta
         for defer in (False, True):
-            _, jq, tq = keys(rng, 40, universe)
+            _, jq, tq = keys(rng, BATCH, universe)
             cnt = rng.randint(1, 5, jq.shape[0]).astype(np.int32)
             jres = jkv.lookup_or_insert(jt, jq, jnp.asarray(cnt), day=day,
                                         defer_meta=defer)
@@ -123,7 +144,7 @@ def test_op_sequence(seed, capacity, max_probes, slots, dtype):
                 assert_same(getattr(jres, f), getattr(tres, f), f)
             overflowed |= bool(tres.overflow)
         # insert_raw with exact meta words (bit 31 set on some)
-        _, jq, tq = keys(rng, 20, universe)
+        _, jq, tq = keys(rng, BATCH, universe)
         w = jt.payload.shape[1]
         jr, tr = rows_pair(rng, jq.shape[0], w, dtype)
         meta = rng.randint(0, 2**32, jq.shape[0], dtype=np.int64)
@@ -131,7 +152,7 @@ def test_op_sequence(seed, capacity, max_probes, slots, dtype):
         tt = tkv.insert_raw(tt, tq, tr, torch.from_numpy(meta))
         assert_same_table(jt, tt)
         # insert with blacklist + explicit freq
-        _, jq, tq = keys(rng, 16, universe)
+        _, jq, tq = keys(rng, BATCH, universe)
         jr, tr = rows_pair(rng, jq.shape[0], dim, dtype)
         black = rng.rand(jq.shape[0]) < 0.5
         freq = rng.randint(0, 70000, jq.shape[0])
@@ -141,7 +162,7 @@ def test_op_sequence(seed, capacity, max_probes, slots, dtype):
                         freq=torch.from_numpy(freq))
         assert_same_table(jt, tt)
         # reads: known, unknown and reserved ids
-        ids, jq, tq = keys(rng, 60, universe)
+        ids, jq, tq = keys(rng, BATCH - 3, universe)
         extra = np.array([[-1, -1], [-2, -1], [123, 456]], np.int32)
         jq = jnp.concatenate([jq, jnp.asarray(extra)])
         tq = torch.cat([tq, torch.from_numpy(extra)])
@@ -155,7 +176,7 @@ def test_op_sequence(seed, capacity, max_probes, slots, dtype):
         for f in ("slot", "found", "insert_slot", "meta"):
             assert_same(getattr(jf, f), getattr(tf, f), f)
         # delete (tombstones + deletion log)
-        _, jq, tq = keys(rng, 10, universe)
+        _, jq, tq = keys(rng, BATCH, universe)
         jt, jdel = jkv.delete(jt, jq)
         tt, tdel = tkv.delete(tt, tq)
         assert_same(jdel, tdel)

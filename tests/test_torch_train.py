@@ -28,7 +28,7 @@ from tfplus_tpu_torch import convert, models as tmodels
 from tfplus_tpu_torch import train as ttrain
 from tfplus_tpu import kv as jkv
 from tfplus_tpu_torch.kv import size as tkv_size
-from test_torch_table import to_port
+from test_torch_table import jax_init_state, to_port
 
 
 def _to_jax(tt):
@@ -113,7 +113,7 @@ def test_training_matches_jax(name):
     jopt = getattr(jtrain, opt_name)(**opt_kw)
     topt = getattr(ttrain, opt_name)(**opt_kw)
     tx = optax.adam(DENSE_LR)
-    jstate = jmodels.init_state(jmodel, jopt, tx, seed=0)
+    jstate = jax_init_state(jmodel, jopt, tx, seed=0)
     tstate = _port_state(jstate, tmodel)
     jstep = jmodels.make_train_step(jmodel, jopt, tx, sparse_lr=SPARSE_LR)
     tstep = tmodels.make_train_step(tmodel, topt, sparse_lr=SPARSE_LR)

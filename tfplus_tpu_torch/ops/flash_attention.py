@@ -22,13 +22,26 @@ Four hand-written Hopper kernels replace the four Pallas kernels:
 * :func:`flash_bwd_dq` replaces ``_bwd_pallas``'s ``_bwd_dq_kernel``: dq
   of a q tile, looping over the kv tiles (``csrc/flash_bwd.cu``).
 
+Two of them have two routes, chosen before the launch from the dtype and
+the head dim alone (:func:`flash_route`): bf16 with D of 64 or 128 goes to
+the tensor-core kernels (``wgmma``: ``csrc/flash_fwd_tc.cu`` for
+:func:`flash_fwd`, ``csrc/flash_bwd_tc.cu`` for :func:`flash_bwd_dkv`);
+f32 (any D) and bf16 at the other widths stay on the CUDA-core kernels
+above. f32 never takes the tensor cores, whose only f32 input is TF32
+(about three digits). The products of the tensor-core route are bf16 with
+f32 accumulation, as the JAX kernels feed the TPU's matrix unit.
+:func:`flash_fwd_single` and :func:`flash_bwd_dq` have one route each, on
+the CUDA cores.
+
 Each wrapper launches its kernel on a CUDA tensor and runs the plain PyTorch
 version beside it (:func:`fwd_tiled_plain`, :func:`fwd_single_plain`,
 :func:`bwd_dkv_plain`, :func:`bwd_dq_plain`) on a CPU tensor; the plain
 versions are also the oracles the kernels are held against on the card.
 There is no switch and no fallback: a CUDA tensor goes through a kernel or
 the wrapper raises. Each wrapper counts its launches in a plain integer
-attribute (``flash_fwd.launches``, ...).
+attribute (``flash_fwd.launches``, ...); :func:`flash_fwd` and
+:func:`flash_bwd_dkv` also count them per route (``tc_launches`` and
+``cuda_core_launches``).
 
 Routing (:func:`_fwd_dispatch`) keeps the JAX decision "not causal, and the
 whole KV fits one block". On the TPU a block lives in VMEM (megabytes), so
@@ -72,6 +85,10 @@ SMEM_PER_BLOCK = 232448          # bytes an H100 block may use (227 KB)
 _SINGLE_SMEM_MAX = SMEM_PER_BLOCK // 2
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# head dims of the tensor-core kernels (csrc/flash_fwd_tc.cu,
+# csrc/flash_bwd_tc.cu): bf16 only, in 128-byte rows of 64 columns
+TC_HEAD_DIMS = (64, 128)
+_TC_ALIGN_SLACK = 1024           # those kernels align their tiles to 1 KB
 _ptr = ctypes.c_void_p
 _int = ctypes.c_int
 
@@ -382,6 +399,38 @@ _TAIL = [ctypes.c_float, ctypes.c_float, ctypes.c_uint, ctypes.c_uint,
          ctypes.c_float, _ptr]
 
 
+def flash_route(dtype: torch.dtype, d: int) -> str:
+    """Which kernel :func:`flash_fwd` and :func:`flash_bwd_dkv` launch for
+    this dtype and head dim: ``"tc"`` (the tensor-core kernels) for bf16 at
+    D 64 or 128, else ``"cuda_core"``. Nothing else decides it, and no route
+    is retried on the other."""
+    return "tc" if dtype == torch.bfloat16 and d in TC_HEAD_DIMS \
+        else "cuda_core"
+
+
+def tc_fwd_smem_bytes(d: int) -> int:
+    """Shared memory of one tensor-core forward block, as ``Layout`` in
+    flash_fwd_tc.cu lays it out: the bf16 Q tile, two stages of K and V
+    tiles (64 rows each), two stages of 64 key segment ids, and the
+    alignment slack."""
+    tile = BLOCK_Q * d * 2
+    return 5 * tile + 2 * BLOCK_K * 4 + _TC_ALIGN_SLACK
+
+
+def tc_dkv_smem_bytes(d: int) -> int:
+    """Shared memory of one tensor-core dk/dv block, as ``Layout`` in
+    flash_bwd_tc.cu lays it out: the resident K and V tiles, two stages of
+    Q and dO tiles, two stages of the q tile's l, m, di and segment ids,
+    and the alignment slack."""
+    tile = BLOCK_K * d * 2
+    return 6 * tile + 2 * 4 * BLOCK_Q * 4 + _TC_ALIGN_SLACK
+
+
+def _count(fn, route: str) -> None:
+    fn.launches += 1
+    setattr(fn, f"{route}_launches", getattr(fn, f"{route}_launches") + 1)
+
+
 def _flash_lib() -> ctypes.CDLL:
     lib = _build.library("flash_fwd")
     if not getattr(lib, "_tfp_typed", False):
@@ -390,6 +439,24 @@ def _flash_lib() -> ctypes.CDLL:
         lib.tfp_flash_fwd.restype = _int
         lib.tfp_flash_fwd_single.argtypes = common + _TAIL
         lib.tfp_flash_fwd_single.restype = _int
+        lib._tfp_typed = True
+    return lib
+
+
+def _flash_tc_lib() -> ctypes.CDLL:
+    lib = _build.library("flash_fwd_tc")
+    if not getattr(lib, "_tfp_typed", False):
+        lib.tfp_flash_fwd_tc.argtypes = [_ptr] * 8 + [_int] * 7 + _TAIL
+        lib.tfp_flash_fwd_tc.restype = _int
+        lib._tfp_typed = True
+    return lib
+
+
+def _flash_bwd_tc_lib() -> ctypes.CDLL:
+    lib = _build.library("flash_bwd_tc")
+    if not getattr(lib, "_tfp_typed", False):
+        lib.tfp_flash_bwd_dkv_tc.argtypes = [_ptr] * 11 + [_int] * 7 + _TAIL
+        lib.tfp_flash_bwd_dkv_tc.restype = _int
         lib._tfp_typed = True
     return lib
 
@@ -466,7 +533,7 @@ def _ptr_of(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch(fn_name, q, k, v, q_seg, kv_seg, seed, sm_scale, p_dropout,
+def _launch(lib, fn_name, q, k, v, q_seg, kv_seg, seed, sm_scale, p_dropout,
             save_residuals, causal=None):
     b, h, sq, d = q.shape
     if q.numel() == 0 or k.shape[2] == 0:
@@ -481,7 +548,7 @@ def _launch(fn_name, q, k, v, q_seg, kv_seg, seed, sm_scale, p_dropout,
             _ptr_of(kv_seg), out.data_ptr(), _ptr_of(l), _ptr_of(m), b, h,
             sq, k.shape[2], d, _DTYPES[q.dtype]]
     mid = [] if causal is None else [int(causal)]
-    err = getattr(_flash_lib(), fn_name)(
+    err = getattr(lib, fn_name)(
         *head, *mid, *_kernel_tail(seed, sm_scale, p_dropout, q.device))
     if err != 0:
         raise RuntimeError(f"{fn_name} kernel launch failed: cudaError {err}")
@@ -491,20 +558,25 @@ def _launch(fn_name, q, k, v, q_seg, kv_seg, seed, sm_scale, p_dropout,
 def flash_fwd(q, k, v, q_seg, kv_seg, seed, *, causal: bool, sm_scale: float,
               p_dropout: float = 0.0, save_residuals: bool = True):
     """Tiled forward: ``(out, l, m)``, or ``(out, None, None)`` without
-    residuals (the kernel then writes no l and m)."""
+    residuals (the kernel then writes no l and m). On the card the route
+    (:func:`flash_route`) picks the tensor-core or the CUDA-core kernel."""
     _check(q, k, v, q_seg, kv_seg)
     if not q.is_cuda:
         out, l, m = fwd_tiled_plain(q, k, v, q_seg, kv_seg, seed,
                                     causal=causal, sm_scale=sm_scale,
                                     p_dropout=p_dropout)
         return (out, l, m) if save_residuals else (out, None, None)
-    res = _launch("tfp_flash_fwd", q, k, v, q_seg, kv_seg, seed, sm_scale,
+    route = flash_route(q.dtype, q.shape[3])
+    lib, fn_name = ((_flash_tc_lib(), "tfp_flash_fwd_tc") if route == "tc"
+                    else (_flash_lib(), "tfp_flash_fwd"))
+    res = _launch(lib, fn_name, q, k, v, q_seg, kv_seg, seed, sm_scale,
                   p_dropout, save_residuals, causal=causal)
-    flash_fwd.launches += 1
+    _count(flash_fwd, route)
     return res
 
 
-flash_fwd.launches = 0
+flash_fwd.launches = flash_fwd.tc_launches = 0
+flash_fwd.cuda_core_launches = 0
 
 
 def flash_fwd_single(q, k, v, q_seg, kv_seg, seed, *, sm_scale: float,
@@ -520,8 +592,8 @@ def flash_fwd_single(q, k, v, q_seg, kv_seg, seed, *, sm_scale: float,
     if not single_fits(k.shape[2], q.shape[3], q.dtype):
         raise ValueError(f"Skv {k.shape[2]} at D {q.shape[3]} does not fit "
                          "the single-pass kernel's shared memory")
-    res = _launch("tfp_flash_fwd_single", q, k, v, q_seg, kv_seg, seed,
-                  sm_scale, p_dropout, save_residuals)
+    res = _launch(_flash_lib(), "tfp_flash_fwd_single", q, k, v, q_seg,
+                  kv_seg, seed, sm_scale, p_dropout, save_residuals)
     flash_fwd_single.launches += 1
     return res
 
@@ -542,8 +614,8 @@ def _fwd_dispatch(q, k, v, q_seg, kv_seg, seed, causal, sm_scale, p_dropout,
                      save_residuals=save_residuals)
 
 
-def _launch_bwd(fn_name, outs, q, k, v, q_seg, kv_seg, seed, do, l, m, di,
-                causal, sm_scale, p_dropout):
+def _launch_bwd(lib, fn_name, outs, q, k, v, q_seg, kv_seg, seed, do, l, m,
+                di, causal, sm_scale, p_dropout):
     b, h, sq, d = q.shape
     if q.numel() == 0 or k.shape[2] == 0:
         raise ValueError("flash attention needs B, H, Sq, Skv > 0")
@@ -551,7 +623,7 @@ def _launch_bwd(fn_name, outs, q, k, v, q_seg, kv_seg, seed, do, l, m, di,
             l.data_ptr(), m.data_ptr(), di.data_ptr(), _ptr_of(q_seg),
             _ptr_of(kv_seg), *(t.data_ptr() for t in outs), b, h, sq,
             k.shape[2], d, _DTYPES[q.dtype], int(causal)]
-    err = getattr(_flash_bwd_lib(), fn_name)(
+    err = getattr(lib, fn_name)(
         *args, *_kernel_tail(seed, sm_scale, p_dropout, q.device))
     if err != 0:
         raise RuntimeError(f"{fn_name} kernel launch failed: cudaError {err}")
@@ -560,20 +632,26 @@ def _launch_bwd(fn_name, outs, q, k, v, q_seg, kv_seg, seed, do, l, m, di,
 def flash_bwd_dkv(q, k, v, q_seg, kv_seg, seed, do, l, m, di, *,
                   causal: bool, sm_scale: float, p_dropout: float = 0.0):
     """dk, dv from the forward's residuals l, m and ``di = Σ(do·o)`` (f32
-    ``[B, H, Sq]``), in k's and v's dtype."""
+    ``[B, H, Sq]``), in k's and v's dtype. On the card the route
+    (:func:`flash_route`) picks the tensor-core or the CUDA-core kernel."""
     _check(q, k, v, q_seg, kv_seg)
     _check_bwd(q, do, l, m, di)
     kw = dict(causal=causal, sm_scale=sm_scale, p_dropout=p_dropout)
     if not q.is_cuda:
         return bwd_dkv_plain(q, k, v, q_seg, kv_seg, seed, do, l, m, di, **kw)
+    route = flash_route(q.dtype, q.shape[3])
+    lib, fn_name = ((_flash_bwd_tc_lib(), "tfp_flash_bwd_dkv_tc")
+                    if route == "tc"
+                    else (_flash_bwd_lib(), "tfp_flash_bwd_dkv"))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch_bwd("tfp_flash_bwd_dkv", (dk, dv), q, k, v, q_seg, kv_seg, seed,
-                do, l, m, di, **kw)
-    flash_bwd_dkv.launches += 1
+    _launch_bwd(lib, fn_name, (dk, dv), q, k, v, q_seg, kv_seg, seed, do, l,
+                m, di, **kw)
+    _count(flash_bwd_dkv, route)
     return dk, dv
 
 
-flash_bwd_dkv.launches = 0
+flash_bwd_dkv.launches = flash_bwd_dkv.tc_launches = 0
+flash_bwd_dkv.cuda_core_launches = 0
 
 
 def flash_bwd_dq(q, k, v, q_seg, kv_seg, seed, do, l, m, di, *,
@@ -585,8 +663,8 @@ def flash_bwd_dq(q, k, v, q_seg, kv_seg, seed, do, l, m, di, *,
     if not q.is_cuda:
         return bwd_dq_plain(q, k, v, q_seg, kv_seg, seed, do, l, m, di, **kw)
     dq = torch.empty_like(q)
-    _launch_bwd("tfp_flash_bwd_dq", (dq,), q, k, v, q_seg, kv_seg, seed, do,
-                l, m, di, **kw)
+    _launch_bwd(_flash_bwd_lib(), "tfp_flash_bwd_dq", (dq,), q, k, v, q_seg,
+                kv_seg, seed, do, l, m, di, **kw)
     flash_bwd_dq.launches += 1
     return dq
 
