@@ -54,12 +54,17 @@ failed check:
    ``scaled_dot_product_attention`` (timed only): the bench's causal bf16
    B4 H8 S2048 D128; BST's f32 heads with BST's request mask; dropout 0.2
    at S1000 D64, causal and not, f32 and bf16; non-causal bf16 S2048 D128
-   with segments from lengths in 512-2048. dk/dv takes the tensor-core
-   route on the bf16 cases and the CUDA-core one on the f32 cases; at the
-   bench shape the CUDA-core dk/dv kernel is also timed on the same inputs.
+   with segments from lengths in 512-2048. dk/dv and dq take the
+   tensor-core route on the bf16 cases and the CUDA-core one on the f32
+   cases; at the bench shape the CUDA-core dk/dv and dq kernels are also
+   timed on the same inputs. Then head dims the kernels take only padded
+   (12, 60) or in 128-column chunks (136, 256): B1 H2 S200, causal with
+   segments and non-causal, f32 and bf16, each forward (the route
+   ``flash_attention`` takes) and both backward kernels held against their
+   plain versions at the caller's D, with the route recorded.
 9. ``flash_attention(causal=True)`` forward and backward x10 at the bench's
    shape, in TFLOP/s counted as the JAX bench's ``grad=True`` leg, every
-   forward and dk/dv launch on the tensor-core route.
+   forward, dk/dv and dq launch on the tensor-core route.
 10. Training checks at the reference DCN's and BST's widths with tables of
    2^14 rows: three steps from one state on the card and on the CPU (headers
    and slots bit for bit, the rest within the stated tolerances), two runs
@@ -71,7 +76,7 @@ failed check:
 12. BST training at published widths: the item and user tables of phase 7
    with Adam's slot columns (payload 3·D), batch-2048 steps (Adam 0.01,
    dense Adam 0.01); every step launches the single-pass forward and both
-   backward kernels, dk/dv on the CUDA-core route (f32 heads).
+   backward kernels, dk/dv and dq on the CUDA-core route (f32 heads).
 13. Compactor: ``ops.compact`` (an entry point no engine path calls) at its
    study shape, M = 1,572,864 x W = 256 f32, 2/3 live, R = 128, held bit
    for bit against its plain version and timed beside it, its byte bound
@@ -330,7 +335,7 @@ def _wrappers():
             "flash_bwd_dq": fa.flash_bwd_dq, "compact": compactor.compact}
 
 
-ROUTED = ("flash_fwd", "flash_bwd_dkv")     # wrappers with two routes
+ROUTED = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")  # two routes each
 ROUTES = ("tc", "cuda_core")
 
 
@@ -343,7 +348,7 @@ def reset_launches():
 
 def read_launches():
     """Launches per wrapper, and per route (``flash_fwd.tc``, ...) for the
-    two wrappers that have two."""
+    wrappers that have two."""
     out = {}
     for name, fn in _wrappers().items():
         out[name] = fn.launches
@@ -613,21 +618,23 @@ def sdpa_call(torch, fa, q, k, v, qs, ks, causal, sm_scale):
 
 
 def tie_allowance(torch, fa, q, k, v, qs, ks, seed, causal, sm_scale,
-                  p_dropout):
+                  p_dropout, single=False):
     """How far p's rounding ties may move each output, ``[B, H, Sq, D]``:
     the plain version's online softmax (``fwd_tiled_plain``) over the same
-    64-key tiles, where each dropped, scaled p within ``TIE_ULPS`` f32 ulps
-    of a bf16 tie may round one bf16 ulp either way, times |v|, rescaled
-    and divided by l as the output is."""
+    64-key tiles (or, ``single``, ``fwd_single_plain``'s one pass over all
+    keys), where each dropped, scaled p within ``TIE_ULPS`` f32 ulps of a
+    bf16 tie may round one bf16 ulp either way, times |v|, rescaled and
+    divided by l as the output is."""
     b, h, sq, d = q.shape
     skv = k.shape[2]
+    step = skv if single else fa.BLOCK_K
     m = torch.full((b, h, sq, 1), -3.4028234663852886e38, device=q.device)
     l = torch.zeros((b, h, sq, 1), device=q.device)
     allow = torch.zeros((b, h, sq, d), device=q.device)
-    for c0 in range(0, skv, fa.BLOCK_K):
+    for c0 in range(0, skv, step):
         if causal and c0 > sq - 1:
             break
-        c1 = min(c0 + fa.BLOCK_K, skv)
+        c1 = min(c0 + step, skv)
         s = fa._scores(q, k[:, :, c0:c1], qs,
                        None if ks is None else ks[:, c0:c1], sm_scale, causal,
                        col0=c0)
@@ -1100,7 +1107,10 @@ def backward_case(torch, np, fa, name, gen, q, k, v, causal, seg=None,
                                lambda: fa.flash_bwd_dkv(*args, **kw))
     check(route == fa.flash_route(dtype, d),
           f"backward case {name}: dk/dv took the {route} route")
-    dq = fa.flash_bwd_dq(*args, **kw)
+    dq_route, dq = route_of(fa.flash_bwd_dq,
+                            lambda: fa.flash_bwd_dq(*args, **kw))
+    check(dq_route == route, f"backward case {name}: dq took the {dq_route} "
+          f"route, dk/dv the {route} route")
     want_dk, want_dv = fa.bwd_dkv_plain(*args, **kw)
     want_dq = fa.bwd_dq_plain(*args, **kw)
     again = fa.flash_bwd_dkv(*args, **kw) + (fa.flash_bwd_dq(*args, **kw),)
@@ -1123,7 +1133,8 @@ def backward_case(torch, np, fa, name, gen, q, k, v, causal, seg=None,
                  for g, w in zip((dq, dk, dv), f64)]
     del f64
     c = {"dtype": dname, "shape": [b, h, s, d], "causal": causal,
-         "dkv_route": route, "segments": seg is not None,
+         "dkv_route": route, "dq_route": dq_route,
+         "segments": seg is not None,
          "p_dropout": p_dropout,
          "rerun_bit_identical": all(torch.equal(x, y) for x, y in
                                     zip(again, (dk, dv, dq))),
@@ -1149,13 +1160,15 @@ def backward_case(torch, np, fa, name, gen, q, k, v, causal, seg=None,
             fa, q, k, qs, ks, causal, kernel.split("_")[-1])
         e["tflops"] = flops / e["ms"] / 1e9
     if route == "tc" and "bench" in name:
-        # the CUDA-core dk/dv kernel on the same inputs: the earlier route
-        def cuda_core_dkv():
-            outs = torch.empty_like(k), torch.empty_like(v)
-            fa._launch_bwd(fa._flash_bwd_lib(), "tfp_flash_bwd_dkv", outs,
-                           *args, **kw)
-        c["flash_bwd_dkv"]["cuda_core_ms"] = time_ms(torch, cuda_core_dkv,
-                                                     reps=5)
+        # the CUDA-core kernels on the same inputs: the earlier route
+        def cuda_core(fn_name, outs):
+            return lambda: fa._launch_bwd(fa._flash_bwd_lib(), fn_name,
+                                          [torch.empty_like(t) for t in outs],
+                                          *args, **kw)
+        c["flash_bwd_dkv"]["cuda_core_ms"] = time_ms(
+            torch, cuda_core("tfp_flash_bwd_dkv", (k, v)), reps=5)
+        c["flash_bwd_dq"]["cuda_core_ms"] = time_ms(
+            torch, cuda_core("tfp_flash_bwd_dq", (q,)), reps=5)
     c["library_ms"] = None if p_dropout else time_ms(
         torch, sdpa_backward_call(torch, fa, q, k, v, qs, ks, causal, sm, do))
     torch.cuda.empty_cache()
@@ -1202,6 +1215,106 @@ def attention_backward_phase(torch, np, fa, bench):
     return cases, bench_grads
 
 
+HEAD_DIMS = (12, 60, 136, 256)   # padded to 16 and 64; 128-column chunks
+
+
+def head_dim_case(torch, np, fa, gen, d, dtype, causal, seg):
+    """B1 H2 S200 at head dim ``d``: the forward ``flash_attention`` takes
+    (``_fwd_dispatch``'s rule) and both backward kernels, each held against
+    its plain version at the caller's D. The forward's output within
+    ``ATTN_TOL`` and, for bf16, the tie allowance (the kernel, at the
+    padded D or chunk by chunk, may sum q·k in another order than the plain
+    version's matmul at the caller's D; the strict ratio is kept beside),
+    l and m within the f32 limit, the gradients within ``BWD_TOL``."""
+    b, h, s = 1, 2, 200
+    q, k, v, do = (torch.randn(b, h, s, d, device=DEV, generator=gen)
+                   .to(dtype) for _ in range(4))
+    dname = _dtype_name(dtype)
+    kw = dict(sm_scale=1.0 / float(np.sqrt(d)), p_dropout=0.1)
+    single = not causal and fa.single_fits(s, d, dtype)
+    if single:
+        fwd_route = None
+        got = fa.flash_fwd_single(q, k, v, seg, seg, SEED, **kw)
+        want = fa.fwd_single_plain(q, k, v, seg, seg, SEED, **kw)
+    else:
+        fwd_route, got = route_of(fa.flash_fwd, lambda: fa.flash_fwd(
+            q, k, v, seg, seg, SEED, causal=causal, **kw))
+        want = fa.fwd_tiled_plain(q, k, v, seg, seg, SEED, causal=causal,
+                                  **kw)
+    entry = fa.flash_attention(q, k, v, causal=causal, q_segment_ids=seg,
+                               kv_segment_ids=seg, p_dropout=0.1,
+                               dropout_seed=SEED)
+    kw["causal"] = causal
+    args = (q, k, v, seg, seg, SEED, do, got[1], got[2],
+            fa._delta(do, got[0]))
+    dkv_route, (dk, dv) = route_of(fa.flash_bwd_dkv,
+                                   lambda: fa.flash_bwd_dkv(*args, **kw))
+    dq_route, dq = route_of(fa.flash_bwd_dq,
+                            lambda: fa.flash_bwd_dq(*args, **kw))
+    want_dk, want_dv = fa.bwd_dkv_plain(*args, **kw)
+    want_dq = fa.bwd_dq_plain(*args, **kw)
+    torch.cuda.synchronize()
+
+    def ratio(g, w, atol, rtol, allow=0.0):
+        g, w = g.float(), w.float()
+        return float(((g - w).abs() / (atol + rtol * w.abs() + allow)).max())
+
+    atol, rtol = ATTN_TOL[dname]
+    strict = ratio(got[0], want[0], atol, rtol)
+    out_ratio = strict
+    if dtype == torch.bfloat16:
+        out_ratio = ratio(got[0], want[0], atol, rtol, tie_allowance(
+            torch, fa, q, k, v, seg, seg, SEED, causal, kw["sm_scale"], 0.1,
+            single=single))
+    route = fa.flash_route(dtype, d)
+    c = {"shape": [b, h, s, d], "padded_d": fa.padded_head_dim(d),
+         "dtype": dname, "causal": causal, "segments": seg is not None,
+         "forward": "flash_fwd_single" if single else "flash_fwd",
+         "fwd_route": fwd_route, "dkv_route": dkv_route,
+         "dq_route": dq_route,
+         "err_ratio_out_l_m": [out_ratio] + [
+             ratio(g, w, *ATTN_TOL["float32"])
+             for g, w in zip(got[1:], want[1:])],
+         "strict_out_ratio": strict,
+         "err_ratio_dq_dk_dv": [ratio(g, w, *BWD_TOL[dname]) for g, w in
+                                zip((dq, dk, dv), (want_dq, want_dk,
+                                                   want_dv))],
+         "max_abs_err": max(float((g.float() - w.float()).abs().max())
+                            for g, w in zip((got[0], dq, dk, dv),
+                                            (want[0], want_dq, want_dk,
+                                             want_dv))),
+         "shapes_ok": got[0].shape == dq.shape == q.shape
+         and dk.shape == dv.shape == k.shape,
+         "entry_point_equals_kernel": torch.equal(entry, got[0])}
+    check(all(r == route for r in (dkv_route, dq_route))
+          and fwd_route in (None, route)
+          and max(c["err_ratio_out_l_m"] + c["err_ratio_dq_dk_dv"]) <= 1
+          and c["shapes_ok"] and c["entry_point_equals_kernel"],
+          f"head-dim case D{d}: kernels differ from their plain versions or "
+          f"took another route: {json.dumps(c)}")
+    return c
+
+
+def head_dim_phase(torch, np, fa):
+    """Head dims the kernels take only zero-padded (12, 60) or in
+    128-column chunks (136, 256), f32 and bf16, causal with two segments and
+    a padded tail, and non-causal without segments."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 7)
+    seg = torch.tensor([[0] * 90 + [1] * 80 + [-1] * 30], dtype=torch.int32,
+                       device=DEV)
+    cases = {}
+    for d in HEAD_DIMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                name = (f"d{d}_{'causal_segments' if causal else 'full'}_"
+                        f"{_dtype_name(dtype)}")
+                cases[name] = head_dim_case(torch, np, fa, gen, d, dtype,
+                                            causal, seg if causal else None)
+                print("head-dim case", name, json.dumps(cases[name]),
+                      flush=True)
+    torch.cuda.empty_cache()
+
+
 def flash_grad_path_phase(torch, fa, bench, bench_grads, reps=10):
     """``flash_attention(causal=True)`` forward and backward at the bench's
     shape, reported as the JAX bench's ``grad=True`` leg counts it (3.5 ×
@@ -1220,7 +1333,8 @@ def flash_grad_path_phase(torch, fa, bench, bench_grads, reps=10):
     check(launches["flash_fwd"] == reps and launches["flash_bwd_dkv"] == reps
           and launches["flash_bwd_dq"] == reps
           and launches["flash_fwd.tc"] == reps
-          and launches["flash_bwd_dkv.tc"] == reps,
+          and launches["flash_bwd_dkv.tc"] == reps
+          and launches["flash_bwd_dq.tc"] == reps,
           f"flash gradients did not launch the tensor-core kernels: "
           f"{launches}")
     check(all(torch.equal(g, w) for g, w in zip(grads, (dq, dk, dv))),
@@ -1374,7 +1488,8 @@ def bst_training_phase(torch, np, kv, models, train, profile_dir):
         torch, "BST", step, state, batches,
         {"flash_fwd_single": blocks, "flash_bwd_dkv": blocks,
          "flash_bwd_dkv.cuda_core": blocks, "flash_bwd_dkv.tc": 0,
-         "flash_bwd_dq": blocks, "flash_fwd": 0}, profile_dir)
+         "flash_bwd_dq": blocks, "flash_bwd_dq.cuda_core": blocks,
+         "flash_bwd_dq.tc": 0, "flash_fwd": 0}, profile_dir)
     del state
     return launches, rate, per_step, peak_memory(torch, "BST training")
 
@@ -2047,6 +2162,7 @@ def main() -> int:
     cases = kernel_phase(torch, rowops)
     attn_cases, bench = attention_phase(torch, np, fa)
     bwd_cases, bench_grads = attention_backward_phase(torch, np, fa, bench)
+    head_dim_phase(torch, np, fa)
     peak_memory(torch, "attention kernels")
     emb_launches, emb_rate = embedding_serving_phase(
         torch, np, kv, hashing, rowops, args.profile)
@@ -2105,7 +2221,8 @@ def main() -> int:
                        "c_s1000_dropout_causal_float32"),
         backward_entry("flash_bwd_dq",
                        "tfplus_tpu/ops/flash_attention.py:636",
-                       launches, bwd_cases, "a_bench_causal_bf16"),
+                       launches, bwd_cases, "a_bench_causal_bf16",
+                       "c_s1000_dropout_causal_float32"),
         {"name": "compact", "route": "cuda",
          "source": "tfplus_tpu_torch/ops/csrc/compactor.cu",
          "replaces": "tfplus_tpu/ops/compactor.py:141",

@@ -1,0 +1,103 @@
+#!/usr/bin/env python3
+"""Time the port's flash kernels on one CUDA card, at the shapes its paths
+give them.
+
+    python3 scripts/flash_kernel_times.py [--label NAME] [--reps N]
+
+Run from the root of a checkout: the script times that checkout's
+``tfplus_tpu_torch``. Two checkouts run in turns on one machine (A, B, B, A)
+therefore compare two versions of the kernels on one card. Its one output
+line is a JSON object: the card's name and power limit, and per case and
+wrapper the median of ``--reps`` CUDA-event timings, each from a cold L2.
+It calls the public wrappers (``flash_fwd``, ``flash_fwd_single``,
+``flash_bwd_dkv``, ``flash_bwd_dq``), so each version takes its own routes.
+
+Cases: BST's heads (f32 B2048 H8 S128 D8, histories of 1-21 tokens, the
+single-pass forward); the bench's causal B4 H8 S2048 D128 in bf16 (the
+tensor-core route) and in f32 (the CUDA-core one); causal f32 B2 H8 S1000
+D64 with dropout 0.2.
+"""
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+sys.path.insert(0, os.getcwd())
+
+L2_FLUSH_BYTES = 256 << 20       # > the H100's 50 MB L2
+
+
+def time_ms(torch, fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
+    events = []
+    for _ in range(reps):
+        flush.zero_()
+        torch.cuda._sleep(2_000_000)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        events.append((a, b))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in events)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--label", default=os.path.basename(os.getcwd()))
+    ap.add_argument("--reps", type=int, default=25)
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("flash_kernel_times: needs a CUDA card", file=sys.stderr)
+        return 1
+    from tfplus_tpu_torch.ops import flash_attention as fa
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    lengths = torch.randint(1, 22, (2048,), device="cuda", generator=gen)
+    bst_seg = fa.make_segment_ids_from_lengths(lengths, 128)
+    cases = [("bst_f32", 2048, 8, 128, 8, torch.float32, False, bst_seg, 0.0),
+             ("bench_causal_bf16", 4, 8, 2048, 128, torch.bfloat16, True,
+              None, 0.0),
+             ("bench_causal_f32", 4, 8, 2048, 128, torch.float32, True,
+              None, 0.0),
+             ("s1000_dropout_causal_f32", 2, 8, 1000, 64, torch.float32,
+              True, None, 0.2)]
+    out = {"label": args.label, "card": smi, "ms": {}}
+    for name, b, h, s, d, dtype, causal, seg, p in cases:
+        q, k, v, do = (torch.randn(b, h, s, d, device="cuda", generator=gen)
+                       .to(dtype) for _ in range(4))
+        sm = d ** -0.5
+        if causal:
+            def fwd():
+                return fa.flash_fwd(q, k, v, seg, seg, 0, causal=True,
+                                    sm_scale=sm, p_dropout=p)
+        else:
+            def fwd():
+                return fa.flash_fwd_single(q, k, v, seg, seg, 0, sm_scale=sm,
+                                           p_dropout=p)
+        o, l, m = fwd()
+        bwd = (q, k, v, seg, seg, 0, do, l, m, fa._delta(do, o))
+        kw = dict(causal=causal, sm_scale=sm, p_dropout=p)
+        out["ms"][name] = {
+            "flash_fwd" if causal else "flash_fwd_single":
+                time_ms(torch, fwd, args.reps),
+            "flash_bwd_dkv": time_ms(
+                torch, lambda: fa.flash_bwd_dkv(*bwd, **kw), args.reps),
+            "flash_bwd_dq": time_ms(
+                torch, lambda: fa.flash_bwd_dq(*bwd, **kw), args.reps)}
+        del q, k, v, do, o, l, m, bwd
+        torch.cuda.empty_cache()
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -8,12 +8,14 @@ kernel is held against its plain version at odd lengths (Sq 333 against
 Skv 275/400, a single query row, fewer keys than one tile), head dims
 8/64/128, f32 and bf16, causal, segments and dropout: f32 within ``atol =
 rtol = 1e-5`` (another summation order; one flipped dropout bit moves an
-output by ~1e-3), bf16 within ``1e-2`` (one bf16 ulp of the output). bf16
-at D 64/128 takes the tensor-core kernels and everything else the
-CUDA-core ones (``flash_route``), which the per-route launch counters
-show; a case with p_dropout 0.5 over 40 keys, where any one flipped keep
-bit moves a result past the tolerance, holds each tensor-core kernel's
-dropout bit for bit. BST and DIN
+output by ~1e-3), bf16 within ``1e-2`` (one bf16 ulp of the output); head
+dims that the wrappers pad (12, 60) or that the CUDA-core kernels split
+into 128-column chunks (136, 256) are held the same way, forward and
+backward. bf16 at a padded D of 64/128 takes the tensor-core kernels and
+everything else the CUDA-core ones (``flash_route``), which the per-route
+launch counters show; a case with p_dropout 0.5 over 40 keys, where any
+one flipped keep bit moves a result past the tolerance, holds each
+tensor-core kernel's dropout bit for bit. BST and DIN
 served on the card give the CPU's predictions within ``1e-5``. The flash
 backward kernels are held against their plain versions (same limits) and
 float64 autograd, run deterministically, and a CUDA backward never reaches
@@ -179,9 +181,11 @@ def _route_counts(fn):
 
 
 def _assert_one_launch(fn, before, dtype, d):
-    """One launch more, on the route that dtype and D pick: bf16 at D 64 or
-    128 on the tensor cores, everything else on the CUDA cores."""
-    route = "tc" if dtype == torch.bfloat16 and d in (64, 128) else "cuda_core"
+    """One launch more, on the route that dtype and D pick: bf16 at a
+    padded D of 64 or 128 on the tensor cores, everything else on the CUDA
+    cores."""
+    route = ("tc" if dtype == torch.bfloat16
+             and fa.padded_head_dim(d) in (64, 128) else "cuda_core")
     assert fa.flash_route(dtype, d) == route
     want = (before[0] + 1, before[1] + (route == "tc"),
             before[2] + (route == "cuda_core"))
@@ -298,9 +302,6 @@ def test_cuda_calls_never_run_the_plain_versions(cuda, monkeypatch):
 
 
 def test_flash_wrappers_refuse_what_the_kernels_do_not_take(cuda):
-    q = torch.zeros(1, 1, 16, 12, device=cuda)
-    with pytest.raises(ValueError, match="multiple of 8"):
-        fa.flash_fwd(q, q, q, None, None, 0, causal=False, sm_scale=1.0)
     q = torch.zeros(1, 1, 16, 16, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_fwd(q.transpose(2, 3), q, q, None, None, 0, causal=False,
@@ -311,6 +312,48 @@ def test_flash_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     big = torch.zeros(1, 1, 4096, 128, device=cuda)
     with pytest.raises(ValueError, match="does not fit"):
         fa.flash_fwd_single(big, big, big, None, None, 0, sm_scale=1.0)
+    wide = torch.zeros(1, 1, 16, 136, device=cuda)
+    with pytest.raises(ValueError, match="does not fit"):
+        fa.flash_fwd_single(wide, wide, wide, None, None, 0, sm_scale=1.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [12, 60, 136, 256])
+@pytest.mark.parametrize("causal,segments", [(True, True), (False, False)])
+def test_flash_any_head_dim_matches_plain(cuda, dtype, d, causal, segments):
+    """Any D, as the JAX kernels take it: 12 and 60 are zero-padded to 16
+    and 64 (bf16 D 60 then takes the tensor cores), 136 and 256 run the
+    CUDA-core kernels in 128-column chunks. Forward (tiled, and single-pass
+    where it fits), dk/dv and dq against their plain versions at the
+    unpadded D (limits as above), outputs of the caller's D."""
+    b, h, s = 1, 2, 200
+    q, k, v, qs, ks = _attention_inputs(d, b, h, s, s, d, dtype, cuda,
+                                        segments)
+    kw = dict(causal=causal, sm_scale=0.2, p_dropout=0.1)
+    before = _route_counts(fa.flash_fwd)
+    got = fa.flash_fwd(q, k, v, qs, ks, 7, **kw)
+    _assert_one_launch(fa.flash_fwd, before, dtype, d)
+    torch.cuda.synchronize()
+    assert got[0].shape == q.shape and got[0].is_contiguous()
+    _assert_close(got, fa.fwd_tiled_plain(q, k, v, qs, ks, 7, **kw), dtype)
+    if not causal and fa.single_fits(s, d, dtype):
+        single = dict(sm_scale=0.2, p_dropout=0.1)
+        _assert_close(fa.flash_fwd_single(q, k, v, qs, ks, 7, **single),
+                      fa.fwd_single_plain(q, k, v, qs, ks, 7, **single),
+                      dtype)
+    out, l, m = got
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(d)).to(
+        device=cuda, dtype=dtype)
+    args = (q, k, v, qs, ks, 7, do, l, m, fa._delta(do, out))
+    before = _route_counts(fa.flash_bwd_dkv), _route_counts(fa.flash_bwd_dq)
+    dk, dv = fa.flash_bwd_dkv(*args, **kw)
+    dq = fa.flash_bwd_dq(*args, **kw)
+    _assert_one_launch(fa.flash_bwd_dkv, before[0], dtype, d)
+    _assert_one_launch(fa.flash_bwd_dq, before[1], dtype, d)
+    torch.cuda.synchronize()
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+    _assert_close((dq, dk, dv), (fa.bwd_dq_plain(*args, **kw),
+                                 *fa.bwd_dkv_plain(*args, **kw)), dtype)
 
 
 def _small_sequence_model(name):
@@ -379,7 +422,8 @@ def _backward_inputs(seed, b, h, sq, skv, d, dtype, device, segments,
 @pytest.mark.parametrize("lengths", ["odd", "one_row", "short_kv"])
 def test_flash_bwd_matches_plain(cuda, dtype, d, causal, segments, p_dropout,
                                  lengths):
-    """Both backward kernels at odd lengths against their plain versions:
+    """Both backward kernels at odd lengths against their plain versions
+    (bf16 at D 64/128 on the tensor-core route, dk/dv and dq both):
     f32 within 1e-5 (another summation order; one flipped dropout bit moves
     a gradient by ~1e-2), bf16 within 1e-2 (an intermediate that rounds the
     other way moves a gradient by a bf16 ulp of one term)."""
@@ -388,11 +432,11 @@ def test_flash_bwd_matches_plain(cuda, dtype, d, causal, segments, p_dropout,
     q, k, v, qs, ks, do, l, m, di, _ = _backward_inputs(
         d + 100, b, h, sq, skv, d, dtype, cuda, segments, causal, p_dropout)
     kw = dict(causal=causal, sm_scale=0.2, p_dropout=p_dropout)
-    before = _route_counts(fa.flash_bwd_dkv), fa.flash_bwd_dq.launches
+    before = _route_counts(fa.flash_bwd_dkv), _route_counts(fa.flash_bwd_dq)
     dk, dv = fa.flash_bwd_dkv(q, k, v, qs, ks, 5, do, l, m, di, **kw)
     dq = fa.flash_bwd_dq(q, k, v, qs, ks, 5, do, l, m, di, **kw)
     _assert_one_launch(fa.flash_bwd_dkv, before[0], dtype, d)
-    assert fa.flash_bwd_dq.launches == before[1] + 1
+    _assert_one_launch(fa.flash_bwd_dq, before[1], dtype, d)
     torch.cuda.synchronize()
     want_dk, want_dv = fa.bwd_dkv_plain(q, k, v, qs, ks, 5, do, l, m, di, **kw)
     want_dq = fa.bwd_dq_plain(q, k, v, qs, ks, 5, do, l, m, di, **kw)
@@ -433,6 +477,39 @@ def test_flash_bwd_dkv_tc_dropout_is_bit_exact(cuda):
     assert float((move / tol[:, :, None]).amax(-1).min()) > 1
 
 
+def test_flash_bwd_dq_tc_dropout_is_bit_exact(cuda):
+    """bf16 D128 over 40 keys at p_dropout 0.5 with nearly flat scores
+    (q scaled to 0.01) and do, v shifted by 3, so that every dp = do·vᵀ is
+    large: a flipped keep bit at (row, key) moves ds by 2·p·dp·sm_scale and
+    dq[row] by that times k[key], which for every pair passes the bf16
+    tolerance in some column, so passing holds the tensor-core dq kernel's
+    dropout to the plain version's mask bit for bit; a rerun is
+    bit-identical."""
+    gen = torch.Generator().manual_seed(43)
+    b, h, sq, skv, d = 2, 3, 70, 40, 128
+    q = 0.01 * torch.randn(b, h, sq, d, generator=gen)
+    k = torch.randn(b, h, skv, d, generator=gen)
+    v = torch.randn(b, h, skv, d, generator=gen) + 3
+    do = torch.randn(b, h, sq, d, generator=gen) + 3
+    q, k, v, do = (t.to(device=cuda, dtype=torch.bfloat16)
+                   for t in (q, k, v, do))
+    kw = dict(causal=False, sm_scale=1.0, p_dropout=0.5)
+    out, l, m = fa.flash_fwd(q, k, v, None, None, 3, **kw)
+    args = (q, k, v, None, None, 3, do, l, m, fa._delta(do, out))
+    before = _route_counts(fa.flash_bwd_dq)
+    got = fa.flash_bwd_dq(*args, **kw)
+    _assert_one_launch(fa.flash_bwd_dq, before, torch.bfloat16, d)
+    torch.cuda.synchronize()
+    want = fa.bwd_dq_plain(*args, **kw)
+    _assert_close([got], [want], torch.bfloat16)
+    assert torch.equal(fa.flash_bwd_dq(*args, **kw), got)
+    p = torch.softmax(q.double() @ k.double().transpose(-1, -2), -1)
+    dp = do.double() @ v.double().transpose(-1, -2)        # [B, H, Sq, Skv]
+    tol = 1e-2 + 1e-2 * want.double().abs()                # [B, H, Sq, D]
+    move = (2 * p * dp.abs())[..., None] * k.double().abs()[:, :, None]
+    assert float((move / tol[:, :, :, None]).amax(-1).min()) > 1
+
+
 def test_flash_gradients_on_the_card_match_float64(cuda):
     """``flash_attention``'s autograd through both backward kernels against
     float64 autograd through ``reference_attention`` (f32, within 1e-5 of
@@ -463,7 +540,8 @@ def test_cuda_backward_never_runs_the_plain_versions(cuda, monkeypatch):
                  "fwd_single_plain", "fwd_tiled_plain", "reference_attention"):
         monkeypatch.setattr(fa, name, refuse)
     launches = fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches
-    routes = fa.flash_bwd_dkv.tc_launches, fa.flash_bwd_dkv.cuda_core_launches
+    routes = [_route_counts(fn)[1:] for fn in (fa.flash_bwd_dkv,
+                                                fa.flash_bwd_dq)]
     # f32 D8 (CUDA cores), then bf16 D64 and D128 (tensor cores)
     for dtype, d in ((torch.float32, 8), (torch.bfloat16, 64),
                      (torch.bfloat16, 128)):
@@ -476,9 +554,9 @@ def test_cuda_backward_never_runs_the_plain_versions(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert (fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches) == (
         launches[0] + 6, launches[1] + 6)
-    assert (fa.flash_bwd_dkv.tc_launches,
-            fa.flash_bwd_dkv.cuda_core_launches) == (routes[0] + 4,
-                                                     routes[1] + 2)
+    for fn, (tc, cuda_core) in zip((fa.flash_bwd_dkv, fa.flash_bwd_dq),
+                                   routes):
+        assert _route_counts(fn)[1:] == (tc + 4, cuda_core + 2)
 
 
 @pytest.mark.parametrize("name", ["DCN", "BST"])

@@ -61,6 +61,7 @@ CASES = [
     ("dropout_single", 2, 2, 128, 8, False, True, "f32", 0.3),
     ("dropout_causal_odd", 1, 2, 200, 32, True, False, "f32", 0.3),
     ("dropout_bf16", 1, 2, 256, 32, True, True, "bf16", 0.3),
+    ("d12_segments", 2, 2, 128, 12, False, True, "f32", 0.0),
 ]
 
 
@@ -170,6 +171,10 @@ def test_dispatch_routes_as_on_the_card(monkeypatch):
     assert run(128, 8, True) == "fwd_tiled_plain"
     assert not tfa.single_fits(1024, 64, torch.float32)
     assert run(1024, 64, False) == "fwd_tiled_plain"
+    # the single-pass kernel holds a padded D of at most 128
+    assert tfa.single_fits(64, 128, torch.bfloat16)
+    assert not tfa.single_fits(64, 130, torch.bfloat16)
+    assert run(64, 130, False) == "fwd_tiled_plain"
     # CPU calls run the plain versions and launch nothing
     assert (tfa.flash_fwd.launches, tfa.flash_fwd_single.launches) \
         == launches
@@ -203,6 +208,7 @@ GRAD_CASES = [
     ("bf16_segments", 2, 2, 128, 8, False, True, "bf16", 0.0),
     ("dropout_segments", 2, 2, 128, 8, False, True, "f32", 0.3),
     ("dropout_causal_odd", 1, 2, 200, 32, True, False, "f32", 0.3),
+    ("d12_causal", 2, 2, 128, 12, True, False, "f32", 0.0),
 ]
 # Gradients sum over up to S rows or keys in another order: f32 within
 # atol = rtol = 1e-5 (they agree to about 6e-7 here). bf16: p_d and ds round
@@ -298,39 +304,95 @@ def test_gradients_are_a_later_slice():
     (torch.bfloat16, 64, "tc"), (torch.bfloat16, 128, "tc"),
     (torch.bfloat16, 8, "cuda_core"), (torch.bfloat16, 32, "cuda_core"),
     (torch.bfloat16, 96, "cuda_core"), (torch.float32, 8, "cuda_core"),
-    (torch.float32, 64, "cuda_core"), (torch.float32, 128, "cuda_core")])
+    (torch.float32, 64, "cuda_core"), (torch.float32, 128, "cuda_core"),
+    (torch.bfloat16, 60, "tc"), (torch.bfloat16, 121, "tc"),
+    (torch.bfloat16, 12, "cuda_core"), (torch.bfloat16, 136, "cuda_core"),
+    (torch.float32, 60, "cuda_core")])
 def test_route_is_chosen_from_dtype_and_head_dim(dtype, d, route):
-    """bf16 at D 64 or 128 takes the tensor-core kernels; f32 (whose only
-    tensor-core input is TF32) and the other bf16 widths keep the CUDA-core
-    ones. Nothing but dtype and D decides, so the decision is the same for
-    every shape, causal or not."""
+    """bf16 at a padded D of 64 or 128 (D 57-64 or 121-128) takes the
+    tensor-core kernels; f32 (whose only tensor-core input is TF32) and the
+    other bf16 widths keep the CUDA-core ones. Nothing but dtype and D
+    decides, so the decision is the same for every shape, causal or not,
+    and for each of the three routed wrappers (the forward, dk/dv and dq),
+    which count their launches per route."""
     assert tfa.flash_route(dtype, d) == route
+    for fn in (tfa.flash_fwd, tfa.flash_bwd_dkv, tfa.flash_bwd_dq):
+        assert isinstance(getattr(fn, f"{route}_launches"), int)
 
 
 def test_cpu_calls_count_no_route():
     """A CPU tensor runs the plain version: neither route counts a launch."""
     q, k, v = (torch.from_numpy(x).to(torch.bfloat16)
                for x in _inputs(1, 1, 70, 70, 64, 3))
+    routed = (tfa.flash_fwd, tfa.flash_bwd_dkv, tfa.flash_bwd_dq)
     before = [(f.launches, f.tc_launches, f.cuda_core_launches)
-              for f in (tfa.flash_fwd, tfa.flash_bwd_dkv)]
+              for f in routed]
     out, l, m = tfa.flash_fwd(q, k, v, None, None, 0, causal=True,
                               sm_scale=0.125)
-    tfa.flash_bwd_dkv(q, k, v, None, None, 0, q, l, m, tfa._delta(q, out),
-                      causal=True, sm_scale=0.125)
+    args = (q, k, v, None, None, 0, q, l, m, tfa._delta(q, out))
+    tfa.flash_bwd_dkv(*args, causal=True, sm_scale=0.125)
+    tfa.flash_bwd_dq(*args, causal=True, sm_scale=0.125)
     assert [(f.launches, f.tc_launches, f.cuda_core_launches)
-            for f in (tfa.flash_fwd, tfa.flash_bwd_dkv)] == before
+            for f in routed] == before
 
 
-@pytest.mark.parametrize("d,fwd,dkv", [(64, 42496, 52224),
-                                       (128, 83456, 101376)])
-def test_tensor_core_shared_memory(d, fwd, dkv):
+@pytest.mark.parametrize("d,fwd,dkv,dq", [(64, 42496, 52224, 50688),
+                                          (128, 83456, 101376, 99840)])
+def test_tensor_core_shared_memory(d, fwd, dkv, dq):
     """The Python mirrors of the tensor-core kernels' ``Layout`` structs.
     Forward: Q plus two stages of K and V (five 64-row bf16 tiles), two
-    stages of 64 key segment ids and 1 KB of alignment slack; dk/dv: K, V and two stages of Q and dO (six
-    tiles), two stages of the q tile's l, m, di and segment ids, and the
-    slack. Each fits twice on an SM (228 KB, 1 KB reserved per block), so
-    two blocks share one."""
+    stages of 64 key segment ids and 1 KB of alignment slack; dk/dv: K, V
+    and two stages of Q and dO (six tiles), two stages of the q tile's l,
+    m, di and segment ids, and the slack; dq: Q, dO and two stages of K and
+    V (six tiles), two stages of 64 key segment ids, and the slack. Each
+    fits twice on an SM (228 KB, 1 KB reserved per block), so two blocks
+    share one."""
     assert tfa.tc_fwd_smem_bytes(d) == fwd
     assert tfa.tc_dkv_smem_bytes(d) == dkv
-    for n in (fwd, dkv):
+    assert tfa.tc_dq_smem_bytes(d) == dq
+    for n in (fwd, dkv, dq):
         assert n <= tfa.SMEM_PER_BLOCK and 2 * (n + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("d", [12, 20])
+def test_padding_the_head_dim_is_exact(d):
+    """What the wrappers do on the card at a D that is not a multiple of 8:
+    the plain versions on the zero-padded q, k, v (and do) give, in the
+    first D columns, what they give at the unpadded D, zeros in the padded
+    columns, and the same l and m. Zero columns add exact zeros to q·kᵀ and
+    do·vᵀ, but they may change how the CPU's matmul blocks its sums, so
+    the comparison is within ``atol = rtol = 1e-5`` (f32)."""
+    b, h, s = 2, 2, 70
+    dp = tfa.padded_head_dim(d)
+    assert dp == 8 * (d // 8 + 1)
+    q, k, v = (torch.from_numpy(x) for x in _inputs(b, h, s, s, d, seed=d))
+    do = torch.from_numpy(np.random.RandomState(d + 1).randn(b, h, s, d)
+                          .astype(np.float32))
+    seg = torch.from_numpy(_segments(b, s, seed=d + 2))
+    padded = tfa.pad_head_dim(q, k, v, do)
+    assert all(t.shape == (b, h, s, dp) and (t[..., d:] == 0).all()
+               for t in padded)
+    assert tfa.pad_head_dim(padded[0])[0] is padded[0]     # already aligned
+
+    def check(got, want):
+        for g, w in zip(got, want):
+            if g.dim() == 4:
+                assert g.shape[-1] == dp and (g[..., d:] == 0).all()
+                g = g[..., :d]
+            np.testing.assert_allclose(g.numpy(), w.numpy(), **F32_TOL)
+
+    kw = dict(sm_scale=0.3, p_dropout=0.25)
+    fwd = tfa.fwd_tiled_plain(q, k, v, seg, seg, 4, causal=True, **kw)
+    check(tfa.fwd_tiled_plain(*padded[:3], seg, seg, 4, causal=True, **kw),
+          fwd)
+    check(tfa.fwd_single_plain(*padded[:3], seg, seg, 4, **kw),
+          tfa.fwd_single_plain(q, k, v, seg, seg, 4, **kw))
+    out, l, m = fwd
+    di = tfa._delta(do, out)
+    kw["causal"] = True
+    check(tfa.bwd_dkv_plain(*padded[:3], seg, seg, 4, padded[3], l, m, di,
+                            **kw),
+          tfa.bwd_dkv_plain(q, k, v, seg, seg, 4, do, l, m, di, **kw))
+    check([tfa.bwd_dq_plain(*padded[:3], seg, seg, 4, padded[3], l, m, di,
+                            **kw)],
+          [tfa.bwd_dq_plain(q, k, v, seg, seg, 4, do, l, m, di, **kw)])

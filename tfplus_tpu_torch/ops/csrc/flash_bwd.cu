@@ -20,7 +20,8 @@
 // causal, tile pairs wholly above the diagonal skipped. Valid = same
 // segment, neither segment < 0, inside Sq and Skv, col <= row when causal.
 // Ragged lengths are masked here (tiles zero-filled past the end), so no
-// copy of q, k, v or do is padded.
+// copy of q, k, v or do is padded along the sequence. D is any multiple of
+// 8 (the wrapper zero-pads other widths).
 //
 // Determinism: the TPU's two-kernel split is kept. Every output element is
 // summed by one block in a fixed order (no atomics), so a rerun on the same
@@ -31,9 +32,11 @@
 // (row, key) pair: at the bench's causal bf16 B4 H8 S2048 D128 that is 68.7
 // and 51.5 GFLOP, 69.5 and 52.1 us at the bf16 tensor-core rate, so
 // operations bound both. These kernels run FMA on the CUDA cores (67
-// TFLOP/s f32: about 1.03 and 0.77 ms at best); mma.sync/wgmma is later
-// work. BST's heads (B2048 H8 S128 D8 f32, about 11 valid tokens of 128)
-// are bound by bytes; these kernels read the padded rows too.
+// TFLOP/s f32: about 1.03 and 0.77 ms at best); bf16 at D 64/128 takes the
+// tensor-core kernels of flash_bwd_tc.cu instead, and these serve f32 and
+// the other widths. BST's heads (B2048 H8 S128 D8 f32, about 11 valid
+// tokens of 128) are bound by bytes; these kernels read the padded rows
+// too.
 //
 // Design. A block of 256 threads owns one kv tile of 64 keys (dkv) or one q
 // tile of 64 rows (dq) of one (b, h). Per tile pair, thread (ty = tid / 8,
@@ -45,7 +48,12 @@
 // rows 2ty, 2ty+1 over the tile's 64 keys. 256 threads keep each thread's
 // two f32 accumulators at 2 x 2 x 16 registers for D = 128. dkv launches
 // the kv tiles that see the most q tiles first when causal, dq the q tiles
-// that see the most kv tiles.
+// that see the most kv tiles. Any D: a tile holds at most kDC = 128
+// columns, so above that the grid splits the outputs' D into 128-column
+// chunks; each block forms s and dp over the full D, streaming its four
+// tiles chunk by chunk in one fixed order (the same ds in every chunk),
+// then reloads its own chunk of Q and dO (dkv) or K (dq) for the products
+// and writes its chunk of dk, dv or dq.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -62,6 +70,7 @@ constexpr int kBQ = (kThreads / kTX) * kRows;  // 64 query rows per tile
 constexpr int kBK = 64;                        // keys per tile
 constexpr int kCols = kBK / kTX;               // keys per thread per tile
 constexpr int kLdp = kBK + 4;                  // f32 stride of the p_d/ds tiles
+constexpr int kDC = 128;                       // head-dim columns a tile holds
 constexpr size_t kMaxSmem = 232448;            // 227 KB per block on an H100
 constexpr size_t kDefaultSmem = 48 * 1024;
 static_assert(kBQ == kBK, "the causal tile skip assumes square tiles");
@@ -88,7 +97,10 @@ __host__ __device__ inline size_t align16(size_t x) {
   return (x + 15) & ~static_cast<size_t>(15);
 }
 
-// Byte offsets of one block's shared memory.
+// Columns of a tile: all of D, or one kDC chunk of it.
+__host__ __device__ inline int tile_cols(int d) { return d < kDC ? d : kDC; }
+
+// Byte offsets of one block's shared memory, for tiles of d columns.
 struct Smem {
   size_t q, dout, k, v, pd, ds, l, m, di, qseg, kseg, total;
   int ld;
@@ -145,21 +157,21 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   return fmaf(a.w, b.w, acc);
 }
 
-// rows x d elements from global (row stride d) into shared memory (row
+// rows x w elements from global (row stride d) into shared memory (row
 // stride ld) in 16-byte words; rows >= rows_valid are zero-filled.
 template <typename T>
-__device__ __forceinline__ void load_rows(T* dst, int ld, const T* src, int rows,
-                                          int rows_valid, int d) {
+__device__ __forceinline__ void load_rows(T* dst, int ld, const T* src, int d, int rows,
+                                          int rows_valid, int w) {
   constexpr int E = 16 / sizeof(T);
-  const int per_row = d / E;
+  const int per_row = w / E;
   for (int i = threadIdx.x; i < rows * per_row; i += kThreads) {
     const int r = i / per_row;
     const int c = (i - r * per_row) * E;
-    uint4 w = make_uint4(0u, 0u, 0u, 0u);
+    uint4 x = make_uint4(0u, 0u, 0u, 0u);
     if (r < rows_valid) {
-      w = __ldg(reinterpret_cast<const uint4*>(src + static_cast<size_t>(r) * d + c));
+      x = __ldg(reinterpret_cast<const uint4*>(src + static_cast<size_t>(r) * d + c));
     }
-    *reinterpret_cast<uint4*>(dst + static_cast<size_t>(r) * ld + c) = w;
+    *reinterpret_cast<uint4*>(dst + static_cast<size_t>(r) * ld + c) = x;
   }
 }
 
@@ -237,21 +249,16 @@ __device__ __forceinline__ Tiles tiles(unsigned char* smem, const Smem& L) {
   return t;
 }
 
-// One (q tile at q0, kv tile at k0) pair: p_d (when kPd) and ds of rows
-// 2ty+i and keys tx+8j into the shared f32 tiles, rounded to T.
-template <typename T, bool kPd>
-__device__ __forceinline__ void ds_tile(const Args& a, const Tiles& t, int ty, int tx,
-                                        int q0, int k0, uint32_t base) {
+// s += Q K^T and dp += dO V^T for rows 2ty+i and keys tx+8j, over the
+// tiles' w columns.
+template <typename T>
+__device__ __forceinline__ void sdp_tile(float (&s)[kRows][kCols], float (&dp)[kRows][kCols],
+                                         const Tiles& t, int w, int ty, int tx) {
   const T* Qs = static_cast<const T*>(t.q);
   const T* Os = static_cast<const T*>(t.dout);
   const T* Ks = static_cast<const T*>(t.k);
   const T* Vs = static_cast<const T*>(t.v);
-  float s[kRows][kCols], dp[kRows][kCols];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) s[i][j] = dp[i][j] = 0.f;
-  for (int dd = 0; dd < a.d; dd += 4) {
+  for (int dd = 0; dd < w; dd += 4) {
     float4 qv[kRows], ov[kRows];
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
@@ -269,6 +276,39 @@ __device__ __forceinline__ void ds_tile(const Args& a, const Tiles& t, int ty, i
       }
     }
   }
+}
+
+// One (q tile at q0, kv tile at k0) pair: s and dp over the full D, one
+// chunk of columns at a time in a fixed order (kChunked, D > kDC), or in
+// one pass, unrolled. `load` fills the tiles with the chunk of columns
+// [d0, d0 + w) it is given (and, at d0 = 0, what else the pair needs); the
+// barriers around it are here.
+template <typename T, bool kChunked, typename Load>
+__device__ __forceinline__ void sdp_pair(float (&s)[kRows][kCols], float (&dp)[kRows][kCols],
+                                         const Args& a, const Tiles& t, int ty, int tx,
+                                         Load load) {
+  for (int d0 = 0; d0 < (kChunked ? a.d : 1); d0 += kDC) {
+    const int w = kChunked ? tile_cols(a.d - d0) : a.d;
+    __syncthreads();  // the last products are done with the tiles
+    load(d0, w);
+    __syncthreads();
+    if (d0 == 0) {
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) s[i][j] = dp[i][j] = 0.f;
+    }
+    sdp_tile<T>(s, dp, t, w, ty, tx);
+  }
+}
+
+// p_d (when kPd) and ds of rows 2ty+i and keys tx+8j from s and dp, into
+// the shared f32 tiles, rounded to T.
+template <typename T, bool kPd>
+__device__ __forceinline__ void ds_tile(const Args& a, const Tiles& t,
+                                        const float (&s)[kRows][kCols],
+                                        const float (&dp)[kRows][kCols], int ty, int tx,
+                                        int q0, int k0, uint32_t base) {
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int rl = ty * kRows + i;
@@ -298,29 +338,39 @@ __device__ __forceinline__ void ds_tile(const Args& a, const Tiles& t, int ty, i
   }
 }
 
-template <typename T, int DJ>
+// kChunked: D > kDC, streamed through the tiles in chunks (sdp_pair).
+template <typename T, int DJ, bool kChunked>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(Args a, int n_kt) {
+flash_bwd_dkv_kernel(Args a, int n_kt, int n_dc) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Smem L = smem_layout(a.d, sizeof(T), true);
+  const Smem L = smem_layout(kChunked ? kDC : a.d, sizeof(T), true);
   const Tiles t = tiles<T>(smem, L);
   T* Qs = reinterpret_cast<T*>(smem + L.q);
   T* Os = reinterpret_cast<T*>(smem + L.dout);
   T* Ks = reinterpret_cast<T*>(smem + L.k);
   T* Vs = reinterpret_cast<T*>(smem + L.v);
   const int tx = threadIdx.x % kTX, ty = threadIdx.x / kTX;
+  // this block's chunk of dk's and dv's columns, [oc0, oc0 + ow)
+  const int oc0 = kChunked ? static_cast<int>(blockIdx.x % n_dc) * kDC : 0;
+  const int ow = kChunked ? tile_cols(a.d - oc0) : a.d;
+  const int tile = static_cast<int>(kChunked ? blockIdx.x / n_dc : blockIdx.x);
   // kv tile 0 sees the most q tiles under causal masking: launched first
-  const int kt = static_cast<int>(blockIdx.x % n_kt);
-  const int bh = static_cast<int>(blockIdx.x / n_kt);
+  const int kt = tile % n_kt;
+  const int bh = tile / n_kt;
   const int bi = bh / a.h, hi = bh % a.h;
   const int k0 = kt * kBK;
   const size_t qbase = static_cast<size_t>(bh) * a.sq;
   const size_t kbase = static_cast<size_t>(bh) * a.skv;
   const T* q = static_cast<const T*>(a.q) + qbase * a.d;
   const T* dout = static_cast<const T*>(a.dout) + qbase * a.d;
+  const T* k = static_cast<const T*>(a.k) + (kbase + k0) * a.d;
+  const T* v = static_cast<const T*>(a.v) + (kbase + k0) * a.d;
 
-  load_rows(Ks, t.ld, static_cast<const T*>(a.k) + (kbase + k0) * a.d, kBK, a.skv - k0, a.d);
-  load_rows(Vs, t.ld, static_cast<const T*>(a.v) + (kbase + k0) * a.d, kBK, a.skv - k0, a.d);
+  // D <= kDC: K and V stay in their tiles; wider heads stream them
+  if (!kChunked) {
+    load_rows(Ks, t.ld, k, a.d, kBK, a.skv - k0, a.d);
+    load_rows(Vs, t.ld, v, a.d, kBK, a.skv - k0, a.d);
+  }
   load_seg(t.kseg, a.kv_seg ? a.kv_seg + static_cast<size_t>(bi) * a.skv
                                               : nullptr, k0, kBK, a.skv);
   const int32_t* qs_g = a.q_seg ? a.q_seg + static_cast<size_t>(bi) * a.sq : nullptr;
@@ -331,20 +381,33 @@ flash_bwd_dkv_kernel(Args a, int n_kt) {
 #pragma unroll
     for (int jd = 0; jd < DJ; ++jd) dk[i][jd] = dv[i][jd] = 0.f;
   const uint32_t base = drop_base(a, bi, hi);
-  const int dj = a.d / kTX;
+  const int dj = ow / kTX;
   // causal: q tiles whose last row lies above this kv tile's first key skip
   const int q_begin = a.causal ? (k0 / kBQ) * kBQ : 0;
 
   for (int q0 = q_begin; q0 < a.sq; q0 += kBQ) {
-    __syncthreads();  // the last pair's accumulation is done with the tiles
-    load_rows(Qs, t.ld, q + static_cast<size_t>(q0) * a.d, kBQ, a.sq - q0, a.d);
-    load_rows(Os, t.ld, dout + static_cast<size_t>(q0) * a.d, kBQ, a.sq - q0, a.d);
-    load_seg(t.qseg, qs_g, q0, kBQ, a.sq);
-    load_stats(t.l, t.m, t.di,
-               a, qbase, q0);
+    const T* qt = q + static_cast<size_t>(q0) * a.d;
+    const T* ot = dout + static_cast<size_t>(q0) * a.d;
+    float s[kRows][kCols], dp[kRows][kCols];
+    sdp_pair<T, kChunked>(s, dp, a, t, ty, tx, [&](int d0, int w) {
+      if (kChunked) {
+        load_rows(Ks, t.ld, k + d0, a.d, kBK, a.skv - k0, w);
+        load_rows(Vs, t.ld, v + d0, a.d, kBK, a.skv - k0, w);
+      }
+      load_rows(Qs, t.ld, qt + d0, a.d, kBQ, a.sq - q0, w);
+      load_rows(Os, t.ld, ot + d0, a.d, kBQ, a.sq - q0, w);
+      if (d0 == 0) {
+        load_seg(t.qseg, qs_g, q0, kBQ, a.sq);
+        load_stats(t.l, t.m, t.di, a, qbase, q0);
+      }
+    });
+    ds_tile<T, true>(a, t, s, dp, ty, tx, q0, k0, base);
     __syncthreads();
-    ds_tile<T, true>(a, t, ty, tx, q0, k0, base);
-    __syncthreads();
+    if (kChunked && oc0 + kDC < a.d) {  // the tiles hold the last chunk
+      load_rows(Qs, t.ld, qt + oc0, a.d, kBQ, a.sq - q0, ow);
+      load_rows(Os, t.ld, ot + oc0, a.d, kBQ, a.sq - q0, ow);
+      __syncthreads();
+    }
     // dv[key] += sum_r p_d[r][key] * dO[r]; dk[key] += sum_r ds[r][key] * Q[r]
     for (int r = 0; r < kBQ; ++r) {
       const float2 pd = *reinterpret_cast<const float2*>(t.pd + r * kLdp + ty * kRows);
@@ -363,8 +426,8 @@ flash_bwd_dkv_kernel(Args a, int n_kt) {
       }
     }
   }
-  T* dk_out = static_cast<T*>(a.dk) + kbase * a.d;
-  T* dv_out = static_cast<T*>(a.dv) + kbase * a.d;
+  T* dk_out = static_cast<T*>(a.dk) + kbase * a.d + oc0;
+  T* dv_out = static_cast<T*>(a.dv) + kbase * a.d + oc0;
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int key = k0 + ty * kRows + i;
@@ -380,35 +443,42 @@ flash_bwd_dkv_kernel(Args a, int n_kt) {
   }
 }
 
-template <typename T, int DJ>
+template <typename T, int DJ, bool kChunked>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(Args a, int n_qt) {
+flash_bwd_dq_kernel(Args a, int n_qt, int n_dc) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Smem L = smem_layout(a.d, sizeof(T), false);
+  const Smem L = smem_layout(kChunked ? kDC : a.d, sizeof(T), false);
   const Tiles t = tiles<T>(smem, L);
   T* Qs = reinterpret_cast<T*>(smem + L.q);
   T* Os = reinterpret_cast<T*>(smem + L.dout);
   T* Ks = reinterpret_cast<T*>(smem + L.k);
   T* Vs = reinterpret_cast<T*>(smem + L.v);
   const int tx = threadIdx.x % kTX, ty = threadIdx.x / kTX;
+  // this block's chunk of dq's columns, [oc0, oc0 + ow)
+  const int oc0 = kChunked ? static_cast<int>(blockIdx.x % n_dc) * kDC : 0;
+  const int ow = kChunked ? tile_cols(a.d - oc0) : a.d;
+  const int tile = static_cast<int>(kChunked ? blockIdx.x / n_dc : blockIdx.x);
   // the last q tile sees the most kv tiles under causal masking: first
-  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x % n_qt);
-  const int bh = static_cast<int>(blockIdx.x / n_qt);
+  const int qt = n_qt - 1 - tile % n_qt;
+  const int bh = tile / n_qt;
   const int bi = bh / a.h, hi = bh % a.h;
   const int q0 = qt * kBQ;
   const size_t qbase = static_cast<size_t>(bh) * a.sq;
   const size_t kbase = static_cast<size_t>(bh) * a.skv;
+  const T* q = static_cast<const T*>(a.q) + (qbase + q0) * a.d;
+  const T* dout = static_cast<const T*>(a.dout) + (qbase + q0) * a.d;
   const T* k = static_cast<const T*>(a.k) + kbase * a.d;
   const T* v = static_cast<const T*>(a.v) + kbase * a.d;
   const int32_t* ks_g = a.kv_seg ? a.kv_seg + static_cast<size_t>(bi) * a.skv : nullptr;
 
-  load_rows(Qs, t.ld, static_cast<const T*>(a.q) + (qbase + q0) * a.d, kBQ, a.sq - q0, a.d);
-  load_rows(Os, t.ld, static_cast<const T*>(a.dout) + (qbase + q0) * a.d, kBQ, a.sq - q0,
-            a.d);
+  // D <= kDC: Q and dO stay in their tiles; wider heads stream them
+  if (!kChunked) {
+    load_rows(Qs, t.ld, q, a.d, kBQ, a.sq - q0, a.d);
+    load_rows(Os, t.ld, dout, a.d, kBQ, a.sq - q0, a.d);
+  }
   load_seg(t.qseg, a.q_seg ? a.q_seg + static_cast<size_t>(bi) * a.sq
                                              : nullptr, q0, kBQ, a.sq);
-  load_stats(t.l, t.m, t.di, a,
-             qbase, q0);
+  load_stats(t.l, t.m, t.di, a, qbase, q0);
 
   float acc[kRows][DJ];
 #pragma unroll
@@ -416,18 +486,29 @@ flash_bwd_dq_kernel(Args a, int n_qt) {
 #pragma unroll
     for (int jd = 0; jd < DJ; ++jd) acc[i][jd] = 0.f;
   const uint32_t base = drop_base(a, bi, hi);
-  const int dj = a.d / kTX;
+  const int dj = ow / kTX;
   // causal: kv tiles that start past this q tile's last row skip
   const int kv_end = a.causal ? min(a.skv, q0 + kBQ) : a.skv;
 
   for (int k0 = 0; k0 < kv_end; k0 += kBK) {
-    __syncthreads();  // the last pair's accumulation is done with Ks and ds
-    load_rows(Ks, t.ld, k + static_cast<size_t>(k0) * a.d, kBK, a.skv - k0, a.d);
-    load_rows(Vs, t.ld, v + static_cast<size_t>(k0) * a.d, kBK, a.skv - k0, a.d);
-    load_seg(t.kseg, ks_g, k0, kBK, a.skv);
+    const T* kt = k + static_cast<size_t>(k0) * a.d;
+    const T* vt = v + static_cast<size_t>(k0) * a.d;
+    float s[kRows][kCols], dp[kRows][kCols];
+    sdp_pair<T, kChunked>(s, dp, a, t, ty, tx, [&](int d0, int w) {
+      if (kChunked) {
+        load_rows(Qs, t.ld, q + d0, a.d, kBQ, a.sq - q0, w);
+        load_rows(Os, t.ld, dout + d0, a.d, kBQ, a.sq - q0, w);
+      }
+      load_rows(Ks, t.ld, kt + d0, a.d, kBK, a.skv - k0, w);
+      load_rows(Vs, t.ld, vt + d0, a.d, kBK, a.skv - k0, w);
+      if (d0 == 0) load_seg(t.kseg, ks_g, k0, kBK, a.skv);
+    });
+    ds_tile<T, false>(a, t, s, dp, ty, tx, q0, k0, base);
     __syncthreads();
-    ds_tile<T, false>(a, t, ty, tx, q0, k0, base);
-    __syncthreads();
+    if (kChunked && oc0 + kDC < a.d) {  // Ks holds the last chunk
+      load_rows(Ks, t.ld, kt + oc0, a.d, kBK, a.skv - k0, ow);
+      __syncthreads();
+    }
     // dq[row] += sum_key ds[row][key] * K[key]
     for (int c = 0; c < kBK; c += 4) {
       float4 ds[kRows];
@@ -451,7 +532,7 @@ flash_bwd_dq_kernel(Args a, int n_qt) {
       }
     }
   }
-  T* dq_out = static_cast<T*>(a.dq) + qbase * a.d;
+  T* dq_out = static_cast<T*>(a.dq) + qbase * a.d + oc0;
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int row = q0 + ty * kRows + i;
@@ -465,7 +546,7 @@ flash_bwd_dq_kernel(Args a, int n_qt) {
 
 template <typename Kern>
 int launch_kernel(Kern kern, const Smem& L, long long blocks, cudaStream_t stream,
-                  const Args& a, int n_tiles) {
+                  const Args& a, int n_tiles, int n_dc) {
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
   if (L.total > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   if (L.total > kDefaultSmem) {
@@ -473,25 +554,30 @@ int launch_kernel(Kern kern, const Smem& L, long long blocks, cudaStream_t strea
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(L.total));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  kern<<<dim3(static_cast<unsigned>(blocks)), kThreads, L.total, stream>>>(a, n_tiles);
+  kern<<<dim3(static_cast<unsigned>(blocks)), kThreads, L.total, stream>>>(a, n_tiles, n_dc);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int DJ>
+template <typename T, int DJ, bool kChunked = false>
 int launch(const Args& a, int batch, bool dkv, cudaStream_t stream) {
+  const int n_dc = (a.d + kDC - 1) / kDC;
+  const long long bh = static_cast<long long>(batch) * a.h * n_dc;
   if (dkv) {
     const int n_kt = (a.skv + kBK - 1) / kBK;
-    return launch_kernel(flash_bwd_dkv_kernel<T, DJ>, smem_layout(a.d, sizeof(T), true),
-                         static_cast<long long>(batch) * a.h * n_kt, stream, a, n_kt);
+    return launch_kernel(flash_bwd_dkv_kernel<T, DJ, kChunked>,
+                         smem_layout(tile_cols(a.d), sizeof(T), true), bh * n_kt, stream, a,
+                         n_kt, n_dc);
   }
   const int n_qt = (a.sq + kBQ - 1) / kBQ;
-  return launch_kernel(flash_bwd_dq_kernel<T, DJ>, smem_layout(a.d, sizeof(T), false),
-                       static_cast<long long>(batch) * a.h * n_qt, stream, a, n_qt);
+  return launch_kernel(flash_bwd_dq_kernel<T, DJ, kChunked>,
+                       smem_layout(tile_cols(a.d), sizeof(T), false), bh * n_qt, stream, a,
+                       n_qt, n_dc);
 }
 
 template <typename T>
 int dispatch(const Args& a, int batch, bool dkv, cudaStream_t stream) {
-  const int dj = a.d / kTX;
+  const int dj = tile_cols(a.d) / kTX;          // accumulator columns per chunk
+  if (a.d > kDC) return launch<T, 16, true>(a, batch, dkv, stream);
   if (dj <= 1) return launch<T, 1>(a, batch, dkv, stream);
   if (dj <= 2) return launch<T, 2>(a, batch, dkv, stream);
   if (dj <= 4) return launch<T, 4>(a, batch, dkv, stream);
@@ -504,7 +590,7 @@ int run(const void* q, const void* k, const void* v, const void* dout, const voi
         void* dk, void* dv, int b, int h, int sq, int skv, int d, int dtype, int causal,
         float sm_scale, float mask_value, unsigned seed, unsigned drop_thresh,
         float drop_scale, void* stream, bool dkv) {
-  if (b <= 0 || h <= 0 || sq <= 0 || skv <= 0 || d < 8 || d > 128 || d % 8 != 0 ||
+  if (b <= 0 || h <= 0 || sq <= 0 || skv <= 0 || d < 8 || d % 8 != 0 ||
       l == nullptr || m == nullptr || di == nullptr ||
       (q_seg == nullptr) != (kv_seg == nullptr) ||
       (dkv ? (dk == nullptr || dv == nullptr) : dq == nullptr)) {
@@ -544,7 +630,7 @@ int run(const void* q, const void* k, const void* v, const void* dout, const voi
 extern "C" {
 
 // q, do [b,h,sq,d] and k, v [b,h,skv,d] of dtype (0 = float32, 1 = bfloat16),
-// contiguous; l, m, di f32 [b,h,sq]; q_seg [b,sq] / kv_seg [b,skv] int32 or
+// d a multiple of 8, contiguous; l, m, di f32 [b,h,sq]; q_seg [b,sq] / kv_seg [b,skv] int32 or
 // both null; dk, dv like k. drop_thresh 0 turns dropout off. Returns the
 // cudaError_t of the launch (0 = success).
 int tfp_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,

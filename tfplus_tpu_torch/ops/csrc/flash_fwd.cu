@@ -19,15 +19,18 @@
 // arithmetic. f32 runs in full f32 on the CUDA cores (no TF32); bf16 inputs
 // are widened to f32, and p is rounded to bf16 before the pv product as the
 // JAX kernels round it. Sequence lengths need not divide the tiles: the Q, K
-// and V tiles are zero-filled past the end and those keys masked.
+// and V tiles are zero-filled past the end and those keys masked. D is any
+// multiple of 8 (the wrapper zero-pads other widths).
 //
 // Bound on an H100 SXM. The bench's causal bf16 B4 H8 S2048 D128 does
 // 4*B*H*S^2*D/2 = 34.4 GFLOP on 67 MB of q, k, v and out: 35 us at the bf16
 // tensor-core rate, so operations bound it; these kernels use FMA on the
-// CUDA cores (67 TFLOP/s, 513 us at best), and wgmma is later work. BST's
-// heads (B2048 H8 S128 D8 f32, about 11 valid tokens of 128) need 0.085
-// GFLOP of valid work on 87 MB (the valid rows of q, k, v and all of out):
-// bytes bound them (26 us); the kernel reads the padded rows too.
+// CUDA cores (67 TFLOP/s, 513 us at best). bf16 at D 64/128 takes the
+// tensor-core kernel of flash_fwd_tc.cu instead; these serve f32 and the
+// other widths. BST's heads (B2048 H8 S128 D8 f32, about 11 valid tokens of
+// 128) need 0.085 GFLOP of valid work on 87 MB (the valid rows of q, k, v
+// and all of out): bytes bound them (26 us); the kernel reads the padded
+// rows too.
 //
 // Design. A block of 128 threads owns 64 query rows of one (b, h): thread
 // (ty = tid / 8, tx = tid % 8) owns rows 4ty..4ty+3 and, within each 64-key
@@ -40,9 +43,15 @@
 // tiles carrying m, l and the accumulator in registers (on the TPU the grid
 // ran in order; here nothing carries between blocks). The single-pass kernel
 // keeps all keys of the row in the score tile, which bounds it to what fits
-// (the wrapper routes larger KV to the tiled kernel). Causal blocks are
-// launched heaviest first. D may be any multiple of 8 up to 128; the
-// accumulator is sized for the next power of two of D/8.
+// (the wrapper routes larger KV, and D above 128, to the tiled kernel).
+// Causal blocks are launched heaviest first. The accumulator is sized for
+// the next power of two of D/8, up to 16 (D 128). The tiled kernel takes
+// any D: a block holds at most kDC = 128 columns of a tile at a time, so
+// above that the grid splits the output's D into 128-column chunks; each
+// block forms s over the full D, streaming Q and K through its tiles chunk
+// by chunk in one fixed order (the same s, bit for bit, in every chunk),
+// multiplies p by its own chunk of V, and writes its chunk of out; chunk 0
+// writes l and m.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -58,6 +67,7 @@ constexpr int kRows = 4;                     // rows per thread
 constexpr int kBQ = (kThreads / kTX) * kRows;  // 64 query rows per block
 constexpr int kBK = 64;                      // keys per tile
 constexpr int kCols = kBK / kTX;             // keys per thread per tile
+constexpr int kDC = 128;                     // head-dim columns a tile holds
 constexpr size_t kMaxSmem = 232448;          // 227 KB per block on an H100
 constexpr size_t kDefaultSmem = 48 * 1024;
 
@@ -79,8 +89,11 @@ __host__ __device__ inline size_t align16(size_t x) {
   return (x + 15) & ~static_cast<size_t>(15);
 }
 
-// Byte offsets of one block's shared memory (mirrored by _smem_bytes in
-// flash_attention.py, which routes on the total).
+// Columns of a tile: all of D, or one kDC chunk of it.
+__host__ __device__ inline int tile_cols(int d) { return d < kDC ? d : kDC; }
+
+// Byte offsets of one block's shared memory for tiles of d columns
+// (mirrored by _smem_bytes in flash_attention.py, which routes on the total).
 struct Smem {
   size_t q, k, v, p, qseg, kseg, total;
   int ld, ldp;
@@ -125,21 +138,21 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
-// rows x d elements from global (row stride d) into shared memory (row
+// rows x w elements from global (row stride d) into shared memory (row
 // stride ld) in 16-byte words; rows >= rows_valid are zero-filled.
 template <typename T>
-__device__ __forceinline__ void load_rows(T* dst, int ld, const T* src, int rows,
-                                          int rows_valid, int d) {
+__device__ __forceinline__ void load_rows(T* dst, int ld, const T* src, int d, int rows,
+                                          int rows_valid, int w) {
   constexpr int E = 16 / sizeof(T);
-  const int per_row = d / E;
+  const int per_row = w / E;
   for (int i = threadIdx.x; i < rows * per_row; i += kThreads) {
     const int r = i / per_row;
     const int c = (i - r * per_row) * E;
-    uint4 w = make_uint4(0u, 0u, 0u, 0u);
+    uint4 x = make_uint4(0u, 0u, 0u, 0u);
     if (r < rows_valid) {
-      w = __ldg(reinterpret_cast<const uint4*>(src + static_cast<size_t>(r) * d + c));
+      x = __ldg(reinterpret_cast<const uint4*>(src + static_cast<size_t>(r) * d + c));
     }
-    *reinterpret_cast<uint4*>(dst + static_cast<size_t>(r) * ld + c) = w;
+    *reinterpret_cast<uint4*>(dst + static_cast<size_t>(r) * ld + c) = x;
   }
 }
 
@@ -196,15 +209,19 @@ __device__ __forceinline__ float masked(const Args& a, float s, int row, int col
   return ok ? s : s + a.mask_value;
 }
 
-// s[i][j] = Q[row 4ty+i] . K[key k0 + tx + 8j] over d, Q and K in shared memory.
-template <typename T>
-__device__ __forceinline__ void qk_tile(float (&s)[kRows][kCols], const T* Qs, const T* Ks,
-                                        int ld, int d, int ty, int tx, int k0) {
+__device__ __forceinline__ void zero(float (&s)[kRows][kCols]) {
 #pragma unroll
   for (int i = 0; i < kRows; ++i)
 #pragma unroll
     for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
-  for (int dd = 0; dd < d; dd += 4) {
+}
+
+// s[i][j] += Q[row 4ty+i] . K[key k0 + tx + 8j] over the tiles' w columns,
+// Q and K in shared memory.
+template <typename T>
+__device__ __forceinline__ void qk_tile(float (&s)[kRows][kCols], const T* Qs, const T* Ks,
+                                        int ld, int w, int ty, int tx, int k0) {
+  for (int dd = 0; dd < w; dd += 4) {
     float4 qv[kRows], kv[kCols];
 #pragma unroll
     for (int i = 0; i < kRows; ++i) qv[i] = load4(Qs + (ty * kRows + i) * ld + dd);
@@ -222,7 +239,8 @@ __device__ __forceinline__ void qk_tile(float (&s)[kRows][kCols], const T* Qs, c
   }
 }
 
-// acc[i][j] += sum over keys [0, n) of P[row 4ty+i][key] * V[key][tx + 8j].
+// acc[i][j] += sum over keys [0, n) of P[row 4ty+i][key] * V[key][tx + 8j],
+// V a tile of d columns.
 template <typename T, int DJ>
 __device__ __forceinline__ void pv_tile(float (&acc)[kRows][DJ], const float* Ps, int ldp,
                                         const T* Vs, int d, int ty, int tx, int n) {
@@ -254,25 +272,28 @@ struct Block {
   int tx, ty, bh, bi, hi, q0;
 };
 
-__device__ __forceinline__ Block block_coords(const Args& a, int n_qt) {
+// Block `tile` of the (b, h, q tile) grid.
+__device__ __forceinline__ Block block_coords(const Args& a, int n_qt, int tile) {
   Block b;
   b.tx = threadIdx.x % kTX;
   b.ty = threadIdx.x / kTX;
   // heaviest q tiles first: under causal masking the last tiles do the most
-  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x % n_qt);
-  b.bh = static_cast<int>(blockIdx.x / n_qt);
+  const int qt = n_qt - 1 - tile % n_qt;
+  b.bh = tile / n_qt;
   b.bi = b.bh / a.h;
   b.hi = b.bh % a.h;
   b.q0 = qt * kBQ;
   return b;
 }
 
-// out (and l, m when asked) of this thread's rows.
+// Columns [oc0, oc0 + w) of out (and, from chunk 0, l and m when asked) of
+// this thread's rows.
 template <typename T, int DJ, bool kSingle>
 __device__ __forceinline__ void store_rows(const Args& a, const Block& b,
                                            const float (&acc)[kRows][DJ],
-                                           const float (&m)[kRows], const float (&l)[kRows]) {
-  const int dj = a.d / kTX;
+                                           const float (&m)[kRows], const float (&l)[kRows],
+                                           int oc0, int w) {
+  const int dj = w / kTX;
   T* out = static_cast<T*>(a.out);
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
@@ -281,7 +302,7 @@ __device__ __forceinline__ void store_rows(const Args& a, const Block& b,
     const bool never_hit = m[i] <= 0.5f * a.mask_value;
     const float l_safe = l[i] == 0.f ? 1.f : l[i];
     const float l_inv = 1.f / l_safe;
-    const size_t o = (static_cast<size_t>(b.bh) * a.sq + row) * a.d + b.tx;
+    const size_t o = (static_cast<size_t>(b.bh) * a.sq + row) * a.d + oc0 + b.tx;
 #pragma unroll
     for (int jd = 0; jd < DJ; ++jd) {
       if (jd < dj) {
@@ -291,7 +312,7 @@ __device__ __forceinline__ void store_rows(const Args& a, const Block& b,
         out[o + kTX * jd] = from_f<T>(never_hit ? 0.f : val);
       }
     }
-    if (a.l != nullptr && b.tx == 0) {
+    if (a.l != nullptr && b.tx == 0 && oc0 == 0) {
       const size_t r = static_cast<size_t>(b.bh) * a.sq + row;
       a.l[r] = never_hit ? 0.f : l[i];
       a.m[r] = m[i];
@@ -299,24 +320,30 @@ __device__ __forceinline__ void store_rows(const Args& a, const Block& b,
   }
 }
 
-template <typename T, int DJ>
+// kChunked (D > kDC) streams Q and K through their tiles in chunks; without
+// it the chunk loop below is one pass, unrolled, over a resident Q.
+template <typename T, int DJ, bool kChunked>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_tiled_kernel(Args a, int n_qt) {
+flash_fwd_tiled_kernel(Args a, int n_qt, int n_dc) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Smem L = smem_layout(a.d, kBK, sizeof(T));
+  const Smem L = smem_layout(kChunked ? kDC : a.d, kBK, sizeof(T));
   T* Qs = reinterpret_cast<T*>(smem + L.q);
   T* Ks = reinterpret_cast<T*>(smem + L.k);
   T* Vs = reinterpret_cast<T*>(smem + L.v);
   float* Ps = reinterpret_cast<float*>(smem + L.p);
   int* qseg = reinterpret_cast<int*>(smem + L.qseg);
   int* kseg = reinterpret_cast<int*>(smem + L.kseg);
-  const Block b = block_coords(a, n_qt);
+  // this block's chunk of out's columns, [oc0, oc0 + ow)
+  const int oc0 = kChunked ? static_cast<int>(blockIdx.x % n_dc) * kDC : 0;
+  const int ow = kChunked ? tile_cols(a.d - oc0) : a.d;
+  const Block b = block_coords(
+      a, n_qt, static_cast<int>(kChunked ? blockIdx.x / n_dc : blockIdx.x));
   const T* q = static_cast<const T*>(a.q) + (static_cast<size_t>(b.bh) * a.sq + b.q0) * a.d;
   const T* k = static_cast<const T*>(a.k) + static_cast<size_t>(b.bh) * a.skv * a.d;
   const T* v = static_cast<const T*>(a.v) + static_cast<size_t>(b.bh) * a.skv * a.d;
   const int32_t* ks_g = a.kv_seg ? a.kv_seg + static_cast<size_t>(b.bi) * a.skv : nullptr;
 
-  load_rows(Qs, L.ld, q, kBQ, a.sq - b.q0, a.d);
+  if (!kChunked) load_rows(Qs, L.ld, q, a.d, kBQ, a.sq - b.q0, a.d);
   load_seg(qseg, a.q_seg ? a.q_seg + static_cast<size_t>(b.bi) * a.sq : nullptr, b.q0, kBQ,
            a.sq);
 
@@ -333,14 +360,21 @@ flash_fwd_tiled_kernel(Args a, int n_qt) {
   const int kv_end = a.causal ? min(a.skv, b.q0 + kBQ) : a.skv;
 
   for (int c0 = 0; c0 < kv_end; c0 += kBK) {
-    __syncthreads();  // the last tile's pv is done with Ks, Vs and Ps
-    load_rows(Ks, L.ld, k + static_cast<size_t>(c0) * a.d, kBK, a.skv - c0, a.d);
-    load_rows(Vs, a.d, v + static_cast<size_t>(c0) * a.d, kBK, a.skv - c0, a.d);
-    load_seg(kseg, ks_g, c0, kBK, a.skv);
-    __syncthreads();
-
     float s[kRows][kCols];
-    qk_tile(s, Qs, Ks, L.ld, a.d, b.ty, b.tx, 0);
+    // s over the full D, one chunk of columns at a time, in a fixed order
+    for (int d0 = 0; d0 < (kChunked ? a.d : 1); d0 += kDC) {
+      const int w = kChunked ? tile_cols(a.d - d0) : a.d;
+      __syncthreads();  // the last products are done with Qs, Ks, Vs and Ps
+      if (kChunked) load_rows(Qs, L.ld, q + d0, a.d, kBQ, a.sq - b.q0, w);
+      load_rows(Ks, L.ld, k + static_cast<size_t>(c0) * a.d + d0, a.d, kBK, a.skv - c0, w);
+      if (d0 == 0) {
+        load_rows(Vs, ow, v + static_cast<size_t>(c0) * a.d + oc0, a.d, kBK, a.skv - c0, ow);
+        load_seg(kseg, ks_g, c0, kBK, a.skv);
+      }
+      __syncthreads();
+      if (d0 == 0) zero(s);
+      qk_tile(s, Qs, Ks, L.ld, w, b.ty, b.tx, 0);
+    }
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
       const int rl = b.ty * kRows + i;
@@ -367,14 +401,16 @@ flash_fwd_tiled_kernel(Args a, int n_qt) {
       for (int jd = 0; jd < DJ; ++jd) acc[i][jd] *= alpha;
     }
     __syncthreads();
-    pv_tile<T, DJ>(acc, Ps, L.ldp, Vs, a.d, b.ty, b.tx, kBK);
+    pv_tile<T, DJ>(acc, Ps, L.ldp, Vs, ow, b.ty, b.tx, kBK);
   }
-  store_rows<T, DJ, false>(a, b, acc, m, l);
+  store_rows<T, DJ, false>(a, b, acc, m, l, oc0, ow);
 }
 
 template <typename T, int DJ>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_single_kernel(Args a, int n_qt, int n_keys) {
+  // the wrapper sends D > kDC to the tiled kernel: one chunk, out's columns
+  // all this block's
   extern __shared__ __align__(16) unsigned char smem[];
   const Smem L = smem_layout(a.d, n_keys, sizeof(T));
   T* Qs = reinterpret_cast<T*>(smem + L.q);
@@ -383,14 +419,14 @@ flash_fwd_single_kernel(Args a, int n_qt, int n_keys) {
   float* Ps = reinterpret_cast<float*>(smem + L.p);
   int* qseg = reinterpret_cast<int*>(smem + L.qseg);
   int* kseg = reinterpret_cast<int*>(smem + L.kseg);
-  const Block b = block_coords(a, n_qt);
+  const Block b = block_coords(a, n_qt, static_cast<int>(blockIdx.x));
   const T* q = static_cast<const T*>(a.q) + (static_cast<size_t>(b.bh) * a.sq + b.q0) * a.d;
   const T* k = static_cast<const T*>(a.k) + static_cast<size_t>(b.bh) * a.skv * a.d;
   const T* v = static_cast<const T*>(a.v) + static_cast<size_t>(b.bh) * a.skv * a.d;
 
-  load_rows(Qs, L.ld, q, kBQ, a.sq - b.q0, a.d);
-  load_rows(Ks, L.ld, k, n_keys, a.skv, a.d);
-  load_rows(Vs, a.d, v, n_keys, a.skv, a.d);
+  load_rows(Qs, L.ld, q, a.d, kBQ, a.sq - b.q0, a.d);
+  load_rows(Ks, L.ld, k, a.d, n_keys, a.skv, a.d);
+  load_rows(Vs, a.d, v, a.d, n_keys, a.skv, a.d);
   load_seg(qseg, a.q_seg ? a.q_seg + static_cast<size_t>(b.bi) * a.sq : nullptr, b.q0, kBQ,
            a.sq);
   load_seg(kseg, a.kv_seg ? a.kv_seg + static_cast<size_t>(b.bi) * a.skv : nullptr, 0, n_keys,
@@ -403,6 +439,7 @@ flash_fwd_single_kernel(Args a, int n_qt, int n_keys) {
   for (int i = 0; i < kRows; ++i) m[i] = -FLT_MAX;
   for (int c0 = 0; c0 < n_keys; c0 += kBK) {
     float s[kRows][kCols];
+    zero(s);
     qk_tile(s, Qs, Ks, L.ld, a.d, b.ty, b.tx, c0);
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
@@ -444,16 +481,17 @@ flash_fwd_single_kernel(Args a, int n_qt, int n_keys) {
 #pragma unroll
     for (int jd = 0; jd < DJ; ++jd) acc[i][jd] = 0.f;
   pv_tile<T, DJ>(acc, Ps, L.ldp, Vs, a.d, b.ty, b.tx, n_keys);
-  store_rows<T, DJ, true>(a, b, acc, m, l);
+  store_rows<T, DJ, true>(a, b, acc, m, l, 0, a.d);
 }
 
-template <typename T, int DJ>
+template <typename T, int DJ, bool kChunked = false>
 int launch(const Args& a, int batch, bool single, cudaStream_t stream) {
   const int n_qt = (a.sq + kBQ - 1) / kBQ;
-  const long long blocks = static_cast<long long>(batch) * a.h * n_qt;
+  const int n_dc = (a.d + kDC - 1) / kDC;      // 1 for the single-pass kernel
+  const long long blocks = static_cast<long long>(batch) * a.h * n_qt * n_dc;
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
   const int n_keys = single ? (a.skv + kBK - 1) / kBK * kBK : kBK;
-  const Smem L = smem_layout(a.d, n_keys, sizeof(T));
+  const Smem L = smem_layout(tile_cols(a.d), n_keys, sizeof(T));
   if (L.total > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(blocks));
   if (single) {
@@ -465,20 +503,21 @@ int launch(const Args& a, int batch, bool single, cudaStream_t stream) {
     }
     kern<<<grid, kThreads, L.total, stream>>>(a, n_qt, n_keys);
   } else {
-    auto kern = flash_fwd_tiled_kernel<T, DJ>;
+    auto kern = flash_fwd_tiled_kernel<T, DJ, kChunked>;
     if (L.total > kDefaultSmem) {
       const cudaError_t e = cudaFuncSetAttribute(
           kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(L.total));
       if (e != cudaSuccess) return static_cast<int>(e);
     }
-    kern<<<grid, kThreads, L.total, stream>>>(a, n_qt);
+    kern<<<grid, kThreads, L.total, stream>>>(a, n_qt, n_dc);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch(const Args& a, int batch, bool single, cudaStream_t stream) {
-  const int dj = a.d / kTX;
+  const int dj = tile_cols(a.d) / kTX;          // accumulator columns per chunk
+  if (a.d > kDC) return launch<T, 16, true>(a, batch, single, stream);
   if (dj <= 1) return launch<T, 1>(a, batch, single, stream);
   if (dj <= 2) return launch<T, 2>(a, batch, single, stream);
   if (dj <= 4) return launch<T, 4>(a, batch, single, stream);
@@ -490,8 +529,9 @@ int run(const void* q, const void* k, const void* v, const void* q_seg, const vo
         void* out, void* l, void* m, int b, int h, int sq, int skv, int d, int dtype,
         int causal, float sm_scale, float mask_value, unsigned seed, unsigned drop_thresh,
         float drop_scale, void* stream, bool single) {
-  if (b <= 0 || h <= 0 || sq <= 0 || skv <= 0 || d < 8 || d > 128 || d % 8 != 0 ||
-      (l == nullptr) != (m == nullptr) || (q_seg == nullptr) != (kv_seg == nullptr)) {
+  if (b <= 0 || h <= 0 || sq <= 0 || skv <= 0 || d < 8 || d % 8 != 0 ||
+      (single && d > kDC) || (l == nullptr) != (m == nullptr) ||
+      (q_seg == nullptr) != (kv_seg == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Args a;
@@ -523,7 +563,8 @@ int run(const void* q, const void* k, const void* v, const void* q_seg, const vo
 
 extern "C" {
 
-// q [b,h,sq,d], k/v [b,h,skv,d] of dtype (0 = float32, 1 = bfloat16); q_seg
+// q [b,h,sq,d], k/v [b,h,skv,d] of dtype (0 = float32, 1 = bfloat16), d a
+// multiple of 8; q_seg
 // [b,sq] / kv_seg [b,skv] int32 or both null; out like q; l, m f32 [b,h,sq]
 // or both null. drop_thresh 0 turns dropout off. Returns the cudaError_t of
 // the launch (0 = success).
@@ -535,7 +576,8 @@ int tfp_flash_fwd(const void* q, const void* k, const void* v, const void* q_seg
              sm_scale, mask_value, seed, drop_thresh, drop_scale, stream, false);
 }
 
-// The same without causal masking; the whole KV must fit one block.
+// The same without causal masking; the whole KV must fit one block, and d
+// is at most 128.
 int tfp_flash_fwd_single(const void* q, const void* k, const void* v, const void* q_seg,
                          const void* kv_seg, void* out, void* l, void* m, int b, int h,
                          int sq, int skv, int d, int dtype, float sm_scale,

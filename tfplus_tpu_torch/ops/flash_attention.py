@@ -22,16 +22,29 @@ Four hand-written Hopper kernels replace the four Pallas kernels:
 * :func:`flash_bwd_dq` replaces ``_bwd_pallas``'s ``_bwd_dq_kernel``: dq
   of a q tile, looping over the kv tiles (``csrc/flash_bwd.cu``).
 
-Two of them have two routes, chosen before the launch from the dtype and
-the head dim alone (:func:`flash_route`): bf16 with D of 64 or 128 goes to
-the tensor-core kernels (``wgmma``: ``csrc/flash_fwd_tc.cu`` for
-:func:`flash_fwd`, ``csrc/flash_bwd_tc.cu`` for :func:`flash_bwd_dkv`);
-f32 (any D) and bf16 at the other widths stay on the CUDA-core kernels
-above. f32 never takes the tensor cores, whose only f32 input is TF32
-(about three digits). The products of the tensor-core route are bf16 with
-f32 accumulation, as the JAX kernels feed the TPU's matrix unit.
-:func:`flash_fwd_single` and :func:`flash_bwd_dq` have one route each, on
-the CUDA cores.
+Three of them have two routes, chosen before the launch from the dtype and
+the padded head dim alone (:func:`flash_route`): bf16 with D of 64 or 128
+goes to the tensor-core kernels (``wgmma``: ``csrc/flash_fwd_tc.cu`` for
+:func:`flash_fwd`, ``csrc/flash_bwd_tc.cu`` for :func:`flash_bwd_dkv` and
+:func:`flash_bwd_dq`); f32 (any D) and bf16 at the other widths stay on
+the CUDA-core kernels above. f32 never takes the tensor cores, whose only
+f32 input is TF32 (about three digits). The products of the tensor-core
+route are bf16 with f32 accumulation, as the JAX kernels feed the TPU's
+matrix unit. :func:`flash_fwd_single` has one route, on the CUDA cores.
+
+Head dims. The JAX kernels take any D, and so do these wrappers: on the
+card each pads q, k, v (and do) with zero columns up to the next multiple
+of 8 (:func:`pad_head_dim`), the kernels' 16-byte granule, and slices its
+outputs back. That is exact: zero columns add exact zeros to q·kᵀ and
+do·vᵀ and give zero output columns, so l, m and di do not change.
+``sm_scale``'s default comes from the caller's D, before any padding. The
+CUDA-core kernels hold at most 128 columns of a tile at a time: above
+that, each block writes one 128-column chunk of its output and streams the
+full D through its tiles chunk by chunk to form s (and dp), in one fixed
+order, so every chunk sees the same s and l, m come from chunk 0. The
+single-pass forward keeps a whole D of at most 128 in registers, so
+:func:`single_fits` sends wider heads to the tiled kernel. The plain
+versions take any D unpadded.
 
 Each wrapper launches its kernel on a CUDA tensor and runs the plain PyTorch
 version beside it (:func:`fwd_tiled_plain`, :func:`fwd_single_plain`,
@@ -39,9 +52,8 @@ version beside it (:func:`fwd_tiled_plain`, :func:`fwd_single_plain`,
 versions are also the oracles the kernels are held against on the card.
 There is no switch and no fallback: a CUDA tensor goes through a kernel or
 the wrapper raises. Each wrapper counts its launches in a plain integer
-attribute (``flash_fwd.launches``, ...); :func:`flash_fwd` and
-:func:`flash_bwd_dkv` also count them per route (``tc_launches`` and
-``cuda_core_launches``).
+attribute (``flash_fwd.launches``, ...); the routed wrappers also count
+them per route (``tc_launches`` and ``cuda_core_launches``).
 
 Routing (:func:`_fwd_dispatch`) keeps the JAX decision "not causal, and the
 whole KV fits one block". On the TPU a block lives in VMEM (megabytes), so
@@ -55,7 +67,7 @@ kernel. Both routes compute the same function.
 Ragged lengths are masked inside the kernels (keys past Skv score
 ``mask_value``, rows past Sq are not stored), which gives on every real
 position what the JAX package's padding with segment −1 gives; no copy of
-q, k or v is padded.
+q, k or v is padded along the sequence.
 
 Gradients: :func:`flash_attention` is a ``torch.autograd.Function``
 (``_Flash``, the counterpart of the JAX ``custom_vjp`` ``_flash``) whose
@@ -78,9 +90,12 @@ from . import _build
 
 DEFAULT_MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 
-# The kernels' tiles (csrc/flash_fwd.cu kBQ, kBK) and shared-memory budget.
+# The kernels' tiles (csrc/flash_fwd.cu kBQ, kBK), the CUDA-core kernels'
+# head-dim chunk (kDC), the head-dim granule and the shared-memory budget.
 BLOCK_Q = 64
 BLOCK_K = 64
+BLOCK_D = 128
+HEAD_DIM_ALIGN = 8
 SMEM_PER_BLOCK = 232448          # bytes an H100 block may use (227 KB)
 _SINGLE_SMEM_MAX = SMEM_PER_BLOCK // 2
 
@@ -372,6 +387,26 @@ def _align16(x: int) -> int:
     return -(-x // 16) * 16
 
 
+def padded_head_dim(d: int) -> int:
+    """The head dim the kernels take for ``d``: the next multiple of 8."""
+    return -(-d // HEAD_DIM_ALIGN) * HEAD_DIM_ALIGN
+
+
+def pad_head_dim(*tensors):
+    """Each tensor with its last axis (D) zero-padded to
+    :func:`padded_head_dim`; a tensor whose D is a multiple of 8 comes back
+    as it is. Exact for attention (see the module note)."""
+    return [t if t.shape[-1] % HEAD_DIM_ALIGN == 0 else
+            torch.nn.functional.pad(t, (0, padded_head_dim(t.shape[-1])
+                                        - t.shape[-1]))
+            for t in tensors]
+
+
+def _unpad(t, d: int):
+    """The first ``d`` columns of a kernel's padded output, contiguous."""
+    return t if t.shape[-1] == d else t[..., :d].contiguous()
+
+
 def _smem_bytes(d: int, n_keys: int, esz: int) -> int:
     """Shared memory of one block, as ``smem_layout`` in flash_fwd.cu lays
     it out: Q tile, K and V of ``n_keys`` rows, the f32 score tile and the
@@ -391,8 +426,11 @@ def single_smem_bytes(skv: int, d: int, dtype: torch.dtype) -> int:
 
 
 def single_fits(skv: int, d: int, dtype: torch.dtype) -> bool:
-    """Whether the single-pass kernel takes this KV (see the module note)."""
-    return single_smem_bytes(skv, d, dtype) <= _SINGLE_SMEM_MAX
+    """Whether the single-pass kernel takes this KV (see the module note):
+    a padded D of at most 128, and half a block's shared memory."""
+    d = padded_head_dim(d)
+    return d <= BLOCK_D and single_smem_bytes(skv, d, dtype) \
+        <= _SINGLE_SMEM_MAX
 
 
 _TAIL = [ctypes.c_float, ctypes.c_float, ctypes.c_uint, ctypes.c_uint,
@@ -400,12 +438,13 @@ _TAIL = [ctypes.c_float, ctypes.c_float, ctypes.c_uint, ctypes.c_uint,
 
 
 def flash_route(dtype: torch.dtype, d: int) -> str:
-    """Which kernel :func:`flash_fwd` and :func:`flash_bwd_dkv` launch for
-    this dtype and head dim: ``"tc"`` (the tensor-core kernels) for bf16 at
-    D 64 or 128, else ``"cuda_core"``. Nothing else decides it, and no route
-    is retried on the other."""
-    return "tc" if dtype == torch.bfloat16 and d in TC_HEAD_DIMS \
-        else "cuda_core"
+    """Which kernel :func:`flash_fwd`, :func:`flash_bwd_dkv` and
+    :func:`flash_bwd_dq` launch for this dtype and head dim: ``"tc"`` (the
+    tensor-core kernels) for bf16 at a padded D of 64 or 128, else
+    ``"cuda_core"``. Nothing else decides it, and no route is retried on
+    the other."""
+    return "tc" if dtype == torch.bfloat16 \
+        and padded_head_dim(d) in TC_HEAD_DIMS else "cuda_core"
 
 
 def tc_fwd_smem_bytes(d: int) -> int:
@@ -424,6 +463,15 @@ def tc_dkv_smem_bytes(d: int) -> int:
     and the alignment slack."""
     tile = BLOCK_K * d * 2
     return 6 * tile + 2 * 4 * BLOCK_Q * 4 + _TC_ALIGN_SLACK
+
+
+def tc_dq_smem_bytes(d: int) -> int:
+    """Shared memory of one tensor-core dq block, as ``DqLayout`` in
+    flash_bwd_tc.cu lays it out: the resident Q and dO tiles, two stages of
+    K and V tiles, two stages of 64 key segment ids, and the alignment
+    slack."""
+    tile = BLOCK_Q * d * 2
+    return 6 * tile + 2 * BLOCK_K * 4 + _TC_ALIGN_SLACK
 
 
 def _count(fn, route: str) -> None:
@@ -457,6 +505,8 @@ def _flash_bwd_tc_lib() -> ctypes.CDLL:
     if not getattr(lib, "_tfp_typed", False):
         lib.tfp_flash_bwd_dkv_tc.argtypes = [_ptr] * 11 + [_int] * 7 + _TAIL
         lib.tfp_flash_bwd_dkv_tc.restype = _int
+        lib.tfp_flash_bwd_dq_tc.argtypes = [_ptr] * 10 + [_int] * 7 + _TAIL
+        lib.tfp_flash_bwd_dq_tc.restype = _int
         lib._tfp_typed = True
     return lib
 
@@ -496,9 +546,6 @@ def _check(q, k, v, q_seg, kv_seg) -> None:
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {q.device}")
     if q.is_cuda:
-        if d % 8 or not 8 <= d <= 128:
-            raise ValueError(f"the CUDA flash kernels take a head dim that "
-                             f"is a multiple of 8 up to 128, got {d}")
         if not all(t.is_contiguous() for t in tensors):
             raise ValueError("the CUDA flash kernels take contiguous tensors")
         if any(t.data_ptr() % 16 for t in (q, k, v)):
@@ -537,7 +584,7 @@ def _launch(lib, fn_name, q, k, v, q_seg, kv_seg, seed, sm_scale, p_dropout,
             save_residuals, causal=None):
     b, h, sq, d = q.shape
     if q.numel() == 0 or k.shape[2] == 0:
-        raise ValueError("flash attention needs B, H, Sq, Skv > 0")
+        raise ValueError("flash attention needs B, H, Sq, Skv, D > 0")
     out = torch.empty_like(q)
     l = m = None
     if save_residuals:
@@ -566,13 +613,15 @@ def flash_fwd(q, k, v, q_seg, kv_seg, seed, *, causal: bool, sm_scale: float,
                                     causal=causal, sm_scale=sm_scale,
                                     p_dropout=p_dropout)
         return (out, l, m) if save_residuals else (out, None, None)
-    route = flash_route(q.dtype, q.shape[3])
+    d = q.shape[3]
+    route = flash_route(q.dtype, d)
     lib, fn_name = ((_flash_tc_lib(), "tfp_flash_fwd_tc") if route == "tc"
                     else (_flash_lib(), "tfp_flash_fwd"))
-    res = _launch(lib, fn_name, q, k, v, q_seg, kv_seg, seed, sm_scale,
-                  p_dropout, save_residuals, causal=causal)
+    out, l, m = _launch(lib, fn_name, *pad_head_dim(q, k, v), q_seg, kv_seg,
+                        seed, sm_scale, p_dropout, save_residuals,
+                        causal=causal)
     _count(flash_fwd, route)
-    return res
+    return _unpad(out, d), l, m
 
 
 flash_fwd.launches = flash_fwd.tc_launches = 0
@@ -582,7 +631,7 @@ flash_fwd.cuda_core_launches = 0
 def flash_fwd_single(q, k, v, q_seg, kv_seg, seed, *, sm_scale: float,
                      p_dropout: float = 0.0, save_residuals: bool = True):
     """Single-pass non-causal forward: ``(out, l, m)`` (or
-    ``(out, None, None)``). On the card the KV must fit the block
+    ``(out, None, None)``). On the card the KV and D must fit the block
     (:func:`single_fits`)."""
     _check(q, k, v, q_seg, kv_seg)
     if not q.is_cuda:
@@ -591,11 +640,12 @@ def flash_fwd_single(q, k, v, q_seg, kv_seg, seed, *, sm_scale: float,
         return (out, l, m) if save_residuals else (out, None, None)
     if not single_fits(k.shape[2], q.shape[3], q.dtype):
         raise ValueError(f"Skv {k.shape[2]} at D {q.shape[3]} does not fit "
-                         "the single-pass kernel's shared memory")
-    res = _launch(_flash_lib(), "tfp_flash_fwd_single", q, k, v, q_seg,
-                  kv_seg, seed, sm_scale, p_dropout, save_residuals)
+                         "the single-pass kernel's block")
+    out, l, m = _launch(_flash_lib(), "tfp_flash_fwd_single",
+                        *pad_head_dim(q, k, v), q_seg, kv_seg, seed, sm_scale,
+                        p_dropout, save_residuals)
     flash_fwd_single.launches += 1
-    return res
+    return _unpad(out, q.shape[3]), l, m
 
 
 flash_fwd_single.launches = 0
@@ -618,7 +668,7 @@ def _launch_bwd(lib, fn_name, outs, q, k, v, q_seg, kv_seg, seed, do, l, m,
                 di, causal, sm_scale, p_dropout):
     b, h, sq, d = q.shape
     if q.numel() == 0 or k.shape[2] == 0:
-        raise ValueError("flash attention needs B, H, Sq, Skv > 0")
+        raise ValueError("flash attention needs B, H, Sq, Skv, D > 0")
     args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             l.data_ptr(), m.data_ptr(), di.data_ptr(), _ptr_of(q_seg),
             _ptr_of(kv_seg), *(t.data_ptr() for t in outs), b, h, sq,
@@ -639,15 +689,17 @@ def flash_bwd_dkv(q, k, v, q_seg, kv_seg, seed, do, l, m, di, *,
     kw = dict(causal=causal, sm_scale=sm_scale, p_dropout=p_dropout)
     if not q.is_cuda:
         return bwd_dkv_plain(q, k, v, q_seg, kv_seg, seed, do, l, m, di, **kw)
-    route = flash_route(q.dtype, q.shape[3])
+    d = q.shape[3]
+    route = flash_route(q.dtype, d)
     lib, fn_name = ((_flash_bwd_tc_lib(), "tfp_flash_bwd_dkv_tc")
                     if route == "tc"
                     else (_flash_bwd_lib(), "tfp_flash_bwd_dkv"))
+    q, k, v, do = pad_head_dim(q, k, v, do)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch_bwd(lib, fn_name, (dk, dv), q, k, v, q_seg, kv_seg, seed, do, l,
                 m, di, **kw)
     _count(flash_bwd_dkv, route)
-    return dk, dv
+    return _unpad(dk, d), _unpad(dv, d)
 
 
 flash_bwd_dkv.launches = flash_bwd_dkv.tc_launches = 0
@@ -656,20 +708,29 @@ flash_bwd_dkv.cuda_core_launches = 0
 
 def flash_bwd_dq(q, k, v, q_seg, kv_seg, seed, do, l, m, di, *,
                  causal: bool, sm_scale: float, p_dropout: float = 0.0):
-    """dq from the same inputs as :func:`flash_bwd_dkv`, in q's dtype."""
+    """dq from the same inputs as :func:`flash_bwd_dkv`, in q's dtype. On
+    the card the route (:func:`flash_route`) picks the tensor-core or the
+    CUDA-core kernel."""
     _check(q, k, v, q_seg, kv_seg)
     _check_bwd(q, do, l, m, di)
     kw = dict(causal=causal, sm_scale=sm_scale, p_dropout=p_dropout)
     if not q.is_cuda:
         return bwd_dq_plain(q, k, v, q_seg, kv_seg, seed, do, l, m, di, **kw)
+    d = q.shape[3]
+    route = flash_route(q.dtype, d)
+    lib, fn_name = ((_flash_bwd_tc_lib(), "tfp_flash_bwd_dq_tc")
+                    if route == "tc"
+                    else (_flash_bwd_lib(), "tfp_flash_bwd_dq"))
+    q, k, v, do = pad_head_dim(q, k, v, do)
     dq = torch.empty_like(q)
-    _launch_bwd(_flash_bwd_lib(), "tfp_flash_bwd_dq", (dq,), q, k, v, q_seg,
-                kv_seg, seed, do, l, m, di, **kw)
-    flash_bwd_dq.launches += 1
-    return dq
+    _launch_bwd(lib, fn_name, (dq,), q, k, v, q_seg, kv_seg, seed, do, l, m,
+                di, **kw)
+    _count(flash_bwd_dq, route)
+    return _unpad(dq, d)
 
 
-flash_bwd_dq.launches = 0
+flash_bwd_dq.launches = flash_bwd_dq.tc_launches = 0
+flash_bwd_dq.cuda_core_launches = 0
 
 
 class _Flash(torch.autograd.Function):
