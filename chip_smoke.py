@@ -12,7 +12,8 @@ failed check:
 
 1. The card's name and power limit; the CUDA kernels are built from
    ``tfplus_tpu_torch/ops/csrc`` and the build time printed, with ptxas's
-   registers, shared memory and spills of the tensor-core flash kernels.
+   registers, shared memory and spills of the tensor-core flash kernels and
+   the single-pass backward.
 2. Kernels: every row kernel is held bit-exact against its plain PyTorch
    version at the shapes the serving paths give it (f32 and bf16, widths
    64/128/384; 32,768 indices with negative, duplicated and edge values;
@@ -47,21 +48,28 @@ failed check:
    first and then DIN on the same tables, checked against the host-side map
    of what was inserted and a float64 numpy forward pass (BST with a TF32
    control it must reject).
-8. Attention-backward kernels: ``flash_bwd_dkv`` and ``flash_bwd_dq`` held
-   against their plain versions and against float64 autograd through
+8. Attention-backward kernels, through ``_bwd_dispatch`` as
+   ``flash_attention``'s backward calls them: ``flash_bwd_single`` (not
+   causal, the KV fits one block, a dtype and D on the CUDA cores) or
+   ``flash_bwd_dkv`` and ``flash_bwd_dq``, held against the plain dk/dv and
+   dq versions and against float64 autograd through
    ``reference_attention``, rerun bit for bit, and timed beside the plain
    versions, the least time the card could take and the backward alone of
    ``scaled_dot_product_attention`` (timed only): the bench's causal bf16
-   B4 H8 S2048 D128; BST's f32 heads with BST's request mask; dropout 0.2
-   at S1000 D64, causal and not, f32 and bf16; non-causal bf16 S2048 D128
-   with segments from lengths in 512-2048. dk/dv and dq take the
-   tensor-core route on the bf16 cases and the CUDA-core one on the f32
-   cases; at the bench shape the CUDA-core dk/dv and dq kernels are also
-   timed on the same inputs. Then head dims the kernels take only padded
-   (12, 60) or in 128-column chunks (136, 256): B1 H2 S200, causal with
-   segments and non-causal, f32 and bf16, each forward (the route
-   ``flash_attention`` takes) and both backward kernels held against their
-   plain versions at the caller's D, with the route recorded.
+   B4 H8 S2048 D128; BST's f32 heads with BST's request mask, without and
+   with dropout 0.2 (single-pass); dropout 0.2 at S1000 D64, causal and
+   not, f32 and bf16; non-causal bf16 S2048 D128 with segments from
+   lengths in 512-2048; bf16 D16 S200 with two segments and padding, and
+   f32 D32 at Sq 1000 against Skv 128 with q and kv segments that differ
+   (single-pass). dk/dv and dq take the tensor-core route on the bf16 D128
+   cases and the CUDA-core one on the f32 ones; at the bench shape the
+   CUDA-core dk/dv and dq kernels are also timed on the same inputs, and on
+   the single-pass cases too (the earlier route). Then head dims the
+   kernels take only padded (12, 60) or in 128-column chunks (136, 256):
+   B1 H2 S200, causal with segments and non-causal, f32 and bf16, each
+   forward (the route ``flash_attention`` takes) and the backward that
+   ``_bwd_dispatch`` takes (single-pass at D 12 non-causal) held against
+   the plain versions at the caller's D, with the routes recorded.
 9. ``flash_attention(causal=True)`` forward and backward x10 at the bench's
    shape, in TFLOP/s counted as the JAX bench's ``grad=True`` leg, every
    forward, dk/dv and dq launch on the tensor-core route.
@@ -75,8 +83,8 @@ failed check:
    batch-2048 steps with 5 % unseen ids (GroupAdam 1e-3, dense Adam 1e-3).
 12. BST training at published widths: the item and user tables of phase 7
    with Adam's slot columns (payload 3·D), batch-2048 steps (Adam 0.01,
-   dense Adam 0.01); every step launches the single-pass forward and both
-   backward kernels, dk/dv and dq on the CUDA-core route (f32 heads).
+   dense Adam 0.01); every step launches the single-pass forward and the
+   single-pass backward, and neither dk/dv nor dq.
 13. Compactor: ``ops.compact`` (an entry point no engine path calls) at its
    study shape, M = 1,572,864 x W = 256 f32, 2/3 live, R = 128, held bit
    for bit against its plain version and timed beside it, its byte bound
@@ -332,7 +340,9 @@ def _wrappers():
             "scatter_rows": rowops.scatter_rows,
             "flash_fwd": fa.flash_fwd, "flash_fwd_single": fa.flash_fwd_single,
             "flash_bwd_dkv": fa.flash_bwd_dkv,
-            "flash_bwd_dq": fa.flash_bwd_dq, "compact": compactor.compact}
+            "flash_bwd_dq": fa.flash_bwd_dq,
+            "flash_bwd_single": fa.flash_bwd_single,
+            "compact": compactor.compact}
 
 
 ROUTED = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")  # two routes each
@@ -1055,20 +1065,22 @@ def sequence_serving_phase(torch, np, kv, embedding, models, profile_dir):
 def backward_bound(fa, q, k, qs, ks, causal, kernel):
     """Least time of one backward kernel on these inputs, ``(ms, bound_by,
     flops)``: the larger of its operations on the valid (row, key) pairs
-    (2·D per product: four for dkv, three for dq) over the peak rate of q's
-    type, and the bytes it must move over the HBM rate: q and do rows that
-    hit a key, k and v rows that some row hits, and l, m, di of the hit
-    rows, each read once; its outputs (dk and dv, or dq) written once; the
-    segment ids read once."""
+    (2·D per product: four for dkv, three for dq, five for the single-pass
+    kernel) over the peak rate of q's type, and the bytes it must move over
+    the HBM rate: q and do rows that hit a key, k and v rows that some row
+    hits, and l, m, di of the hit rows, each read once; its outputs (dk and
+    dv, dq, or all three) written once; the segment ids read once."""
     b, h, sq, d = q.shape
     skv = k.shape[2]
     esz = q.element_size()
     mask = fa._attention_mask(sq, skv, qs, ks, causal, q.device).expand(
         b, sq, skv)
-    flops = (8 if kernel == "dkv" else 6) * d * h * int(mask.sum())
+    flops = {"dkv": 8, "dq": 6, "single": 10}[kernel] * d * h * int(
+        mask.sum())
     rows, keys = int(mask.any(-1).sum()), int(mask.any(-2).sum())
     nbytes = 2 * (rows + keys) * h * d * esz + 3 * 4 * rows * h
-    nbytes += (2 * b * h * skv if kernel == "dkv" else b * h * sq) * d * esz
+    nbytes += {"dkv": 2 * skv, "dq": sq, "single": sq + 2 * skv}[kernel] \
+        * b * h * d * esz
     if qs is not None:
         nbytes += 4 * (qs.numel() + ks.numel())
     t_bytes = bound_ms(nbytes)
@@ -1086,34 +1098,66 @@ def sdpa_backward_call(torch, fa, q, k, v, qs, ks, causal, sm_scale, do):
     return lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
 
 
+def backward_route(fa, call):
+    """Run ``call`` (a ``_bwd_dispatch``) and return the route it took with
+    its ``(dq, dk, dv)``: ``"single"`` (one ``flash_bwd_single`` launch) or
+    the one route, ``"tc"`` or ``"cuda_core"``, of one ``flash_bwd_dkv``
+    and one ``flash_bwd_dq`` launch."""
+    pair = (fa.flash_bwd_dkv, fa.flash_bwd_dq)
+
+    def counts():
+        return ([fa.flash_bwd_single.launches]
+                + [getattr(f, f"{r}_launches") for f in pair for r in ROUTES])
+
+    before = counts()
+    out = call()
+    delta = [a - b for a, b in zip(counts(), before)]
+    if delta == [1, 0, 0, 0, 0]:
+        return "single", out
+    taken = [r for i, r in enumerate(ROUTES) if delta[1 + i] == 1
+             and delta[1 + len(ROUTES) + i] == 1]
+    check(delta[0] == 0 and sum(delta) == 2 and len(taken) == 1,
+          f"backward: expected one single-pass launch or one dk/dv and one "
+          f"dq launch on one route, got {delta}")
+    return taken[0], out
+
+
+def expected_bwd_route(fa, q, k, causal):
+    """``_bwd_dispatch``'s rule, as the checks expect it."""
+    d = q.shape[3]
+    if (not causal and fa.single_fits(k.shape[2], d, q.dtype)
+            and fa.flash_route(q.dtype, d) == "cuda_core"):
+        return "single"
+    return fa.flash_route(q.dtype, d)
+
+
 def backward_case(torch, np, fa, name, gen, q, k, v, causal, seg=None,
                   p_dropout=0.0):
-    """Hold both backward kernels against their plain versions on the card
-    and against float64 autograd through ``reference_attention``, rerun them
-    bit for bit, and time kernel, plain version, bound and SDPA's
-    backward."""
+    """Hold the backward kernels that ``_bwd_dispatch`` takes (the
+    single-pass kernel, or dk/dv and dq) against their plain versions on the
+    card and against float64 autograd through ``reference_attention``, rerun
+    them bit for bit, and time kernel, plain version, bound and SDPA's
+    backward; on the single-pass route also the CUDA-core dk/dv and dq
+    kernels on the same inputs (the earlier route). ``seg`` is one id array
+    for q and kv, or a ``(q_seg, kv_seg)`` pair."""
     b, h, s, d = q.shape
     dtype = q.dtype
     dname = _dtype_name(dtype)
     do = torch.randn(q.shape, device=DEV, generator=gen).to(dtype)
-    qs = ks = seg
+    qs, ks = seg if isinstance(seg, tuple) else (seg, seg)
     sm = 1.0 / float(np.sqrt(d))
     out, l, m = fa._fwd_dispatch(q, k, v, qs, ks, SEED, causal, sm,
                                  p_dropout, save_residuals=True)
     di = fa._delta(do, out)
     args = (q, k, v, qs, ks, SEED, do, l, m, di)
     kw = dict(causal=causal, sm_scale=sm, p_dropout=p_dropout)
-    route, (dk, dv) = route_of(fa.flash_bwd_dkv,
-                               lambda: fa.flash_bwd_dkv(*args, **kw))
-    check(route == fa.flash_route(dtype, d),
-          f"backward case {name}: dk/dv took the {route} route")
-    dq_route, dq = route_of(fa.flash_bwd_dq,
-                            lambda: fa.flash_bwd_dq(*args, **kw))
-    check(dq_route == route, f"backward case {name}: dq took the {dq_route} "
-          f"route, dk/dv the {route} route")
+    route, (dq, dk, dv) = backward_route(
+        fa, lambda: fa._bwd_dispatch(*args, **kw))
+    check(route == expected_bwd_route(fa, q, k, causal),
+          f"backward case {name}: took the {route} route")
     want_dk, want_dv = fa.bwd_dkv_plain(*args, **kw)
     want_dq = fa.bwd_dq_plain(*args, **kw)
-    again = fa.flash_bwd_dkv(*args, **kw) + (fa.flash_bwd_dq(*args, **kw),)
+    again = fa._bwd_dispatch(*args, **kw)
     torch.cuda.synchronize()
     atol, rtol = BWD_TOL[dname]
 
@@ -1132,53 +1176,83 @@ def backward_case(torch, np, fa, name, gen, q, k, v, causal, seg=None,
                  / max(float(w.abs().max()), 1e-30) / BWD_F64_TOL[dname]
                  for g, w in zip((dq, dk, dv), f64)]
     del f64
-    c = {"dtype": dname, "shape": [b, h, s, d], "causal": causal,
-         "dkv_route": route, "dq_route": dq_route,
-         "segments": seg is not None,
+    c = {"dtype": dname, "shape": [b, h, s, d], "skv": k.shape[2],
+         "causal": causal, "route": route, "segments": seg is not None,
          "p_dropout": p_dropout,
          "rerun_bit_identical": all(torch.equal(x, y) for x, y in
-                                    zip(again, (dk, dv, dq))),
+                                    zip(again, (dq, dk, dv))),
          "f64_err_ratio_dq_dk_dv": f64_ratio}
-    for kernel, got, want in (("flash_bwd_dkv", (dk, dv), (want_dk, want_dv)),
-                              ("flash_bwd_dq", (dq,), (want_dq,))):
+    parts = ((("flash_bwd_single", (dq, dk, dv), (want_dq, want_dk, want_dv)),)
+             if route == "single" else
+             (("flash_bwd_dkv", (dk, dv), (want_dk, want_dv)),
+              ("flash_bwd_dq", (dq,), (want_dq,))))
+    for kernel, got, want in parts:
         errs = [vs_plain(g, w) for g, w in zip(got, want)]
         c[kernel] = {"err_ratio": max(e[0] for e in errs),
                      "max_abs_err": max(e[1] for e in errs)}
-    check(c["flash_bwd_dkv"]["err_ratio"] <= 1
-          and c["flash_bwd_dq"]["err_ratio"] <= 1 and max(f64_ratio) <= 1
-          and c["rerun_bit_identical"],
+    check(all(c[p[0]]["err_ratio"] <= 1 for p in parts)
+          and max(f64_ratio) <= 1 and c["rerun_bit_identical"],
           f"backward case {name}: kernels differ: {json.dumps(c)}")
     del again, want_dk, want_dv, want_dq
-    for kernel, fn, plain in (
-            ("flash_bwd_dkv", fa.flash_bwd_dkv, fa.bwd_dkv_plain),
-            ("flash_bwd_dq", fa.flash_bwd_dq, fa.bwd_dq_plain)):
+
+    def both_plain():
+        return (fa.bwd_dkv_plain(*args, **kw), fa.bwd_dq_plain(*args, **kw))
+
+    single_kw = dict(sm_scale=sm, p_dropout=p_dropout)
+    timed = ((("flash_bwd_single",
+               lambda: fa.flash_bwd_single(*args, **single_kw), both_plain),)
+             if route == "single" else
+             (("flash_bwd_dkv", lambda: fa.flash_bwd_dkv(*args, **kw),
+               lambda: fa.bwd_dkv_plain(*args, **kw)),
+              ("flash_bwd_dq", lambda: fa.flash_bwd_dq(*args, **kw),
+               lambda: fa.bwd_dq_plain(*args, **kw))))
+    for kernel, fn, plain in timed:
         e = c[kernel]
-        e["ms"] = time_ms(torch, lambda fn=fn: fn(*args, **kw))
-        e["plain_ms"] = time_ms(torch, lambda plain=plain: plain(*args, **kw),
-                                reps=5)
+        e["ms"] = time_ms(torch, fn)
+        e["plain_ms"] = time_ms(torch, plain, reps=5)
         e["bound_ms"], e["bound_by"], flops = backward_bound(
             fa, q, k, qs, ks, causal, kernel.split("_")[-1])
         e["tflops"] = flops / e["ms"] / 1e9
+
+    # the CUDA-core kernels on the same inputs: the earlier route
+    def cuda_core(fn_name, outs):
+        return lambda: fa._launch_bwd(fa._flash_bwd_lib(), fn_name,
+                                      [torch.empty_like(t) for t in outs],
+                                      *args, **kw)
     if route == "tc" and "bench" in name:
-        # the CUDA-core kernels on the same inputs: the earlier route
-        def cuda_core(fn_name, outs):
-            return lambda: fa._launch_bwd(fa._flash_bwd_lib(), fn_name,
-                                          [torch.empty_like(t) for t in outs],
-                                          *args, **kw)
         c["flash_bwd_dkv"]["cuda_core_ms"] = time_ms(
             torch, cuda_core("tfp_flash_bwd_dkv", (k, v)), reps=5)
         c["flash_bwd_dq"]["cuda_core_ms"] = time_ms(
             torch, cuda_core("tfp_flash_bwd_dq", (q,)), reps=5)
+    if route == "single":
+        e = c["flash_bwd_single"]
+        e["cuda_core_dkv_ms"] = time_ms(
+            torch, cuda_core("tfp_flash_bwd_dkv", (k, v)))
+        e["cuda_core_dq_ms"] = time_ms(
+            torch, cuda_core("tfp_flash_bwd_dq", (q,)))
     c["library_ms"] = None if p_dropout else time_ms(
         torch, sdpa_backward_call(torch, fa, q, k, v, qs, ks, causal, sm, do))
     torch.cuda.empty_cache()
     return c, (do, dq, dk, dv)
 
 
+def short_segments(torch, np, rng, b, s):
+    """Two segments and a padded tail per batch row, the last row all
+    padding."""
+    seg = np.full((b, s), -1, np.int32)
+    for i in range(b - 1):
+        cut, end = sorted(rng.randint(1, s + 1, 2))
+        seg[i, :cut], seg[i, cut:end] = 0, 1
+    return torch.from_numpy(seg).to(DEV)
+
+
 def attention_backward_phase(torch, np, fa, bench):
-    """Four backward cases: (a) the bench shape, on the forward phase's
+    """The backward cases: (a) the bench shape, on the forward phase's
     inputs, whose gradients the entry-point phase reproduces; (b) BST's
-    heads; (c) dropout at S1000; (d) segments from lengths."""
+    heads, without and with dropout (the single-pass backward); (c) dropout
+    at S1000; (d) segments from lengths; (e) bf16 D16 S200 with segments and
+    (f) f32 D32 at Sq 1000 against Skv 128, with q and kv segments that
+    differ (both on the single-pass backward)."""
     gen = torch.Generator(device=DEV).manual_seed(SEED + 4)
     rng = np.random.RandomState(SEED + 4)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -1196,12 +1270,33 @@ def attention_backward_phase(torch, np, fa, bench):
         torch.from_numpy(rng.randint(512, 2049, 4)).to(DEV), 2048)
     specs = [("a_bench_causal_bf16", lambda: bench[:3], True, None, 0.0),
              ("b_bst_f32", lambda: rand(BATCH, 8, 128, 8, f32), False,
-              bst_seg, 0.0)]
+              bst_seg, 0.0),
+             ("b_bst_dropout_f32", lambda: rand(BATCH, 8, 128, 8, f32), False,
+              bst_seg, 0.2)]
     specs += [(f"c_s1000_dropout_{'causal' if c else 'full'}_"
                f"{_dtype_name(t)}", lambda t=t: rand(2, 8, 1000, 64, t), c,
                None, 0.2) for c in (True, False) for t in (f32, bf16)]
     specs += [("d_segments_bf16", lambda: rand(4, 8, 2048, 128, bf16), False,
                bench_seg, 0.0)]
+    # (f): kv ids from lengths in 1-128; q ids 0 up to a length in 1-1000,
+    # then a run of segment 1, which meets no key (l = 0), then padding
+    cross_b = 16
+    kv_cross = fa.make_segment_ids_from_lengths(
+        torch.from_numpy(rng.randint(1, 129, cross_b)).to(DEV), 128)
+    q_cross = np.full((cross_b, 1000), -1, np.int32)
+    for i, n in enumerate(rng.randint(1, 1001, cross_b)):
+        q_cross[i, :n] = 0
+        q_cross[i, n:n + 50] = 1
+    q_cross = torch.from_numpy(q_cross).to(DEV)
+
+    def cross():
+        q = torch.randn(cross_b, 8, 1000, 32, device=DEV, generator=gen)
+        return [q] + rand(cross_b, 8, 128, 32, f32)[:2]
+
+    specs += [("e_short_segments_bf16_d16", lambda: rand(64, 8, 200, 16, bf16),
+               False, short_segments(torch, np, rng, 64, 200), 0.0),
+              ("f_sq1000_skv128_f32_d32", cross, False, (q_cross, kv_cross),
+               0.0)]
     cases, bench_grads = {}, None
     for name, make, causal, seg, p in specs:
         q, k, v = make()
@@ -1211,6 +1306,11 @@ def attention_backward_phase(torch, np, fa, bench):
             bench_grads = grads
         del q, k, v, grads
         print("backward case", name, json.dumps(cases[name]), flush=True)
+    check(all(c["route"] == "single" for n, c in cases.items()
+              if n[0] in "bef")
+          and all(c["route"] != "single" for n, c in cases.items()
+                  if n[0] in "acd"),
+          "backward cases did not take the expected routes")
     torch.cuda.empty_cache()
     return cases, bench_grads
 
@@ -1220,8 +1320,9 @@ HEAD_DIMS = (12, 60, 136, 256)   # padded to 16 and 64; 128-column chunks
 
 def head_dim_case(torch, np, fa, gen, d, dtype, causal, seg):
     """B1 H2 S200 at head dim ``d``: the forward ``flash_attention`` takes
-    (``_fwd_dispatch``'s rule) and both backward kernels, each held against
-    its plain version at the caller's D. The forward's output within
+    (``_fwd_dispatch``'s rule) and the backward (``_bwd_dispatch``'s rule:
+    the single-pass kernel at D 12 non-causal, else dk/dv and dq), each held
+    against its plain versions at the caller's D. The forward's output within
     ``ATTN_TOL`` and, for bf16, the tie allowance (the kernel, at the
     padded D or chunk by chunk, may sum q·k in another order than the plain
     version's matmul at the caller's D; the strict ratio is kept beside),
@@ -1247,10 +1348,8 @@ def head_dim_case(torch, np, fa, gen, d, dtype, causal, seg):
     kw["causal"] = causal
     args = (q, k, v, seg, seg, SEED, do, got[1], got[2],
             fa._delta(do, got[0]))
-    dkv_route, (dk, dv) = route_of(fa.flash_bwd_dkv,
-                                   lambda: fa.flash_bwd_dkv(*args, **kw))
-    dq_route, dq = route_of(fa.flash_bwd_dq,
-                            lambda: fa.flash_bwd_dq(*args, **kw))
+    bwd_route, (dq, dk, dv) = backward_route(
+        fa, lambda: fa._bwd_dispatch(*args, **kw))
     want_dk, want_dv = fa.bwd_dkv_plain(*args, **kw)
     want_dq = fa.bwd_dq_plain(*args, **kw)
     torch.cuda.synchronize()
@@ -1270,8 +1369,7 @@ def head_dim_case(torch, np, fa, gen, d, dtype, causal, seg):
     c = {"shape": [b, h, s, d], "padded_d": fa.padded_head_dim(d),
          "dtype": dname, "causal": causal, "segments": seg is not None,
          "forward": "flash_fwd_single" if single else "flash_fwd",
-         "fwd_route": fwd_route, "dkv_route": dkv_route,
-         "dq_route": dq_route,
+         "fwd_route": fwd_route, "bwd_route": bwd_route,
          "err_ratio_out_l_m": [out_ratio] + [
              ratio(g, w, *ATTN_TOL["float32"])
              for g, w in zip(got[1:], want[1:])],
@@ -1286,7 +1384,7 @@ def head_dim_case(torch, np, fa, gen, d, dtype, causal, seg):
          "shapes_ok": got[0].shape == dq.shape == q.shape
          and dk.shape == dv.shape == k.shape,
          "entry_point_equals_kernel": torch.equal(entry, got[0])}
-    check(all(r == route for r in (dkv_route, dq_route))
+    check(bwd_route == expected_bwd_route(fa, q, k, causal)
           and fwd_route in (None, route)
           and max(c["err_ratio_out_l_m"] + c["err_ratio_dq_dk_dv"]) <= 1
           and c["shapes_ok"] and c["entry_point_equals_kernel"],
@@ -1486,10 +1584,8 @@ def bst_training_phase(torch, np, kv, models, train, profile_dir):
     blocks = model.num_blocks
     state, launches, rate, per_step = train_path(
         torch, "BST", step, state, batches,
-        {"flash_fwd_single": blocks, "flash_bwd_dkv": blocks,
-         "flash_bwd_dkv.cuda_core": blocks, "flash_bwd_dkv.tc": 0,
-         "flash_bwd_dq": blocks, "flash_bwd_dq.cuda_core": blocks,
-         "flash_bwd_dq.tc": 0, "flash_fwd": 0}, profile_dir)
+        {"flash_fwd_single": blocks, "flash_bwd_single": blocks,
+         "flash_bwd_dkv": 0, "flash_bwd_dq": 0, "flash_fwd": 0}, profile_dir)
     del state
     return launches, rate, per_step, peak_memory(torch, "BST training")
 
@@ -2109,18 +2205,24 @@ def attention_entry(name, replaces, launches, cases, main_case,
 
 def backward_entry(name, replaces, launches, cases, main_case,
                    f32_case=None):
+    """A backward kernel's entry; the single-pass kernel's adds the
+    CUDA-core dk/dv and dq kernels' time on its main case's inputs."""
     c = cases[main_case][name]
     routed = name in ROUTED
     e = {"name": name, "route": "cuda",
-         "source": CSRC + ("flash_bwd_tc.cu" if routed else "flash_bwd.cu"),
+         "source": CSRC + ("flash_bwd_tc.cu" if routed else f"{name}.cu"),
          "replaces": replaces, "launches": launches[name],
-         "max_abs_err": max(x[name]["max_abs_err"] for x in cases.values()),
+         "max_abs_err": max(x[name]["max_abs_err"] for x in cases.values()
+                            if name in x),
          "ms": c["ms"], "plain_ms": c["plain_ms"],
          "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
          "library_ms": cases[main_case]["library_ms"]}
     if routed:
         e.update(routes_entry(name, launches, c, f32_case,
                               cases[f32_case][name]["ms"]))
+    else:
+        e["cuda_core_pair_ms_on_main_case"] = (c["cuda_core_dkv_ms"]
+                                               + c["cuda_core_dq_ms"])
     return e
 
 
@@ -2155,7 +2257,7 @@ def main() -> int:
     libs = _build.build_all()
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.3f} s",
           flush=True)
-    for name in ("flash_fwd_tc", "flash_bwd_tc"):
+    for name in ("flash_fwd_tc", "flash_bwd_tc", "flash_bwd_single"):
         print(f"ptxas {name}: " + " | ".join(_build.ptxas_report(name)),
               flush=True)
 
@@ -2223,6 +2325,9 @@ def main() -> int:
                        "tfplus_tpu/ops/flash_attention.py:636",
                        launches, bwd_cases, "a_bench_causal_bf16",
                        "c_s1000_dropout_causal_float32"),
+        backward_entry("flash_bwd_single",
+                       "tfplus_tpu/ops/flash_attention.py:589 and :636",
+                       launches, bwd_cases, "b_bst_f32"),
         {"name": "compact", "route": "cuda",
          "source": "tfplus_tpu_torch/ops/csrc/compactor.cu",
          "replaces": "tfplus_tpu/ops/compactor.py:141",

@@ -10,7 +10,9 @@ therefore compare two versions of the kernels on one card. Its one output
 line is a JSON object: the card's name and power limit, and per case and
 wrapper the median of ``--reps`` CUDA-event timings, each from a cold L2.
 It calls the public wrappers (``flash_fwd``, ``flash_fwd_single``,
-``flash_bwd_dkv``, ``flash_bwd_dq``), so each version takes its own routes.
+``flash_bwd_dkv``, ``flash_bwd_dq`` and, at BST's heads, where the
+checkout has it, ``flash_bwd_single``), so each version takes its own
+routes.
 
 Cases: BST's heads (f32 B2048 H8 S128 D8, histories of 1-21 tokens, the
 single-pass forward); the bench's causal B4 H8 S2048 D128 in bf16 (the
@@ -93,6 +95,10 @@ def main() -> int:
                 torch, lambda: fa.flash_bwd_dkv(*bwd, **kw), args.reps),
             "flash_bwd_dq": time_ms(
                 torch, lambda: fa.flash_bwd_dq(*bwd, **kw), args.reps)}
+        if not causal and hasattr(fa, "flash_bwd_single"):
+            out["ms"][name]["flash_bwd_single"] = time_ms(
+                torch, lambda: fa.flash_bwd_single(*bwd, sm_scale=sm,
+                                                   p_dropout=p), args.reps)
         del q, k, v, do, o, l, m, bwd
         torch.cuda.empty_cache()
     print(json.dumps(out))

@@ -19,12 +19,16 @@ tensor-core kernel's dropout bit for bit. BST and DIN
 served on the card give the CPU's predictions within ``1e-5``. The flash
 backward kernels are held against their plain versions (same limits) and
 float64 autograd, run deterministically, and a CUDA backward never reaches
-a plain version; a few DCN and BST training steps on the card match the
-same steps on the CPU. The compactor kernel matches its plain version bit
-for bit, and table growth, compaction, export and a checkpoint round trip
-on the card leave the same tables as on the CPU. Marked
-``cuda``: every test skips without a card. On a machine with a card and
-without JAX, run
+a plain version; the single-pass backward (dq, dk and dv in one launch,
+padding skipped) is held against both plain backward versions over every
+head dim its route takes, at the largest Skv that fits, with segments that
+pad, differ between q and kv, meet no key or fill a whole batch row,
+without segments, at Sq ≠ Skv and with dropout; a few DCN and BST training
+steps on the card match the same steps on the CPU. The compactor kernel
+matches its plain version bit for bit, and table growth, compaction,
+export and a checkpoint round trip on the card leave the same tables as on
+the CPU. Marked ``cuda``: every test skips without a card. On a machine
+with a card and without JAX, run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -539,7 +543,8 @@ def test_cuda_backward_never_runs_the_plain_versions(cuda, monkeypatch):
     for name in ("bwd_plain", "bwd_dkv_plain", "bwd_dq_plain",
                  "fwd_single_plain", "fwd_tiled_plain", "reference_attention"):
         monkeypatch.setattr(fa, name, refuse)
-    launches = fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches
+    launches = (fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches,
+                fa.flash_bwd_single.launches)
     routes = [_route_counts(fn)[1:] for fn in (fa.flash_bwd_dkv,
                                                 fa.flash_bwd_dq)]
     # f32 D8 (CUDA cores), then bf16 D64 and D128 (tensor cores)
@@ -552,11 +557,143 @@ def test_cuda_backward_never_runs_the_plain_versions(cuda, monkeypatch):
             fa.flash_attention(*leaves, causal=causal).float().sum().backward()
             assert all(bool(torch.isfinite(t.grad).all()) for t in leaves)
     torch.cuda.synchronize()
-    assert (fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches) == (
-        launches[0] + 6, launches[1] + 6)
+    # f32 D8 non-causal takes the single-pass backward; the rest dk/dv and
+    # dq (bf16 D64 keeps the tensor cores though its KV fits the block)
+    assert (fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches,
+            fa.flash_bwd_single.launches) == (
+        launches[0] + 5, launches[1] + 5, launches[2] + 1)
     for fn, (tc, cuda_core) in zip((fa.flash_bwd_dkv, fa.flash_bwd_dq),
                                    routes):
-        assert _route_counts(fn)[1:] == (tc + 4, cuda_core + 2)
+        assert _route_counts(fn)[1:] == (tc + 4, cuda_core + 1)
+
+
+def _max_single_skv(d, dtype):
+    """The largest Skv that :func:`fa.single_fits` admits at this D."""
+    skv = 1
+    while fa.single_fits(skv + 1, d, dtype):
+        skv += 1
+    return skv
+
+
+def _single_segments(gen, b, sq, skv, mode, device):
+    """Segment ids for the single-pass backward. "bst": BST's layout, a
+    history prefix of 0-20 tokens and the candidate at position 20, the rest
+    padding (−1), q and kv alike up to the shorter length; "differ": q and
+    kv ids drawn apart from {−1, 0, 1, 2}, with no key of segment 2 in batch
+    row 0, so its q rows of segment 2 meet no key (l = 0). Either way the
+    last batch row is all padding on the q side. "none": no segments."""
+    if mode == "none":
+        return None, None
+
+    def bst(n):
+        ids = torch.full((b, n), -1, dtype=torch.int32)
+        hist = torch.randint(0, 21, (b,), generator=gen)
+        for i in range(b):
+            ids[i, :min(int(hist[i]), n)] = 0
+            if n > 20:
+                ids[i, 20] = 0
+        return ids
+
+    if mode == "bst":
+        qs, ks = bst(sq), bst(skv)
+    else:
+        qs = torch.randint(-1, 3, (b, sq), generator=gen, dtype=torch.int32)
+        ks = torch.randint(-1, 3, (b, skv), generator=gen, dtype=torch.int32)
+        ks[0] = torch.where(ks[0] == 2, 1, ks[0])
+        qs[0, :4] = 2
+    qs[-1] = -1
+    return qs.to(device), ks.to(device)
+
+
+# (dtype, D, Sq, Skv): every D the route takes (f32 D 8, 16, 32 and bf16 D 16
+# at the largest Skv that fits; D 12 padded to 16), and Sq != Skv both ways
+SINGLE_SHAPES = [
+    (torch.float32, 8, None, None), (torch.float32, 16, None, None),
+    (torch.float32, 32, None, None), (torch.bfloat16, 16, None, None),
+    (torch.float32, 12, 130, 130), (torch.float32, 8, 1000, 128),
+    (torch.float32, 32, 77, 150), (torch.bfloat16, 16, 200, 60)]
+
+
+@pytest.mark.parametrize("dtype,d,sq,skv", SINGLE_SHAPES)
+@pytest.mark.parametrize("segments", ["bst", "differ", "none"])
+@pytest.mark.parametrize("p_dropout", [0.0, 0.3])
+def test_flash_bwd_single_matches_plain(cuda, dtype, d, sq, skv, segments,
+                                        p_dropout):
+    """dq, dk and dv in one launch against ``bwd_dq_plain`` and
+    ``bwd_dkv_plain`` (f32 within 1e-5: another summation order; bf16
+    within 1e-2), from the single-pass forward's residuals; rows and keys
+    on padding get exact zeros."""
+    if sq is None:
+        sq = skv = _max_single_skv(d, dtype)
+    assert fa.single_fits(skv, d, dtype)
+    assert fa.flash_route(dtype, d) == "cuda_core"
+    gen = torch.Generator().manual_seed(sq + skv + d)
+    b, h = 3, 2
+    q, do = (torch.randn(b, h, sq, d, generator=gen).to(cuda, dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, h, skv, d, generator=gen).to(cuda, dtype)
+            for _ in range(2))
+    qs, ks = _single_segments(gen, b, sq, skv, segments, cuda)
+    out, l, m = fa.flash_fwd_single(q, k, v, qs, ks, 13, sm_scale=0.3,
+                                    p_dropout=p_dropout)
+    args = (q, k, v, qs, ks, 13, do, l, m, fa._delta(do, out))
+    kw = dict(sm_scale=0.3, p_dropout=p_dropout)
+    before = (fa.flash_bwd_single.launches, _route_counts(fa.flash_bwd_dkv),
+              _route_counts(fa.flash_bwd_dq))
+    dq, dk, dv = fa.flash_bwd_single(*args, **kw)
+    assert (fa.flash_bwd_single.launches, _route_counts(fa.flash_bwd_dkv),
+            _route_counts(fa.flash_bwd_dq)) == (before[0] + 1, *before[1:])
+    torch.cuda.synchronize()
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+    assert dq.dtype == dk.dtype == dv.dtype == dtype
+    want_dk, want_dv = fa.bwd_dkv_plain(*args, causal=False, **kw)
+    want_dq = fa.bwd_dq_plain(*args, causal=False, **kw)
+    _assert_close((dq, dk, dv), (want_dq, want_dk, want_dv), dtype)
+    if qs is not None:
+        assert (dq.transpose(1, 2)[qs < 0] == 0).all()
+        assert (dk.transpose(1, 2)[ks < 0] == 0).all()
+        assert (dv.transpose(1, 2)[ks < 0] == 0).all()
+    if segments == "differ":          # the rows whose segment meets no key
+        assert (l[0, :, :4] == 0).all() and (dq[0, :, :4] == 0).all()
+
+
+def test_flash_bwd_single_reruns_bit_identical(cuda):
+    """No atomics: a rerun gives the same dq, dk and dv bit for bit, and
+    ``_bwd_dispatch`` takes the kernel for BST's heads (f32 D8, Skv 128)."""
+    gen = torch.Generator().manual_seed(5)
+    b, h, s, d = 64, 8, 128, 8
+    q, k, v, do = (torch.randn(b, h, s, d, generator=gen).to(cuda)
+                   for _ in range(4))
+    qs, ks = _single_segments(gen, b, s, s, "bst", cuda)
+    out, l, m = fa.flash_fwd_single(q, k, v, qs, ks, 2, sm_scale=0.35,
+                                    p_dropout=0.2)
+    args = (q, k, v, qs, ks, 2, do, l, m, fa._delta(do, out))
+    before = fa.flash_bwd_single.launches
+    got = fa._bwd_dispatch(*args, causal=False, sm_scale=0.35, p_dropout=0.2)
+    assert fa.flash_bwd_single.launches == before + 1
+    for _ in range(3):
+        again = fa.flash_bwd_single(*args, sm_scale=0.35, p_dropout=0.2)
+        assert all(torch.equal(x, y) for x, y in zip(again, got))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_single_bwd_smem_bytes_mirrors_the_kernel(cuda, dtype):
+    """The Python mirror of the kernel's shared-memory layout gives the
+    kernel's own size at every padded D and at Skv 1-320."""
+    lib = fa._flash_bwd_single_lib()
+    code = fa._DTYPES[dtype]
+    for d in range(8, 129, 8):
+        for skv in (1, 7, 64, 65, 128, 200, 320):
+            assert lib.tfp_flash_bwd_single_smem(d, skv, code) == \
+                fa.single_bwd_smem_bytes(skv, d, dtype)
+
+
+def test_flash_bwd_single_refuses_what_does_not_fit(cuda):
+    big = torch.zeros(1, 1, 1024, 64, device=cuda)
+    stats = torch.zeros(1, 1, 1024, device=cuda)
+    with pytest.raises(ValueError, match="does not fit"):
+        fa.flash_bwd_single(big, big, big, None, None, 0, big, stats, stats,
+                            stats, sm_scale=1.0)
 
 
 @pytest.mark.parametrize("name", ["DCN", "BST"])
@@ -601,14 +738,16 @@ def test_training_step_on_the_card_matches_the_cpu(cuda, name):
                                   functools.partial(torch.optim.Adam, lr=1e-2),
                                   seed=2, device=dev)
         step = models.make_train_step(model, opt, sparse_lr=0.05)
-        bwd = fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches
+        bwd = (fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches,
+               fa.flash_bwd_single.launches)
         losses = []
         for b in batches:
             state, loss, _ = step(state, b)
             losses.append(float(loss))
-        if dev != "cpu" and name == "BST":
+        if dev != "cpu" and name == "BST":      # f32 D8 heads: single pass
             assert (fa.flash_bwd_dkv.launches - bwd[0],
-                    fa.flash_bwd_dq.launches - bwd[1]) == (3, 3)
+                    fa.flash_bwd_dq.launches - bwd[1],
+                    fa.flash_bwd_single.launches - bwd[2]) == (0, 0, 3)
         out[str(dev)] = (losses, {n: (t.header.cpu(), t.payload.cpu())
                                   for n, t in state.tables.items()},
                          [p.detach().cpu() for p in state.dense.parameters()])

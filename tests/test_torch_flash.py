@@ -40,6 +40,17 @@ def _segments(b, s, seed):
     return seg
 
 
+def _bst_segments(b, s, seed):
+    """BST's layout: a history prefix of 1-20 tokens, the candidate at
+    position 20, padding after it; the last batch row all padding."""
+    lengths = np.random.RandomState(seed).randint(1, 21, b)
+    seg = np.full((b, s), -1, np.int32)
+    for i, n in enumerate(lengths[:-1]):
+        seg[i, :n] = 0
+        seg[i, 20] = 0
+    return seg
+
+
 def _f32(x):
     return np.asarray(x.float() if isinstance(x, torch.Tensor) else
                       jnp.asarray(x, jnp.float32))
@@ -196,8 +207,9 @@ def test_layer_matches_the_jax_layer():
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
 
 
-# (name, b, h, s, d, causal, segments, dtype, p_dropout); JAX's gradient
-# runs _flash_bwd -> _bwd_pallas in interpret mode (the dkv and dq kernels)
+# (name, b, h, s, d, causal, segments, dtype, p_dropout), segments True
+# (_segments) or "bst" (_bst_segments); JAX's gradient runs _flash_bwd ->
+# _bwd_pallas in interpret mode (the dkv and dq kernels)
 GRAD_CASES = [
     ("causal", 1, 2, 256, 32, True, False, "f32", 0.0),
     ("noncausal_d8", 2, 2, 128, 8, False, False, "f32", 0.0),
@@ -209,6 +221,7 @@ GRAD_CASES = [
     ("dropout_segments", 2, 2, 128, 8, False, True, "f32", 0.3),
     ("dropout_causal_odd", 1, 2, 200, 32, True, False, "f32", 0.3),
     ("d12_causal", 2, 2, 128, 12, True, False, "f32", 0.0),
+    ("bst_dropout", 2, 2, 128, 8, False, "bst", "f32", 0.3),
 ]
 # Gradients sum over up to S rows or keys in another order: f32 within
 # atol = rtol = 1e-5 (they agree to about 6e-7 here). bf16: p_d and ds round
@@ -224,7 +237,8 @@ def test_gradients_match_the_pallas_backward(name, b, h, s, d, causal,
                                              segments, dtype, p_dropout):
     q, k, v = _inputs(b, h, s, s, d, seed=len(name) + 3)
     do = np.random.RandomState(d).randn(b, h, s, d).astype(np.float32)
-    seg = _segments(b, s, seed=s) if segments else None
+    seg = (_bst_segments(b, s, seed=s) if segments == "bst" else
+           _segments(b, s, seed=s) if segments else None)
     jdt = jnp.bfloat16 if dtype == "bf16" else jnp.float32
     tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
     kw = dict(causal=causal, p_dropout=p_dropout, dropout_seed=9)
@@ -396,3 +410,99 @@ def test_padding_the_head_dim_is_exact(d):
     check([tfa.bwd_dq_plain(*padded[:3], seg, seg, 4, padded[3], l, m, di,
                             **kw)],
           [tfa.bwd_dq_plain(q, k, v, seg, seg, 4, do, l, m, di, **kw)])
+
+
+# (dtype, D, causal, Skv, route): _bwd_dispatch's rule, as on the card
+BWD_ROUTES = [
+    (torch.float32, 8, False, 128, "single"),       # BST's heads
+    (torch.float32, 8, True, 128, "pair"),          # causal: dk/dv and dq
+    (torch.float32, 8, False, 320, "single"),       # the largest KV at D 8
+    (torch.float32, 8, False, 321, "pair"),         # past single_fits
+    (torch.float32, 12, False, 130, "single"),      # padded to 16
+    (torch.float32, 32, False, 128, "single"),
+    (torch.float32, 64, False, 1000, "pair"),
+    (torch.float32, 130, False, 16, "pair"),        # padded D above 128
+    (torch.bfloat16, 16, False, 200, "single"),
+    (torch.bfloat16, 64, False, 128, "pair"),       # fits, but tensor cores
+    (torch.bfloat16, 128, False, 64, "pair"),
+    (torch.bfloat16, 60, False, 64, "pair"),        # padded to 64
+]
+
+
+@pytest.mark.parametrize("dtype,d,causal,skv,route", BWD_ROUTES)
+def test_backward_routes_as_on_the_card(monkeypatch, dtype, d, causal, skv,
+                                        route):
+    """``_bwd_dispatch`` takes ``flash_bwd_single`` where the forward took
+    the single pass (not causal, ``single_fits``) and the CUDA cores serve
+    the dtype and D (``flash_route``), else ``flash_bwd_dkv`` and
+    ``flash_bwd_dq``; nothing but dtype, D, causal and Skv decides."""
+    calls = []
+    for name, outs in (("flash_bwd_single", 3), ("flash_bwd_dkv", 2),
+                       ("flash_bwd_dq", 1)):
+        monkeypatch.setattr(tfa, name, lambda *a, _n=name, _o=outs, **kw:
+                            calls.append(_n) or (None,) * _o)
+    q = torch.zeros(1, 1, 4, d, dtype=dtype)
+    k = torch.zeros(1, 1, skv, d, dtype=dtype)
+    stats = torch.zeros(1, 1, 4)
+    tfa._bwd_dispatch(q, k, k, None, None, 0, q, stats, stats, stats,
+                      causal=causal, sm_scale=0.3, p_dropout=0.0)
+    assert calls == (["flash_bwd_single"] if route == "single"
+                     else ["flash_bwd_dkv", "flash_bwd_dq"])
+    single = not causal and tfa.single_fits(skv, d, dtype)
+    assert (route == "single") == (single and tfa.flash_route(dtype, d)
+                                   == "cuda_core")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_cpu_backward_takes_the_single_pass_where_the_rule_says(monkeypatch,
+                                                                causal):
+    """``flash_attention``'s backward on the CPU: BST's heads (f32 D8,
+    Skv 128, its segments, dropout) go through ``flash_bwd_single``, which
+    returns the plain dk/dv and dq versions' results bit for bit; causal
+    goes through ``flash_bwd_dkv`` and ``flash_bwd_dq`` instead."""
+    calls = []
+    real = tfa.flash_bwd_single
+    monkeypatch.setattr(tfa, "flash_bwd_single", lambda *a, **kw:
+                        calls.append(1) or real(*a, **kw))
+    b, h, s, d = 3, 2, 128, 8
+    q, k, v = (torch.from_numpy(x) for x in _inputs(b, h, s, s, d, seed=4))
+    do = torch.from_numpy(np.random.RandomState(5).randn(b, h, s, d)
+                          .astype(np.float32))
+    seg = torch.from_numpy(_bst_segments(b, s, seed=6))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = real.launches
+    out = tfa.flash_attention(*leaves, causal=causal, q_segment_ids=seg,
+                              kv_segment_ids=seg, p_dropout=0.3,
+                              dropout_seed=7)
+    got = torch.autograd.grad(out, leaves, do)
+    assert calls == ([] if causal else [1])
+    assert real.launches == before           # the CPU launches nothing
+    fwd = tfa.fwd_tiled_plain if causal else tfa.fwd_single_plain
+    kw = dict(sm_scale=d ** -0.5, p_dropout=0.3)
+    o, l, m = fwd(q, k, v, seg, seg, 7, **kw,
+                  **(dict(causal=True) if causal else {}))
+    args = (q, k, v, seg, seg, 7, do, l, m, tfa._delta(do, o))
+    want_dk, want_dv = tfa.bwd_dkv_plain(*args, causal=causal, **kw)
+    want_dq = tfa.bwd_dq_plain(*args, causal=causal, **kw)
+    for g, w in zip(got, (want_dq, want_dk, want_dv)):
+        assert torch.equal(g, w)
+    if not causal:
+        assert all(torch.equal(g, w) for g, w in zip(
+            real(*args, **kw), (want_dq, want_dk, want_dv)))
+
+
+def test_single_backward_fits_wherever_the_single_pass_does():
+    """``single_bwd_smem_bytes`` (the single-pass backward kernel's layout:
+    K, V and f32 dk, dv accumulators for the whole KV, 32-row chunks of Q,
+    dO and f32 dq, 32 × 33 f32 p_d and ds tiles, and the index lists) fits
+    one block at every Skv and head dim that ``single_fits`` admits, f32
+    and bf16, so ``_bwd_dispatch`` needs no fit rule of its own. BST's
+    heads take 36,240 bytes, six blocks to an SM."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in range(1, 137):
+            skv = 1
+            while tfa.single_fits(skv, d, dtype):
+                assert tfa.single_bwd_smem_bytes(skv, d, dtype) <= \
+                    tfa.SMEM_PER_BLOCK, (dtype, d, skv)
+                skv += 1
+    assert tfa.single_bwd_smem_bytes(128, 8, torch.float32) == 36240

@@ -33,7 +33,8 @@ new = {"tfplus_tpu_torch.ops.rowops", "tfplus_tpu_torch.ops.flash_attention",
 assert new <= set(names), sorted(new - set(names))
 from tfplus_tpu_torch.models import BST, DIN
 from tfplus_tpu_torch.nn import flash_attention_layer
-from tfplus_tpu_torch.ops import (flash_bwd_dkv, flash_bwd_dq, flash_fwd,
+from tfplus_tpu_torch.ops import (flash_bwd_dkv, flash_bwd_dq,
+                                  flash_bwd_single, flash_fwd,
                                   flash_fwd_single)
 from tfplus_tpu_torch.models import make_train_step_scan, grow_if_needed
 from tfplus_tpu_torch.optim import SparseOptimizer, ALL_RULES

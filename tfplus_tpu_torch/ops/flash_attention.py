@@ -7,7 +7,7 @@ optional int32 segment ids ``[B, Sq]`` / ``[B, Skv]`` (tokens attend only
 within their segment; ``segment_id < 0`` marks padding, which attends to
 nothing and outputs zeros).
 
-Four hand-written Hopper kernels replace the four Pallas kernels:
+Hand-written Hopper kernels replace the four Pallas kernels:
 
 * :func:`flash_fwd` replaces ``_fwd`` (``_fwd_kernel``): tiled online
   softmax over 64-key tiles, tiles above the diagonal skipped under causal
@@ -20,7 +20,12 @@ Four hand-written Hopper kernels replace the four Pallas kernels:
   and dv of a 64-key tile, looping over the 64-row q tiles
   (``csrc/flash_bwd.cu``);
 * :func:`flash_bwd_dq` replaces ``_bwd_pallas``'s ``_bwd_dq_kernel``: dq
-  of a q tile, looping over the kv tiles (``csrc/flash_bwd.cu``).
+  of a q tile, looping over the kv tiles (``csrc/flash_bwd.cu``);
+* :func:`flash_bwd_single` replaces both backward kernels where the
+  forward took the single-pass kernel: dq, dk and dv of one (batch, head)
+  in one block, the whole KV in shared memory, s and dp formed once per
+  (row, key) pair, and padding rows and keys skipped: they get zero
+  gradients without being read (``csrc/flash_bwd_single.cu``).
 
 Three of them have two routes, chosen before the launch from the dtype and
 the padded head dim alone (:func:`flash_route`): bf16 with D of 64 or 128
@@ -30,7 +35,8 @@ goes to the tensor-core kernels (``wgmma``: ``csrc/flash_fwd_tc.cu`` for
 the CUDA-core kernels above. f32 never takes the tensor cores, whose only
 f32 input is TF32 (about three digits). The products of the tensor-core
 route are bf16 with f32 accumulation, as the JAX kernels feed the TPU's
-matrix unit. :func:`flash_fwd_single` has one route, on the CUDA cores.
+matrix unit. :func:`flash_fwd_single` and :func:`flash_bwd_single` have one
+route each, on the CUDA cores.
 
 Head dims. The JAX kernels take any D, and so do these wrappers: on the
 card each pads q, k, v (and do) with zero columns up to the next multiple
@@ -64,6 +70,14 @@ tile) takes at most half of that, so that two blocks share an SM: BST's
 heads (Skv 128, D 8, f32) need 46 KB. Anything larger goes to the tiled
 kernel. Both routes compute the same function.
 
+The backward routes by the same rule (:func:`_bwd_dispatch`): not causal,
+:func:`single_fits`, and a dtype and head dim that keep the CUDA cores
+(:func:`flash_route` ``"cuda_core"``) take :func:`flash_bwd_single`, whose
+shared memory (:func:`single_bwd_smem_bytes`) fits a block wherever
+:func:`single_fits` holds; everything else takes :func:`flash_bwd_dkv` and
+:func:`flash_bwd_dq` on their two routes. So bf16 at D 64/128 keeps the
+tensor cores even where the forward took the single pass.
+
 Ragged lengths are masked inside the kernels (keys past Skv score
 ``mask_value``, rows past Sq are not stored), which gives on every real
 position what the JAX package's padding with segment −1 gives; no copy of
@@ -71,8 +85,9 @@ q, k or v is padded along the sequence.
 
 Gradients: :func:`flash_attention` is a ``torch.autograd.Function``
 (``_Flash``, the counterpart of the JAX ``custom_vjp`` ``_flash``) whose
-forward saves the l/m residuals and whose backward runs the two backward
-kernels. :func:`flash_attention_with_lse` stays primal-only, as in JAX.
+forward saves the l/m residuals and whose backward runs the backward
+kernels (:func:`_bwd_dispatch`). :func:`flash_attention_with_lse` stays
+primal-only, as in JAX.
 """
 from __future__ import annotations
 
@@ -98,6 +113,11 @@ BLOCK_D = 128
 HEAD_DIM_ALIGN = 8
 SMEM_PER_BLOCK = 232448          # bytes an H100 block may use (227 KB)
 _SINGLE_SMEM_MAX = SMEM_PER_BLOCK // 2
+# csrc/flash_bwd_single.cu: rows (or keys) one ballot pass lists, listed
+# rows per chunk, listed keys per key block
+_BWD_SINGLE_SCAN = 128
+_BWD_SINGLE_ROWS = 32
+_BWD_SINGLE_KEYS = 32
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # head dims of the tensor-core kernels (csrc/flash_fwd_tc.cu,
@@ -433,6 +453,31 @@ def single_fits(skv: int, d: int, dtype: torch.dtype) -> bool:
         <= _SINGLE_SMEM_MAX
 
 
+def single_bwd_smem_bytes(skv: int, d: int, dtype: torch.dtype) -> int:
+    """Shared memory of one :func:`flash_bwd_single` block at the padded
+    D of ``d``, as ``smem_layout`` in flash_bwd_single.cu lays it out: K
+    and V of ``skv`` rows (rows padded by 16 bytes) and f32 dk, dv
+    accumulators; a chunk's Q and dO rows and f32 dq; the f32 p_d and ds
+    tiles; the chunk rows' l, m, di, segment and position; a scan window's
+    listed rows and flags; the keys' positions, segments and slots; the
+    ballot counts."""
+    d = padded_head_dim(d)
+    esz = torch.empty((), dtype=dtype).element_size()
+    ld, rows = d + 16 // esz, _BWD_SINGLE_ROWS
+    total = _align16(skv * ld * esz)                       # K
+    total = _align16(total + skv * ld * esz)               # V
+    total = _align16(total + skv * d * 4)                  # dk
+    total = _align16(total + skv * d * 4)                  # dv
+    total = _align16(total + rows * ld * esz)              # Q
+    total = _align16(total + rows * ld * esz)              # dO
+    total = _align16(total + rows * d * 4)                 # dq
+    tile = rows * (_BWD_SINGLE_KEYS + 1) * 4
+    total = _align16(total + tile)                         # p_d
+    total = _align16(total + tile)                         # ds
+    total += 5 * rows * 4 + 2 * _BWD_SINGLE_SCAN * 4 + 3 * skv * 4
+    return _align16(total + (_BWD_SINGLE_SCAN // 32) * 4)
+
+
 _TAIL = [ctypes.c_float, ctypes.c_float, ctypes.c_uint, ctypes.c_uint,
          ctypes.c_float, _ptr]
 
@@ -507,6 +552,17 @@ def _flash_bwd_tc_lib() -> ctypes.CDLL:
         lib.tfp_flash_bwd_dkv_tc.restype = _int
         lib.tfp_flash_bwd_dq_tc.argtypes = [_ptr] * 10 + [_int] * 7 + _TAIL
         lib.tfp_flash_bwd_dq_tc.restype = _int
+        lib._tfp_typed = True
+    return lib
+
+
+def _flash_bwd_single_lib() -> ctypes.CDLL:
+    lib = _build.library("flash_bwd_single")
+    if not getattr(lib, "_tfp_typed", False):
+        lib.tfp_flash_bwd_single.argtypes = [_ptr] * 12 + [_int] * 6 + _TAIL
+        lib.tfp_flash_bwd_single.restype = _int
+        lib.tfp_flash_bwd_single_smem.argtypes = [_int] * 3
+        lib.tfp_flash_bwd_single_smem.restype = ctypes.c_longlong
         lib._tfp_typed = True
     return lib
 
@@ -666,13 +722,16 @@ def _fwd_dispatch(q, k, v, q_seg, kv_seg, seed, causal, sm_scale, p_dropout,
 
 def _launch_bwd(lib, fn_name, outs, q, k, v, q_seg, kv_seg, seed, do, l, m,
                 di, causal, sm_scale, p_dropout):
+    """``causal`` None: the kernel takes no causal flag (not causal)."""
     b, h, sq, d = q.shape
     if q.numel() == 0 or k.shape[2] == 0:
         raise ValueError("flash attention needs B, H, Sq, Skv, D > 0")
     args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             l.data_ptr(), m.data_ptr(), di.data_ptr(), _ptr_of(q_seg),
             _ptr_of(kv_seg), *(t.data_ptr() for t in outs), b, h, sq,
-            k.shape[2], d, _DTYPES[q.dtype], int(causal)]
+            k.shape[2], d, _DTYPES[q.dtype]]
+    if causal is not None:
+        args.append(int(causal))
     err = getattr(lib, fn_name)(
         *args, *_kernel_tail(seed, sm_scale, p_dropout, q.device))
     if err != 0:
@@ -733,9 +792,56 @@ flash_bwd_dq.launches = flash_bwd_dq.tc_launches = 0
 flash_bwd_dq.cuda_core_launches = 0
 
 
+def flash_bwd_single(q, k, v, q_seg, kv_seg, seed, do, l, m, di, *,
+                     sm_scale: float, p_dropout: float = 0.0):
+    """Non-causal backward in one launch: ``(dq, dk, dv)`` in q's, k's and
+    v's dtype, from the same inputs as :func:`flash_bwd_dkv`. On a CPU
+    tensor the plain versions of the two backward kernels; on the card the
+    KV and D must fit the block (:func:`single_fits`)."""
+    _check(q, k, v, q_seg, kv_seg)
+    _check_bwd(q, do, l, m, di)
+    if not q.is_cuda:
+        kw = dict(causal=False, sm_scale=sm_scale, p_dropout=p_dropout)
+        dk, dv = bwd_dkv_plain(q, k, v, q_seg, kv_seg, seed, do, l, m, di,
+                               **kw)
+        return bwd_dq_plain(q, k, v, q_seg, kv_seg, seed, do, l, m, di,
+                            **kw), dk, dv
+    d = q.shape[3]
+    if not single_fits(k.shape[2], d, q.dtype):
+        raise ValueError(f"Skv {k.shape[2]} at D {d} does not fit the "
+                         "single-pass backward kernel's block")
+    q, k, v, do = pad_head_dim(q, k, v, do)
+    outs = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
+    _launch_bwd(_flash_bwd_single_lib(), "tfp_flash_bwd_single", outs, q, k,
+                v, q_seg, kv_seg, seed, do, l, m, di, causal=None,
+                sm_scale=sm_scale, p_dropout=p_dropout)
+    flash_bwd_single.launches += 1
+    return tuple(_unpad(t, d) for t in outs)
+
+
+flash_bwd_single.launches = 0
+
+
+def _bwd_dispatch(q, k, v, q_seg, kv_seg, seed, do, l, m, di, causal,
+                  sm_scale, p_dropout):
+    """``(dq, dk, dv)``: :func:`flash_bwd_single` where the forward took the
+    single pass (not causal, :func:`single_fits`) and the CUDA cores serve
+    this dtype and D; else :func:`flash_bwd_dkv` and :func:`flash_bwd_dq`
+    (bf16 at D 64/128 on the tensor cores)."""
+    d = q.shape[3]
+    if (not causal and single_fits(k.shape[2], d, q.dtype)
+            and flash_route(q.dtype, d) == "cuda_core"):
+        return flash_bwd_single(q, k, v, q_seg, kv_seg, seed, do, l, m, di,
+                                sm_scale=sm_scale, p_dropout=p_dropout)
+    kw = dict(causal=causal, sm_scale=sm_scale, p_dropout=p_dropout)
+    dk, dv = flash_bwd_dkv(q, k, v, q_seg, kv_seg, seed, do, l, m, di, **kw)
+    return flash_bwd_dq(q, k, v, q_seg, kv_seg, seed, do, l, m, di,
+                        **kw), dk, dv
+
+
 class _Flash(torch.autograd.Function):
     """Counterpart of the JAX ``custom_vjp`` ``_flash``: the forward kernel
-    with residuals saved, and the two backward kernels."""
+    with residuals saved, and the backward kernels (:func:`_bwd_dispatch`)."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_seg, kv_seg, seed, causal, sm_scale,
@@ -755,9 +861,8 @@ class _Flash(torch.autograd.Function):
         # transpose)
         do = _ready(do)
         di = _delta(do, out)
-        dk, dv = flash_bwd_dkv(q, k, v, q_seg, kv_seg, seed, do, l, m, di,
-                               **kw)
-        dq = flash_bwd_dq(q, k, v, q_seg, kv_seg, seed, do, l, m, di, **kw)
+        dq, dk, dv = _bwd_dispatch(q, k, v, q_seg, kv_seg, seed, do, l, m,
+                                   di, **kw)
         return dq, dk, dv, None, None, None, None, None, None
 
 
@@ -811,7 +916,8 @@ def flash_attention(q, k, v, *, causal: bool = False,
     there is no interpreter (the tensors' device picks kernel or plain
     version). Differentiable in q, k and v: with autograd on and an input
     that requires grad, the forward saves its residuals and the backward
-    runs :func:`flash_bwd_dkv` and :func:`flash_bwd_dq`."""
+    runs :func:`flash_bwd_single`, or :func:`flash_bwd_dkv` and
+    :func:`flash_bwd_dq` (:func:`_bwd_dispatch`)."""
     del block_q, block_k, block_k_inner, interpret
     q, k, v, qs, ks, sm_scale, p_dropout = _prepare(
         q, k, v, sm_scale, q_segment_ids, kv_segment_ids, p_dropout)
