@@ -13,7 +13,7 @@ failed check:
 1. The card's name and power limit; the CUDA kernels are built from
    ``tfplus_tpu_torch/ops/csrc`` and the build time printed, with ptxas's
    registers, shared memory and spills of the tensor-core flash kernels and
-   the single-pass backward.
+   the single-pass forward and backward.
 2. Kernels: every row kernel is held bit-exact against its plain PyTorch
    version at the shapes the serving paths give it (f32 and bf16, widths
    64/128/384; 32,768 indices with negative, duplicated and edge values;
@@ -34,10 +34,16 @@ failed check:
    non-causal with segments from lengths (tiled kernel, tensor-core route);
    BST's f32 heads, B2048 H8 S128 D8 with BST's request mask, without and
    with dropout (single-pass kernel); dropout 0.2 at S1000 D64, causal and
-   not, f32 (CUDA-core route) and bf16 (tensor-core route);
-   ``flash_attention_with_lse``'s residuals and its -inf on padding rows.
-   Each case records the route it took; at the bench shape the CUDA-core
-   kernel is also timed on the same bf16 inputs, as the earlier route.
+   not, f32 (CUDA-core route) and bf16 (tensor-core route); then the
+   single-pass kernel off BST: f32 B16 H8 D32 at Sq 1000 against Skv 128
+   with q and kv segments that differ, bf16 B64 H8 S200 D16 with two
+   segments, and without segments bf16 B64 H8 S192 D64 and S64 D128 (which
+   the dispatch sends to the tensor cores; forced here and timed beside
+   them); ``flash_attention_with_lse``'s residuals and its -inf on padding
+   rows. Each case records the route it took; at the bench shape the
+   CUDA-core kernel is also timed on the same bf16 inputs, and on the
+   single-pass cases the earlier single-pass kernel of flash_fwd.cu, as the
+   earlier routes; the single-pass kernel is also rerun bit for bit.
 6. Flash entry points: ``flash_attention(causal=True)`` and
    ``flash_attention_with_lse`` at the bench's shape, every forward launch
    on the tensor-core route.
@@ -668,23 +674,41 @@ def bst_token_mask(np, rng, batch):
     return (np.arange(HIST)[None, :] < lengths[:, None]).astype(np.float32)
 
 
+def takes_single(fa, skv, d, dtype, causal):
+    """The dispatch's rule (``_fwd_dispatch``, ``_bwd_dispatch``), as the
+    checks expect it: the single-pass kernels where not causal, the KV fits
+    one block and the CUDA cores serve the dtype and D."""
+    return (not causal and fa.single_fits(skv, d, dtype)
+            and fa.flash_route(dtype, d) == "cuda_core")
+
+
 def attention_case(torch, np, fa, name, gen, b, h, s, d, dtype, causal,
-                   seg=None, p_dropout=0.0):
-    """Hold the routed kernel against its plain version (out, l, m), check
-    ``flash_attention_with_lse`` (same out, lse = m + log l, -inf on rows
-    that hit no key), and time kernel, plain version and SDPA."""
-    q, k, v = (torch.randn(b, h, s, d, device=DEV, generator=gen).to(dtype)
-               for _ in range(3))
-    qs = ks = seg
-    single = not causal and fa.single_fits(s, d, dtype)
+                   seg=None, p_dropout=0.0, single=None):
+    """Hold the kernel against its plain version (out, l, m), check
+    ``flash_attention_with_lse`` (the routed kernel's out, lse = m + log l,
+    -inf on rows that hit no key), and time kernel, plain version and SDPA.
+    ``s`` is S or ``(Sq, Skv)``; ``seg`` one id array for q and kv or a
+    ``(q_seg, kv_seg)`` pair. The kernel is the one the dispatch takes,
+    or with ``single`` the single-pass kernel, which is also rerun bit for
+    bit and timed beside the earlier single-pass kernel of flash_fwd.cu on
+    the same inputs (``earlier_ms``) and, for bf16 at D 64/128, beside the
+    tiled kernel's tensor-core route (``tc_ms``)."""
+    sq, skv = s if isinstance(s, tuple) else (s, s)
+    qs, ks = seg if isinstance(seg, tuple) else (seg, seg)
+    q = torch.randn(b, h, sq, d, device=DEV, generator=gen).to(dtype)
+    k, v = (torch.randn(b, h, skv, d, device=DEV, generator=gen).to(dtype)
+            for _ in range(2))
+    routed_single = takes_single(fa, skv, d, dtype, causal)
+    single = routed_single if single is None else single
     kernel, plain = ((fa.flash_fwd_single, fa.fwd_single_plain) if single
                      else (fa.flash_fwd, fa.fwd_tiled_plain))
     kw = dict(sm_scale=1.0 / float(np.sqrt(d)), p_dropout=p_dropout)
+    tiled_kw = dict(kw, causal=causal)
     route = None
     if single:
         got = kernel(q, k, v, qs, ks, SEED, **kw)
     else:
-        kw["causal"] = causal
+        kw = tiled_kw
         route, got = route_of(kernel, lambda: kernel(q, k, v, qs, ks, SEED,
                                                      **kw))
         check(route == fa.flash_route(dtype, d),
@@ -693,6 +717,11 @@ def attention_case(torch, np, fa, name, gen, b, h, s, d, dtype, causal,
     out, lse = fa.flash_attention_with_lse(
         q, k, v, causal=causal, q_segment_ids=qs, kv_segment_ids=ks,
         p_dropout=p_dropout, dropout_seed=SEED)
+    # what the entry point routes to, where that is not this case's kernel
+    entry_got, entry_want = got, want
+    if single != routed_single:
+        entry_got = fa.flash_fwd(q, k, v, qs, ks, SEED, **tiled_kw)
+        entry_want = fa.fwd_tiled_plain(q, k, v, qs, ks, SEED, **tiled_kw)
     torch.cuda.synchronize()
     dname = _dtype_name(dtype)
     ratios = []
@@ -710,31 +739,46 @@ def attention_case(torch, np, fa, name, gen, b, h, s, d, dtype, causal,
                            / (atol + rtol * w.abs() + allow)).max())
         del allow, g, w
     err = float((got[0].float() - want[0].float()).abs().max())
-    hit = want[1] > 0
-    want_lse = torch.where(hit, want[2] + torch.log(torch.where(
-        hit, want[1], 1.0)), -float("inf"))
+    hit = entry_want[1] > 0
+    want_lse = torch.where(hit, entry_want[2] + torch.log(torch.where(
+        hit, entry_want[1], 1.0)), -float("inf"))
     lse_ok = (torch.equal(torch.isneginf(lse), ~hit)
               and float((lse[hit] - want_lse[hit]).abs().max())
               <= 1e-5 * (1.0 + float(want_lse[hit].abs().max())))
-    if seg is not None:         # padding rows hit nothing
+    if qs is not None:          # padding rows hit nothing
         lse_ok = lse_ok and bool(torch.isneginf(
-            lse.transpose(0, 1)[:, seg < 0]).all())
+            lse.transpose(0, 1)[:, qs < 0]).all())
     c = {"kernel": kernel.__name__, "route": route, "dtype": dname,
-         "shape": [b, h, s, d], "causal": causal, "segments": seg is not None,
-         "p_dropout": p_dropout, "max_abs_err": err,
-         "err_ratio_out_l_m": ratios, "strict_out_ratio": strict_out,
-         "lse_ok": lse_ok,
-         "entry_point_equals_kernel": torch.equal(out, got[0])}
-    check(max(ratios) <= 1 and lse_ok and c["entry_point_equals_kernel"],
+         "shape": [b, h, sq, d], "skv": skv, "causal": causal,
+         "segments": seg is not None, "p_dropout": p_dropout,
+         "max_abs_err": err, "err_ratio_out_l_m": ratios,
+         "strict_out_ratio": strict_out, "lse_ok": lse_ok,
+         "entry_point_equals_kernel": torch.equal(out, entry_got[0])}
+    if single:
+        c["block_rows_heads"] = list(fa.single_fwd_config(b, h, sq))
+        c["rerun_bit_identical"] = all(
+            all(torch.equal(x, y) for x, y in zip(
+                kernel(q, k, v, qs, ks, SEED, **kw), got)) for _ in range(2))
+    check(max(ratios) <= 1 and lse_ok and c["entry_point_equals_kernel"]
+          and c.get("rerun_bit_identical", True),
           f"attention case {name}: kernel differs from its plain version: "
           f"{json.dumps(c)}")
+    del entry_got, entry_want
     c["ms"] = time_ms(torch, lambda: kernel(q, k, v, qs, ks, SEED,
                                             save_residuals=False, **kw))
     if route == "tc" and name.startswith("bench"):
         # the CUDA-core kernel on the same bf16 inputs: the earlier route
         c["cuda_core_ms"] = time_ms(torch, lambda: fa._launch(
             fa._flash_lib(), "tfp_flash_fwd", q, k, v, qs, ks, SEED,
-            kw["sm_scale"], p_dropout, False, causal=causal))
+            kw["sm_scale"], p_dropout, False, mid=(int(causal),)))
+    if single:
+        # the earlier single-pass kernel on the same inputs
+        c["earlier_ms"] = time_ms(torch, lambda: fa._launch(
+            fa._flash_lib(), "tfp_flash_fwd_single", q, k, v, qs, ks, SEED,
+            kw["sm_scale"], p_dropout, False))
+        if fa.flash_route(dtype, d) == "tc":
+            c["tc_ms"] = time_ms(torch, lambda: fa.flash_fwd(
+                q, k, v, qs, ks, SEED, save_residuals=False, **tiled_kw))
     c["plain_ms"] = time_ms(torch, lambda: plain(q, k, v, qs, ks, SEED,
                                                  **kw))
     c["library_ms"] = None if p_dropout else time_ms(
@@ -764,6 +808,19 @@ def attention_phase(torch, np, fa):
     ] + [(f"s1000_dropout_{'causal' if c else 'full'}_{_dtype_name(t)}",
           2, 8, 1000, 64, t, c, None, 0.2)
          for c in (True, False) for t in (f32, bf16)]
+    # the single-pass kernel off BST: few long problems (q and kv segments
+    # that differ, a q segment that meets no key), two segments at bf16 D16,
+    # and no segments at the largest Skv of bf16 D64 and at bf16 D128 (where
+    # the dispatch takes the tensor cores; forced here, timed beside them)
+    specs += [
+        ("single_long_rows_f32", 16, 8, (1000, 128), 32, f32, False,
+         cross_segments(torch, np, fa, rng, 16), 0.0),
+        ("single_bf16_d16", 64, 8, 200, 16, bf16, False,
+         short_segments(torch, np, rng, 64, 200), 0.0),
+        ("single_nosegments_bf16_d64", 64, 8, 192, 64, bf16, False, None,
+         0.0, True),
+        ("single_nosegments_bf16_d128", 64, 8, 64, 128, bf16, False, None,
+         0.0, True)]
     cases, bench = {}, None
     for name, *spec in specs:
         cases[name], tensors = attention_case(torch, np, fa, name, gen, *spec)
@@ -772,7 +829,8 @@ def attention_phase(torch, np, fa):
         print("attention case", name, json.dumps(cases[name]), flush=True)
     check(cases["bench_causal_bf16"]["kernel"] == "flash_fwd"
           and cases["bench_segments_bf16"]["kernel"] == "flash_fwd"
-          and cases["bst_f32"]["kernel"] == "flash_fwd_single",
+          and all(c["kernel"] == "flash_fwd_single" for n, c in cases.items()
+                  if n.startswith(("bst", "single"))),
           "attention cases did not take the expected routes")
     check(all(c["route"] == ("tc" if c["dtype"] == "bfloat16" else
                              "cuda_core")
@@ -1125,8 +1183,7 @@ def backward_route(fa, call):
 def expected_bwd_route(fa, q, k, causal):
     """``_bwd_dispatch``'s rule, as the checks expect it."""
     d = q.shape[3]
-    if (not causal and fa.single_fits(k.shape[2], d, q.dtype)
-            and fa.flash_route(q.dtype, d) == "cuda_core"):
+    if takes_single(fa, k.shape[2], d, q.dtype, causal):
         return "single"
     return fa.flash_route(q.dtype, d)
 
@@ -1236,6 +1293,19 @@ def backward_case(torch, np, fa, name, gen, q, k, v, causal, seg=None,
     return c, (do, dq, dk, dv)
 
 
+def cross_segments(torch, np, fa, rng, b):
+    """q and kv ids of B rows at Sq 1000 against Skv 128: kv ids from
+    lengths in 1-128; q ids 0 up to a length in 1-1000, then a run of 50
+    rows of segment 1, which meets no key (l = 0), then padding."""
+    kv = fa.make_segment_ids_from_lengths(
+        torch.from_numpy(rng.randint(1, 129, b)).to(DEV), 128)
+    q = np.full((b, 1000), -1, np.int32)
+    for i, n in enumerate(rng.randint(1, 1001, b)):
+        q[i, :n] = 0
+        q[i, n:n + 50] = 1
+    return torch.from_numpy(q).to(DEV), kv
+
+
 def short_segments(torch, np, rng, b, s):
     """Two segments and a padded tail per batch row, the last row all
     padding."""
@@ -1278,16 +1348,9 @@ def attention_backward_phase(torch, np, fa, bench):
                None, 0.2) for c in (True, False) for t in (f32, bf16)]
     specs += [("d_segments_bf16", lambda: rand(4, 8, 2048, 128, bf16), False,
                bench_seg, 0.0)]
-    # (f): kv ids from lengths in 1-128; q ids 0 up to a length in 1-1000,
-    # then a run of segment 1, which meets no key (l = 0), then padding
+    # (f): q and kv ids that differ, a q segment that meets no key
     cross_b = 16
-    kv_cross = fa.make_segment_ids_from_lengths(
-        torch.from_numpy(rng.randint(1, 129, cross_b)).to(DEV), 128)
-    q_cross = np.full((cross_b, 1000), -1, np.int32)
-    for i, n in enumerate(rng.randint(1, 1001, cross_b)):
-        q_cross[i, :n] = 0
-        q_cross[i, n:n + 50] = 1
-    q_cross = torch.from_numpy(q_cross).to(DEV)
+    cross_seg = cross_segments(torch, np, fa, rng, cross_b)
 
     def cross():
         q = torch.randn(cross_b, 8, 1000, 32, device=DEV, generator=gen)
@@ -1295,8 +1358,7 @@ def attention_backward_phase(torch, np, fa, bench):
 
     specs += [("e_short_segments_bf16_d16", lambda: rand(64, 8, 200, 16, bf16),
                False, short_segments(torch, np, rng, 64, 200), 0.0),
-              ("f_sq1000_skv128_f32_d32", cross, False, (q_cross, kv_cross),
-               0.0)]
+              ("f_sq1000_skv128_f32_d32", cross, False, cross_seg, 0.0)]
     cases, bench_grads = {}, None
     for name, make, causal, seg, p in specs:
         q, k, v = make()
@@ -1332,7 +1394,7 @@ def head_dim_case(torch, np, fa, gen, d, dtype, causal, seg):
                    .to(dtype) for _ in range(4))
     dname = _dtype_name(dtype)
     kw = dict(sm_scale=1.0 / float(np.sqrt(d)), p_dropout=0.1)
-    single = not causal and fa.single_fits(s, d, dtype)
+    single = takes_single(fa, s, d, dtype, causal)
     if single:
         fwd_route = None
         got = fa.flash_fwd_single(q, k, v, seg, seg, SEED, **kw)
@@ -2187,10 +2249,14 @@ def routes_entry(name, launches, main, f32_case, f32_ms):
 
 def attention_entry(name, replaces, launches, cases, main_case,
                     f32_case=None):
+    """A forward kernel's entry; the single-pass kernel's adds the earlier
+    single-pass kernel's time on its main case's inputs and, per
+    single-pass case, its time beside the earlier kernel's, the bound and
+    (bf16 at D 64/128) the tensor-core route's."""
     c = cases[main_case]
     routed = name in ROUTED
     e = {"name": name, "route": "cuda",
-         "source": CSRC + ("flash_fwd_tc.cu" if routed else "flash_fwd.cu"),
+         "source": CSRC + ("flash_fwd_tc.cu" if routed else f"{name}.cu"),
          "replaces": replaces, "launches": launches[name],
          "max_abs_err": max(x["max_abs_err"] for x in cases.values()
                             if x["kernel"] == name),
@@ -2200,6 +2266,12 @@ def attention_entry(name, replaces, launches, cases, main_case,
     if routed:
         e.update(routes_entry(name, launches, c, f32_case,
                               cases[f32_case]["ms"]))
+    else:
+        e["earlier_source"] = CSRC + "flash_fwd.cu"
+        e["earlier_ms"] = c["earlier_ms"]
+        e["cases"] = {n: {k: x.get(k) for k in ("ms", "earlier_ms", "tc_ms",
+                                                  "bound_ms", "library_ms")}
+                      for n, x in cases.items() if x["kernel"] == name}
     return e
 
 
@@ -2257,7 +2329,8 @@ def main() -> int:
     libs = _build.build_all()
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.3f} s",
           flush=True)
-    for name in ("flash_fwd_tc", "flash_bwd_tc", "flash_bwd_single"):
+    for name in ("flash_fwd_tc", "flash_bwd_tc", "flash_fwd_single",
+                 "flash_bwd_single"):
         print(f"ptxas {name}: " + " | ".join(_build.ptxas_report(name)),
               flush=True)
 

@@ -223,17 +223,41 @@ def test_flash_fwd_matches_plain(cuda, dtype, d, causal, segments, p_dropout,
     assert torch.equal(out, got[0])
 
 
-@pytest.mark.parametrize("dtype,d,s", [
-    (torch.float32, 8, 200), (torch.bfloat16, 8, 200),
-    (torch.float32, 8, 128), (torch.float32, 64, 60),
-    (torch.bfloat16, 64, 100), (torch.bfloat16, 128, 40)])
-@pytest.mark.parametrize("segments,p_dropout", [
-    (False, 0.0), (True, 0.0), (True, 0.2)])
-def test_flash_fwd_single_matches_plain(cuda, dtype, d, s, segments,
+# (dtype, D, Sq, Skv): odd and round lengths, Sq != Skv both ways (the long
+# query of the Sq 1000 case), and the largest Skv that single_fits admits at
+# f32 D 8 and bf16 D 64 and 128
+SINGLE_FWD_SHAPES = [
+    (torch.float32, 8, 200, 200), (torch.bfloat16, 8, 200, 200),
+    (torch.float32, 8, 128, 128), (torch.float32, 64, 60, 60),
+    (torch.bfloat16, 64, 100, 100), (torch.bfloat16, 128, 40, 40),
+    (torch.float32, 32, 1000, 128), (torch.float32, 8, 77, 150),
+    (torch.float32, 8, 320, 320), (torch.bfloat16, 64, 192, 192),
+    (torch.bfloat16, 128, 64, 64)]
+
+
+@pytest.mark.parametrize("dtype,d,sq,skv", SINGLE_FWD_SHAPES)
+@pytest.mark.parametrize("segments", ["sorted", "bst", "differ", "none"])
+@pytest.mark.parametrize("p_dropout", [0.0, 0.2])
+def test_flash_fwd_single_matches_plain(cuda, dtype, d, sq, skv, segments,
                                         p_dropout):
-    assert fa.single_fits(s, d, dtype)
-    q, k, v, qs, ks = _attention_inputs(s + d, 3, 2, s, s, d, dtype, cuda,
-                                        segments)
+    """The single-pass forward against ``fwd_single_plain`` (f32 within
+    1e-5: another summation order; bf16 within 1e-2). Segments: "sorted"
+    (runs of -1, 0, 1, 2), "bst" (BST's layout, the candidate at 20, the
+    last batch row all padding, and batch row 1's keys all padding),
+    "differ" (q and kv ids apart, a q segment that meets no key) or none.
+    Rows that hit no key give out 0, l 0 and m = mask_value exactly; the
+    tiled kernel computes the same function."""
+    assert fa.single_fits(skv, d, dtype)
+    if segments == "sorted":
+        q, k, v, qs, ks = _attention_inputs(sq + d, 3, 2, sq, skv, d, dtype,
+                                            cuda, True)
+    else:
+        q, k, v, _, _ = _attention_inputs(sq + d, 3, 2, sq, skv, d, dtype,
+                                          cuda, False)
+        gen = torch.Generator().manual_seed(sq + skv)
+        qs, ks = _single_segments(gen, 3, sq, skv, segments, cuda)
+        if segments == "bst":
+            ks[1] = -1
     before = fa.flash_fwd_single.launches
     got = fa.flash_fwd_single(q, k, v, qs, ks, -3, sm_scale=0.3,
                               p_dropout=p_dropout)
@@ -242,10 +266,56 @@ def test_flash_fwd_single_matches_plain(cuda, dtype, d, s, segments,
     want = fa.fwd_single_plain(q, k, v, qs, ks, -3, sm_scale=0.3,
                                p_dropout=p_dropout)
     _assert_close(got, want, dtype)
+    out, l, m = got
+    never = want[1] == 0
+    assert torch.equal(never, l == 0)
+    assert (out.float()[never] == 0).all()
+    assert (m[never] == torch.tensor(fa.DEFAULT_MASK_VALUE)).all()
+    if segments == "bst":
+        assert never[1].all() and never[-1].all()
     # the tiled kernel computes the same function
     _assert_close(got, fa.flash_fwd(q, k, v, qs, ks, -3, causal=False,
                                     sm_scale=0.3, p_dropout=p_dropout),
                   dtype)
+
+
+def test_flash_fwd_single_reruns_bit_identical(cuda):
+    """No atomics: at BST's heads with its segments and dropout, reruns
+    give out, l and m bit for bit; so do other splits of the rows and heads
+    across blocks (each row is computed the same way in any block)."""
+    gen = torch.Generator().manual_seed(3)
+    b, h, s, d = 64, 8, 128, 8
+    q, k, v = (torch.randn(b, h, s, d, generator=gen).to(cuda)
+               for _ in range(3))
+    qs, ks = _single_segments(gen, b, s, s, "bst", cuda)
+    kw = dict(sm_scale=0.35, p_dropout=0.2)
+    got = fa.flash_fwd_single(q, k, v, qs, ks, 5, **kw)
+    for _ in range(3):
+        again = fa.flash_fwd_single(q, k, v, qs, ks, 5, **kw)
+        assert all(torch.equal(x, y) for x, y in zip(again, got))
+    for rows in (fa.single_fwd_tile(d, True), 128):
+        for heads in (1, 3, 8):
+            again = fa._launch(fa._flash_fwd_single_lib(),
+                               "tfp_flash_fwd_single_skip", q, k, v, qs, ks,
+                               5, 0.35, 0.2, True, mid=(rows, heads))
+            assert all(torch.equal(x, y) for x, y in zip(again, got))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_single_fwd_smem_bytes_mirrors_the_kernel(cuda, dtype):
+    """The Python mirror of the kernel's shared-memory layout gives the
+    kernel's own size at every padded D, Skv 1-320, every count of rows
+    per block that the kernel takes, with segments and without."""
+    lib = fa._flash_fwd_single_lib()
+    code = fa._DTYPES[dtype]
+    for d in range(8, 129, 8):
+        for seg in (False, True):
+            tile = fa.single_fwd_tile(d, seg)
+            for skv in (1, 7, 64, 65, 128, 200, 320):
+                for rows in range(tile, 129, tile):
+                    assert lib.tfp_flash_fwd_single_skip_smem(
+                        d, skv, code, rows, seg) == fa.single_fwd_smem_bytes(
+                            skv, d, dtype, rows, seg)
 
 
 def _flipped_bit_moves(p, x, tol):

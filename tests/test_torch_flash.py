@@ -172,8 +172,9 @@ def test_dispatch_routes_as_on_the_card(monkeypatch):
                             calls.append(_n) or _r(*a, **kw))
     launches = (tfa.flash_fwd.launches, tfa.flash_fwd_single.launches)
 
-    def run(s, d, causal):
-        q, k, v = (torch.from_numpy(x) for x in _inputs(1, 1, s, s, d, 0))
+    def run(s, d, causal, dtype=torch.float32):
+        q, k, v = (torch.from_numpy(x).to(dtype)
+                   for x in _inputs(1, 1, s, s, d, 0))
         tfa.flash_attention(q, k, v, causal=causal)
         return calls.pop()
 
@@ -186,6 +187,13 @@ def test_dispatch_routes_as_on_the_card(monkeypatch):
     assert tfa.single_fits(64, 128, torch.bfloat16)
     assert not tfa.single_fits(64, 130, torch.bfloat16)
     assert run(64, 130, False) == "fwd_tiled_plain"
+    # bf16 at a padded D of 64/128 keeps the tensor-core route of the tiled
+    # kernel though the KV fits; other widths, and f32, take the single pass
+    assert run(64, 128, False, torch.bfloat16) == "fwd_tiled_plain"
+    assert run(192, 64, False, torch.bfloat16) == "fwd_tiled_plain"
+    assert run(64, 60, False, torch.bfloat16) == "fwd_tiled_plain"
+    assert run(200, 16, False, torch.bfloat16) == "fwd_single_plain"
+    assert run(64, 64, False) == "fwd_single_plain"
     # CPU calls run the plain versions and launch nothing
     assert (tfa.flash_fwd.launches, tfa.flash_fwd_single.launches) \
         == launches
@@ -506,3 +514,92 @@ def test_single_backward_fits_wherever_the_single_pass_does():
                     tfa.SMEM_PER_BLOCK, (dtype, d, skv)
                 skv += 1
     assert tfa.single_bwd_smem_bytes(128, 8, torch.float32) == 36240
+
+
+def _pad_rows_and_keys(x, seg, scale, seed):
+    """``x`` [B, H, S, D] with the rows at padding positions (seg < 0)
+    overwritten by randn·scale."""
+    noise = torch.from_numpy(np.random.RandomState(seed).randn(*x.shape)
+                             .astype(np.float32)) * scale
+    pad = (seg < 0)[:, None, :, None]
+    return torch.where(pad, noise, x)
+
+
+@pytest.mark.parametrize("p_dropout", [0.0, 0.3])
+def test_single_pass_skip_of_padding_is_exact(p_dropout):
+    """What the single-pass kernel relies on to skip padding, on its plain
+    version (BST's layout, f32): the q, k and v of padding rows and keys
+    change no bit of out, l or m on the other rows, and a padding row gives
+    out 0, l 0 and m = mask_value exactly, whatever its q, k and v."""
+    b, h, s, d = 3, 2, 128, 8
+    q, k, v = (torch.from_numpy(x) for x in _inputs(b, h, s, s, d, seed=8))
+    seg = torch.from_numpy(_bst_segments(b, s, seed=9))
+    kw = dict(sm_scale=d ** -0.5, p_dropout=p_dropout)
+    want = tfa.fwd_single_plain(q, k, v, seg, seg, 5, **kw)
+    noisy = [_pad_rows_and_keys(x, seg, 100.0, i) for i, x in
+             enumerate((q, k, v))]
+    got = tfa.fwd_single_plain(*noisy, seg, seg, 5, **kw)
+    valid = (seg >= 0)[:, None, :].expand(b, h, s)
+    for g, w in zip(got, want):
+        assert torch.equal(g[valid], w[valid])
+    out, l, m = got
+    assert (out[~valid] == 0).all() and (l[~valid] == 0).all()
+    assert (m[~valid] == torch.tensor(tfa.DEFAULT_MASK_VALUE)).all()
+
+
+def test_single_pass_rows_that_meet_no_key():
+    """The edges of the skip, on the plain version: a batch row whose keys
+    are all padding, and a q segment that no key carries. Their rows give
+    out 0, l 0 and m = mask_value exactly; the other rows are those of a
+    run in which the unmatched rows are padding."""
+    b, h, s, d = 3, 2, 64, 8
+    q, k, v = (torch.from_numpy(x) for x in _inputs(b, h, s, s, d, seed=10))
+    kv_seg = torch.from_numpy(_bst_segments(b, s, seed=11))
+    kv_seg[0] = -1                               # batch row 0: no key
+    q_seg = kv_seg.clone()
+    q_seg[0, :5] = 0
+    q_seg[1, 30:34] = 2                          # segment 2: no key
+    kw = dict(sm_scale=0.3, p_dropout=0.2)
+    out, l, m = tfa.fwd_single_plain(q, k, v, q_seg, kv_seg, 3, **kw)
+    lone = torch.zeros_like(q_seg, dtype=torch.bool)
+    lone[0, :5] = True
+    lone[1, 30:34] = True
+    lone = lone[:, None, :].expand(b, h, s)
+    assert (out[lone] == 0).all() and (l[lone] == 0).all()
+    assert (m[lone] == torch.tensor(tfa.DEFAULT_MASK_VALUE)).all()
+    ref = tfa.fwd_single_plain(q, k, v, torch.where(lone[:, 0], -1, q_seg),
+                               kv_seg, 3, **kw)
+    for g, w in zip((out, l, m), ref):
+        assert torch.equal(g, w)
+
+
+def test_single_forward_fits_wherever_the_single_pass_does():
+    """``single_fwd_smem_bytes`` (the single-pass forward kernel's layout:
+    Q of 128 rows, K and V of Skv rounded up to 64 rows, the f32 score tile
+    of ``single_fwd_tile`` rows by those keys, and the index lists) fits
+    one block at every Skv and head dim that ``single_fits`` admits, f32
+    and bf16, with segments and without, at the most rows a block takes;
+    so ``_fwd_dispatch`` needs no fit rule of its own. BST's heads take
+    35,856 bytes."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in range(1, 137):
+            skv = 1
+            while tfa.single_fits(skv, d, dtype):
+                for seg in (False, True):
+                    assert tfa.single_fwd_smem_bytes(
+                        skv, d, dtype, segments=seg) <= tfa.SMEM_PER_BLOCK, (
+                            dtype, d, skv, seg)
+                skv += 1
+    assert tfa.single_fwd_smem_bytes(128, 8, torch.float32) == 35856
+
+
+@pytest.mark.parametrize("b,h,sq,rows,heads", [
+    (2048, 8, 128, 128, 8),        # BST's heads: all eight heads per block
+    (16, 8, 1000, 64, 1),          # few long problems: 64-row chunks
+    (64, 8, 200, 64, 1), (4, 8, 128, 128, 1), (512, 8, 128, 128, 2),
+    (1500, 4, 20, 64, 4), (64, 8, 64, 64, 1)])
+def test_single_forward_block_shape_follows_the_shapes(b, h, sq, rows, heads):
+    """Rows and heads per block come from B, H and Sq alone (no look at the
+    data): 128 rows for Sq of 65-128, else 64; a block takes up to 8 heads
+    while the grid keeps at least eight blocks per SM."""
+    assert tfa.single_fwd_config(b, h, sq) == (rows, heads)

@@ -29,8 +29,11 @@
 // tensor-core kernel of flash_fwd_tc.cu instead; these serve f32 and the
 // other widths. BST's heads (B2048 H8 S128 D8 f32, about 11 valid tokens of
 // 128) need 0.085 GFLOP of valid work on 87 MB (the valid rows of q, k, v
-// and all of out): bytes bound them (26 us); the kernel reads the padded
-// rows too.
+// and all of out): bytes bound them (26 us); the single-pass kernel here
+// reads the padded rows too. So flash_fwd_single now launches the kernel of
+// flash_fwd_single.cu, which skips padding; tfp_flash_fwd_single stays as
+// the earlier route, which chip_smoke.py times beside it on the same
+// inputs, and no wrapper launches it.
 //
 // Design. A block of 128 threads owns 64 query rows of one (b, h): thread
 // (ty = tid / 8, tx = tid % 8) owns rows 4ty..4ty+3 and, within each 64-key
@@ -44,7 +47,8 @@
 // ran in order; here nothing carries between blocks). The single-pass kernel
 // keeps all keys of the row in the score tile, which bounds it to what fits
 // (the wrapper routes larger KV, and D above 128, to the tiled kernel).
-// Causal blocks are launched heaviest first. The accumulator is sized for
+// (flash_fwd_single.cu keeps this kernel's tiles for the listed rows and
+// keys.) Causal blocks are launched heaviest first. The accumulator is sized for
 // the next power of two of D/8, up to 16 (D 128). The tiled kernel takes
 // any D: a block holds at most kDC = 128 columns of a tile at a time, so
 // above that the grid splits the output's D into 128-column chunks; each

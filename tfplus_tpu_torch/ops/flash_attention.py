@@ -13,9 +13,13 @@ Hand-written Hopper kernels replace the four Pallas kernels:
   softmax over 64-key tiles, tiles above the diagonal skipped under causal
   masking (``csrc/flash_fwd.cu``);
 * :func:`flash_fwd_single` replaces ``_fwd_single``
-  (``_fwd_single_kernel``): the whole K and V of one (batch, head) in
-  shared memory, one qkᵀ, one softmax and one pv, no online rescale
-  (``csrc/flash_fwd.cu``);
+  (``_fwd_single_kernel``): the whole KV of one (batch, head) at once, one
+  qkᵀ, one softmax and one pv, no online rescale, and padding skipped:
+  a block lists the rows and keys whose segment id is not negative, loads
+  only those, and writes the outputs of the other rows (out 0, l 0, m =
+  mask_value) without reading them (``csrc/flash_fwd_single.cu``; the
+  earlier single-pass kernel, ``flash_fwd_single_kernel`` in
+  ``csrc/flash_fwd.cu``, is timed beside it and no wrapper launches it);
 * :func:`flash_bwd_dkv` replaces ``_bwd_pallas``'s ``_bwd_dkv_kernel``: dk
   and dv of a 64-key tile, looping over the 64-row q tiles
   (``csrc/flash_bwd.cu``);
@@ -36,7 +40,8 @@ the CUDA-core kernels above. f32 never takes the tensor cores, whose only
 f32 input is TF32 (about three digits). The products of the tensor-core
 route are bf16 with f32 accumulation, as the JAX kernels feed the TPU's
 matrix unit. :func:`flash_fwd_single` and :func:`flash_bwd_single` have one
-route each, on the CUDA cores.
+route each, on the CUDA cores, and the dispatch sends them only what that
+route serves.
 
 Head dims. The JAX kernels take any D, and so do these wrappers: on the
 card each pads q, k, v (and do) with zero columns up to the next multiple
@@ -48,8 +53,8 @@ CUDA-core kernels hold at most 128 columns of a tile at a time: above
 that, each block writes one 128-column chunk of its output and streams the
 full D through its tiles chunk by chunk to form s (and dp), in one fixed
 order, so every chunk sees the same s and l, m come from chunk 0. The
-single-pass forward keeps a whole D of at most 128 in registers, so
-:func:`single_fits` sends wider heads to the tiled kernel. The plain
+single-pass kernels hold a whole D of at most 128, so :func:`single_fits`
+sends wider heads to the tiled kernel. The plain
 versions take any D unpadded.
 
 Each wrapper launches its kernel on a CUDA tensor and runs the plain PyTorch
@@ -62,21 +67,23 @@ attribute (``flash_fwd.launches``, ...); the routed wrappers also count
 them per route (``tc_launches`` and ``cuda_core_launches``).
 
 Routing (:func:`_fwd_dispatch`) keeps the JAX decision "not causal, and the
-whole KV fits one block". On the TPU a block lives in VMEM (megabytes), so
-JAX takes the single-step kernel up to Skv = 4096. An H100 block has at most
-227 KB of shared memory, so here "fits" means that the single-pass block's
-shared memory (its 64 query rows, the whole K and V, and the 64 × Skv score
-tile) takes at most half of that, so that two blocks share an SM: BST's
-heads (Skv 128, D 8, f32) need 46 KB. Anything larger goes to the tiled
-kernel. Both routes compute the same function.
+whole KV fits one block", and adds a third condition: the dtype and head
+dim keep the CUDA cores (:func:`flash_route` ``"cuda_core"``), since bf16
+at D 64/128 runs faster on the tiled kernel's tensor-core route. On the TPU
+a block lives in VMEM (megabytes), so JAX takes the single-step kernel up
+to Skv = 4096. An H100 block has at most 227 KB of shared memory, so here
+"fits" means that the earlier single-pass kernel's block (64 query rows,
+the whole K and V, and the 64 × Skv score tile; :func:`single_smem_bytes`)
+takes at most half of that. The rule stays that of the earlier kernel:
+the single-pass kernels' own layouts (:func:`single_fwd_smem_bytes`,
+:func:`single_bwd_smem_bytes`) fit a block wherever it holds. Anything
+larger goes to the tiled kernel. Both routes compute the same function.
 
 The backward routes by the same rule (:func:`_bwd_dispatch`): not causal,
-:func:`single_fits`, and a dtype and head dim that keep the CUDA cores
-(:func:`flash_route` ``"cuda_core"``) take :func:`flash_bwd_single`, whose
-shared memory (:func:`single_bwd_smem_bytes`) fits a block wherever
-:func:`single_fits` holds; everything else takes :func:`flash_bwd_dkv` and
-:func:`flash_bwd_dq` on their two routes. So bf16 at D 64/128 keeps the
-tensor cores even where the forward took the single pass.
+:func:`single_fits`, and a dtype and head dim that keep the CUDA cores take
+:func:`flash_bwd_single`; everything else takes :func:`flash_bwd_dkv` and
+:func:`flash_bwd_dq` on their two routes. So the backward takes the single
+pass exactly where the forward did.
 
 Ragged lengths are masked inside the kernels (keys past Skv score
 ``mask_value``, rows past Sq are not stored), which gives on every real
@@ -118,6 +125,11 @@ _SINGLE_SMEM_MAX = SMEM_PER_BLOCK // 2
 _BWD_SINGLE_SCAN = 128
 _BWD_SINGLE_ROWS = 32
 _BWD_SINGLE_KEYS = 32
+# csrc/flash_fwd_single.cu: the most query rows one block takes, and the
+# fewest blocks a launch keeps when blocks take several heads (eight to
+# each of an H100's 132 SMs)
+_SINGLE_FWD_ROWS = 128
+_SINGLE_FWD_MIN_BLOCKS = 8 * 132
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # head dims of the tensor-core kernels (csrc/flash_fwd_tc.cu,
@@ -453,6 +465,56 @@ def single_fits(skv: int, d: int, dtype: torch.dtype) -> bool:
         <= _SINGLE_SMEM_MAX
 
 
+def single_fwd_tile(d: int, segments: bool) -> int:
+    """Rows of :func:`flash_fwd_single`'s score tile at the padded D of
+    ``d``, with segment ids or without (``tile_rows`` in
+    flash_fwd_single.cu): 32 with segments up to D 32, where a small tile
+    lets more blocks share an SM, else 64, the earlier kernel's tile."""
+    return 32 if segments and padded_head_dim(d) <= 32 else BLOCK_Q
+
+
+def single_fwd_config(b: int, h: int, sq: int) -> tuple:
+    """``(rows, heads)`` of one :func:`flash_fwd_single` block, from the
+    shapes alone: it takes ``rows`` positional query rows of ``heads``
+    heads of one batch row. Sq of 65-128 is one 128-row chunk per problem;
+    other queries are split into 64-row chunks across blocks (a block's Q
+    space follows ``rows``, so short queries keep the earlier kernel's
+    shared memory). A block takes as many heads (up to 8) as keep the grid
+    at least
+    ``_SINGLE_FWD_MIN_BLOCKS`` blocks: the heads of one batch row share
+    their segment ids, so the block lists them once and loads the heads'
+    listed rows together, which pays where each head holds little work
+    (BST's heads), and costs parallelism where few problems hold much."""
+    rows = _SINGLE_FWD_ROWS if BLOCK_Q < sq <= _SINGLE_FWD_ROWS else BLOCK_Q
+    chunks = b * -(-sq // rows)
+    heads = 8
+    while heads > 1 and chunks * -(-h // heads) < _SINGLE_FWD_MIN_BLOCKS:
+        heads //= 2
+    return rows, min(heads, h)
+
+
+def single_fwd_smem_bytes(skv: int, d: int, dtype: torch.dtype,
+                          rows: int = _SINGLE_FWD_ROWS,
+                          segments: bool = True) -> int:
+    """Shared memory of one :func:`flash_fwd_single` block at the padded D
+    of ``d``, as ``smem_layout`` in flash_fwd_single.cu lays it out: Q of
+    ``rows`` rows and K of Skv rounded up to 64 rows (rows padded by 16
+    bytes), V of as many rows, the f32 score tile of
+    :func:`single_fwd_tile` rows by those keys plus 4, the keys' positions
+    and segments, the rows' positions, segments and flags, and the ballot
+    counts."""
+    d = padded_head_dim(d)
+    tile = single_fwd_tile(d, segments)
+    esz = torch.empty((), dtype=dtype).element_size()
+    ld, keys = d + 16 // esz, -(-skv // BLOCK_K) * BLOCK_K
+    total = _align16(rows * ld * esz)                      # Q
+    total = _align16(total + keys * ld * esz)              # K
+    total = _align16(total + keys * d * esz)               # V
+    total = _align16(total + tile * (keys + 4) * 4)        # scores
+    total += 2 * keys * 4 + 3 * rows * 4
+    return _align16(total + (_BWD_SINGLE_SCAN // 32) * 4)
+
+
 def single_bwd_smem_bytes(skv: int, d: int, dtype: torch.dtype) -> int:
     """Shared memory of one :func:`flash_bwd_single` block at the padded
     D of ``d``, as ``smem_layout`` in flash_bwd_single.cu lays it out: K
@@ -532,6 +594,18 @@ def _flash_lib() -> ctypes.CDLL:
         lib.tfp_flash_fwd.restype = _int
         lib.tfp_flash_fwd_single.argtypes = common + _TAIL
         lib.tfp_flash_fwd_single.restype = _int
+        lib._tfp_typed = True
+    return lib
+
+
+def _flash_fwd_single_lib() -> ctypes.CDLL:
+    lib = _build.library("flash_fwd_single")
+    if not getattr(lib, "_tfp_typed", False):
+        lib.tfp_flash_fwd_single_skip.argtypes = [_ptr] * 8 + [_int] * 8 \
+            + _TAIL
+        lib.tfp_flash_fwd_single_skip.restype = _int
+        lib.tfp_flash_fwd_single_skip_smem.argtypes = [_int] * 5
+        lib.tfp_flash_fwd_single_skip_smem.restype = ctypes.c_longlong
         lib._tfp_typed = True
     return lib
 
@@ -637,7 +711,9 @@ def _ptr_of(t):
 
 
 def _launch(lib, fn_name, q, k, v, q_seg, kv_seg, seed, sm_scale, p_dropout,
-            save_residuals, causal=None):
+            save_residuals, mid=()):
+    """``mid``: the kernel's int arguments after the dtype (the causal flag,
+    or the single-pass kernel's rows and heads per block)."""
     b, h, sq, d = q.shape
     if q.numel() == 0 or k.shape[2] == 0:
         raise ValueError("flash attention needs B, H, Sq, Skv, D > 0")
@@ -650,7 +726,6 @@ def _launch(lib, fn_name, q, k, v, q_seg, kv_seg, seed, sm_scale, p_dropout,
     head = [q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr_of(q_seg),
             _ptr_of(kv_seg), out.data_ptr(), _ptr_of(l), _ptr_of(m), b, h,
             sq, k.shape[2], d, _DTYPES[q.dtype]]
-    mid = [] if causal is None else [int(causal)]
     err = getattr(lib, fn_name)(
         *head, *mid, *_kernel_tail(seed, sm_scale, p_dropout, q.device))
     if err != 0:
@@ -675,7 +750,7 @@ def flash_fwd(q, k, v, q_seg, kv_seg, seed, *, causal: bool, sm_scale: float,
                     else (_flash_lib(), "tfp_flash_fwd"))
     out, l, m = _launch(lib, fn_name, *pad_head_dim(q, k, v), q_seg, kv_seg,
                         seed, sm_scale, p_dropout, save_residuals,
-                        causal=causal)
+                        mid=(int(causal),))
     _count(flash_fwd, route)
     return _unpad(out, d), l, m
 
@@ -697,9 +772,10 @@ def flash_fwd_single(q, k, v, q_seg, kv_seg, seed, *, sm_scale: float,
     if not single_fits(k.shape[2], q.shape[3], q.dtype):
         raise ValueError(f"Skv {k.shape[2]} at D {q.shape[3]} does not fit "
                          "the single-pass kernel's block")
-    out, l, m = _launch(_flash_lib(), "tfp_flash_fwd_single",
+    out, l, m = _launch(_flash_fwd_single_lib(), "tfp_flash_fwd_single_skip",
                         *pad_head_dim(q, k, v), q_seg, kv_seg, seed, sm_scale,
-                        p_dropout, save_residuals)
+                        p_dropout, save_residuals,
+                        mid=single_fwd_config(*q.shape[:3]))
     flash_fwd_single.launches += 1
     return _unpad(out, q.shape[3]), l, m
 
@@ -707,11 +783,23 @@ def flash_fwd_single(q, k, v, q_seg, kv_seg, seed, *, sm_scale: float,
 flash_fwd_single.launches = 0
 
 
+def _single_pass(q, k, causal) -> bool:
+    """The dispatches' rule: the single-pass kernels when not causal, the
+    whole KV fits one block and the CUDA cores serve the dtype and D
+    (:func:`flash_route`). Else the tiled kernels: causal keeps them for
+    their tile skip, and bf16 at D 64/128 takes their tensor-core route,
+    which the H100 runs several times faster than the single pass on the
+    CUDA cores (PERF.md)."""
+    d = q.shape[3]
+    return (not causal and single_fits(k.shape[2], d, q.dtype)
+            and flash_route(q.dtype, d) == "cuda_core")
+
+
 def _fwd_dispatch(q, k, v, q_seg, kv_seg, seed, causal, sm_scale, p_dropout,
                   save_residuals):
-    """Single-pass kernel when not causal and the whole KV fits one block
-    (causal keeps the tiled kernel, whose tile skip saves half the work)."""
-    if not causal and single_fits(k.shape[2], q.shape[3], q.dtype):
+    """:func:`flash_fwd_single` or :func:`flash_fwd`, by
+    :func:`_single_pass`."""
+    if _single_pass(q, k, causal):
         return flash_fwd_single(q, k, v, q_seg, kv_seg, seed,
                                 sm_scale=sm_scale, p_dropout=p_dropout,
                                 save_residuals=save_residuals)
@@ -825,12 +913,9 @@ flash_bwd_single.launches = 0
 def _bwd_dispatch(q, k, v, q_seg, kv_seg, seed, do, l, m, di, causal,
                   sm_scale, p_dropout):
     """``(dq, dk, dv)``: :func:`flash_bwd_single` where the forward took the
-    single pass (not causal, :func:`single_fits`) and the CUDA cores serve
-    this dtype and D; else :func:`flash_bwd_dkv` and :func:`flash_bwd_dq`
-    (bf16 at D 64/128 on the tensor cores)."""
-    d = q.shape[3]
-    if (not causal and single_fits(k.shape[2], d, q.dtype)
-            and flash_route(q.dtype, d) == "cuda_core"):
+    single pass (:func:`_single_pass`); else :func:`flash_bwd_dkv` and
+    :func:`flash_bwd_dq`."""
+    if _single_pass(q, k, causal):
         return flash_bwd_single(q, k, v, q_seg, kv_seg, seed, do, l, m, di,
                                 sm_scale=sm_scale, p_dropout=p_dropout)
     kw = dict(causal=causal, sm_scale=sm_scale, p_dropout=p_dropout)
