@@ -16,9 +16,11 @@ failed check:
    the single-pass forward and backward.
 2. Kernels: every row kernel is held bit-exact against its plain PyTorch
    version at the shapes the serving paths give it (f32 and bf16, widths
-   64/128/384; 32,768 indices with negative, duplicated and edge values;
-   the DCN's 2,048-row gathers and 2^19-row fill scatters) and timed beside
-   it and beside one PyTorch call that computes the same function.
+   64/128/384, and f32 widths 1 and 3, the 4- and 12-byte rows of DeepFM's
+   and Wide&Deep's linear tables; 32,768 indices with negative, duplicated
+   and edge values; the DCN's 2,048-row gathers and 2^19-row fill
+   scatters) and timed beside it and beside one PyTorch call that computes
+   the same function.
 3. Embedding serving (the bench's serving-leg shape): a 1M-row dim-128
    table filled by ``lookup_or_insert`` of 32,768 ids, then repeated
    ``lookup_or_zeros`` of those ids and their reversal.
@@ -109,14 +111,40 @@ failed check:
 16. One growth at reference size: a dim-128 GroupAdam table of 2^20 rows with
    2^19 keys grown to 2^21, then compacted after a third of its keys are
    deleted, each timed against its byte bound and checked row for row.
+17. The serving API on DLRM at its Criteo Kaggle widths
+   (facebookresearch/dlrm ``bench/dlrm_s_criteo_kaggle.sh``: 26 tables of
+   dim 16, bottom MLP 13-512-256-64-16, top 512-256-1; cut to 2^20 rows
+   per table holding 2^18 keys): batch-2048 requests (5 % unknown ids)
+   against a float64 forward; ``export_for_serving``; ``load_for_serving``
+   with no templates (predictions bit for bit) and as int8 tables (lookups
+   bit for bit against the CPU on the same int8 table, within max|row|/254
+   of the f32 rows); three Adam steps of the live tables and a delta save;
+   ``refresh_from_delta`` of both (f32 rows per key bit for bit with the
+   trainer's and no slot columns; int8 within the bound). Seconds and
+   GB/s of export, loads and refresh, and peak memory.
+18. The int8 lookup at the bench's serving-leg shape (a 2^20-row dim-128
+   table filled with 32,768 ids): ``quantize_table`` bit for bit against
+   the CPU, ``quant.lookup_or_zeros`` of the ids and their reversal in
+   ids/s beside ``kv.lookup_or_zeros``, in turns. Then on that table each
+   of the 7 ``scatter`` ops over 32,768 ids half present, ``get_count``,
+   ``get_timestamp`` and a TTL eviction of a known share, against the same
+   calls on a CPU copy bit for bit; and ``safe_embedding_lookup_sparse``
+   over 2,048 rows of 1-20 ids (each combiner, weighted and not, negative
+   and unknown ids, a default id), rerun bit for bit and within 1e-6 of
+   the CPU's scale.
+19. DeepFM and Wide&Deep (26 fields of dim 16 and 26 dim-1 tables, DNN
+   256-128) and NCF (dim 32, 256-64), the examples' widths, on 2^14-row
+   tables: three Adam steps on the card against the CPU as in phase 10,
+   then batch-2048 serving against a float64 forward.
 
 Each path (the serving and training paths, the flash entry points, the
-compactor entry point and the growth, checkpoint and repartition paths) runs
+compactor entry point, the growth, checkpoint and repartition paths, and
+the serving-API, int8, table-op and CTR-model paths) runs
 with the kernels' launch counts set to 0 just before it and read just after
 it. Each phase frees its tables before the next and prints the peak device
 memory it reached. The line before the last is the ``{"kernels": [...]}``
-JSON, after the ``{"serving": ...}``, ``{"training": ...}`` and
-``{"growth": ...}`` lines; the last line is ``{"ok": true, "device":
+JSON, after the ``{"serving": ...}``, ``{"training": ...}``,
+``{"growth": ...}`` and ``{"serving_api": ...}`` lines; the last line is ``{"ok": true, "device":
 {...}}``. Without a card, or without the port beside it, the script exits
 non-zero and prints no result.
 """
@@ -211,6 +239,21 @@ COMPACT_M, COMPACT_W, COMPACT_R = 1_572_864, 256, 128
 GROW_START_ROWS = 1 << 14
 GROW_STEPS = 12
 GROW_SAVES = (6, 9, 12)
+
+
+# facebookresearch/dlrm bench/dlrm_s_criteo_kaggle.sh: sparse feature size
+# 16, bottom MLP 13-512-256-64-16, top MLP 512-256-1 over 26 tables; cut to
+# 2^20 rows per table holding 2^18 keys (Kaggle's largest vocabularies reach
+# ~10M)
+DLRM_CONFIG = dict(num_tables=26, embedding_dim=16, num_numeric=13,
+                   bottom_hidden=(512, 256, 64, 16), top_hidden=(512, 256))
+DLRM_ROWS, DLRM_FILL = 1 << 20, 1 << 18
+CTR_ROWS = 1 << 14               # DeepFM, Wide&Deep and NCF tables
+# the int8 bound max|row|/254 holds in exact arithmetic; the float32
+# division by the scale, the product by it and the f32 rebuild before a
+# refresh each round by half an ulp of values up to max|row|: 2^-12 of the
+# bound covers them with room to spare
+QUANT_SLACK = 2.0 ** -12
 
 
 def check(cond, what):
@@ -328,6 +371,9 @@ def kernel_phase(torch, rowops):
     shapes = [(dtype, width, N_IDS)
               for dtype in (torch.float32, torch.bfloat16)
               for width in (64, 128, 384)]
+    # the dim-1 and dim-3 tables' 4- and 12-byte rows (DeepFM's and
+    # Wide&Deep's linear weights)
+    shapes += [(torch.float32, width, N_IDS) for width in (1, 3)]
     # the DCN request's gathers and the DCN fill's scatters
     shapes += [(torch.float32, width, n)
                for n in (BATCH, FILL) for width in (64, 128)]
@@ -1711,6 +1757,73 @@ def state_arrays(torch, state):
             {k: v.detach().cpu() for k, v in state.dense.state_dict().items()})
 
 
+def card_against_cpu(torch, np, kv, models, convert, model, opt, lr,
+                     dense_lr, init, tx, batches):
+    """``batches`` of training steps from ``init`` (a CPU state) on the CPU
+    and on the card: headers and the batches' slots bit for bit, losses and
+    step 1's dense gradients within ``TRAIN_TOL``, the placed rows and the
+    dense parameters within its tight limits on all but a share of
+    elements and within a step's learning rate per step everywhere. Returns
+    the comparison and raises if it fails."""
+    states, losses, grads = {}, {}, {}
+    for dev in ("cpu", DEV):
+        states[dev], losses[dev], grads[dev] = run_steps(
+            models, model, opt, lr,
+            copy_state(torch, convert, models, init, dev, tx), batches)
+    (tc, pc), (tg, pg) = (state_arrays(torch, states[d])
+                          for d in ("cpu", DEV))
+    alias = getattr(model, "id_alias", {})
+
+    def slots(dev, n):
+        ids = np.concatenate([b["ids"][alias.get(n, n)] for b in batches])
+        return kv.find(states[dev].tables[n],
+                       kv.encode_ids(ids, device=dev)).slot.cpu()
+
+    atol, rtol = TRAIN_TOL["atol"], TRAIN_TOL["rtol"]
+
+    def diff(got, want, step_lr):
+        """Share of elements past the tight limit, and the largest
+        difference in learning rates."""
+        over = total = 0
+        worst = 0.0
+        for g, w in zip(got, want):
+            g, w = g.double(), w.double()
+            d = (g - w).abs()
+            over += int((d > atol + rtol * w.abs()).sum())
+            total += w.numel()
+            worst = max(worst, float(d.max()) / step_lr)
+        return {"share_past_tight": over / total, "elements": total,
+                "max_abs_err_in_lr": worst}
+
+    c = {"headers_bit_identical": all(torch.equal(tc[n][0], tg[n][0])
+                                      for n in tc),
+         "slots_bit_identical": all(torch.equal(slots("cpu", n),
+                                                slots(DEV, n)) for n in tc),
+         "loss_cpu": losses["cpu"], "loss_card": losses[DEV],
+         "loss_max_abs_err": max(abs(a - b) for a, b in
+                                 zip(losses["cpu"], losses[DEV])),
+         # step 1's dense gradients, each tensor against its own scale
+         "grad_err_ratio": max(
+             float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+             for g, w in zip(grads[DEV], grads["cpu"]))
+         / TRAIN_TOL["grad"],
+         # the rows the steps placed (equal headers: equal rows)
+         "payload": diff(*([t[n][1][kv.occupied_mask(
+             states["cpu"].tables[n])] for n in tc] for t in (tg, tc)),
+             lr),
+         "dense": diff([pg[k] for k in pc], [pc[k] for k in pc], dense_lr)}
+    check(c["headers_bit_identical"] and c["slots_bit_identical"]
+          and c["loss_max_abs_err"] <= TRAIN_TOL["loss"] * max(
+              1.0, max(abs(x) for x in losses["cpu"]))
+          and c["grad_err_ratio"] <= 1
+          and all(c[k]["share_past_tight"] <= TRAIN_TOL["share"]
+                  and c[k]["max_abs_err_in_lr"] <= len(batches)
+                  for k in ("payload", "dense")),
+          f"{type(model).__name__}: training on the card differs from the "
+          f"CPU: {c}")
+    return c
+
+
 def training_checks_phase(torch, np, kv, models, train, convert):
     """(1) card against CPU, (2) determinism, (3) the loss falls; each at the
     reference widths with tables of 2^14 rows."""
@@ -1722,56 +1835,9 @@ def training_checks_phase(torch, np, kv, models, train, convert):
         init = models.init_state(model, opt, tx, seed=SEED + 10 + i,
                                  device="cpu")
         # (1) batch-256 steps on the CPU and on the card
-        batches = [batch(CHECK_BATCH) for _ in range(CHECK_STEPS)]
-        states, losses, grads = {}, {}, {}
-        for dev in ("cpu", DEV):
-            states[dev], losses[dev], grads[dev] = run_steps(
-                models, model, opt, lr,
-                copy_state(torch, convert, models, init, dev, tx), batches)
-        (tc, pc), (tg, pg) = (state_arrays(torch, states[d])
-                              for d in ("cpu", DEV))
-        slots_equal = all(
-            torch.equal(kv.find(states["cpu"].tables[n], kv.encode_ids(
-                np.concatenate([b["ids"][n] for b in batches]),
-                device="cpu")).slot,
-                kv.find(states[DEV].tables[n], kv.encode_ids(
-                    np.concatenate([b["ids"][n] for b in batches]),
-                    device=DEV)).slot.cpu())
-            for n in tc)
-        atol, rtol = TRAIN_TOL["atol"], TRAIN_TOL["rtol"]
-
-        def diff(got, want, step_lr):
-            """Share of elements past the tight limit, and the largest
-            difference in learning rates."""
-            over = total = 0
-            worst = 0.0
-            for g, w in zip(got, want):
-                g, w = g.double(), w.double()
-                d = (g - w).abs()
-                over += int((d > atol + rtol * w.abs()).sum())
-                total += w.numel()
-                worst = max(worst, float(d.max()) / step_lr)
-            return {"share_past_tight": over / total, "elements": total,
-                    "max_abs_err_in_lr": worst}
-
-        c = {"headers_bit_identical": all(torch.equal(tc[n][0], tg[n][0])
-                                          for n in tc),
-             "slots_bit_identical": slots_equal,
-             "loss_cpu": losses["cpu"], "loss_card": losses[DEV],
-             "loss_max_abs_err": max(abs(a - b) for a, b in
-                                     zip(losses["cpu"], losses[DEV])),
-             # step 1's dense gradients, each tensor against its own scale
-             "grad_err_ratio": max(
-                 float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
-                 for g, w in zip(grads[DEV], grads["cpu"]))
-             / TRAIN_TOL["grad"],
-             # the rows the steps placed (equal headers: equal rows)
-             "payload": diff(*([t[n][1][kv.occupied_mask(
-                 states["cpu"].tables[n])] for n in tc] for t in (tg, tc)),
-                 lr),
-             "dense": diff([pg[k] for k in pc], [pc[k] for k in pc],
-                           dense_lr)}
-        del states, tc, pc, tg, pg
+        c = card_against_cpu(
+            torch, np, kv, models, convert, model, opt, lr, dense_lr, init,
+            tx, [batch(CHECK_BATCH) for _ in range(CHECK_STEPS)])
         # (2) two runs of batch-2048 steps on the card from clones of one
         # state
         batches = [batch(BATCH) for _ in range(CHECK_STEPS)]
@@ -1791,14 +1857,6 @@ def training_checks_phase(torch, np, kv, models, train, convert):
                                           tx), [batches[0]] * 10)
         c["loss_on_one_batch"] = [falling[0], falling[-1]]
         print(f"{name} training checks:", json.dumps(c), flush=True)
-        check(c["headers_bit_identical"] and c["slots_bit_identical"]
-              and c["loss_max_abs_err"] <= TRAIN_TOL["loss"] * max(
-                  1.0, max(abs(x) for x in losses["cpu"]))
-              and c["grad_err_ratio"] <= 1
-              and all(c[k]["share_past_tight"] <= TRAIN_TOL["share"]
-                      and c[k]["max_abs_err_in_lr"] <= CHECK_STEPS
-                      for k in ("payload", "dense")),
-              f"{name}: training on the card differs from the CPU: {c}")
         check(c["rerun_bit_identical"],
               f"{name}: two runs of the same steps differ on the card")
         check(falling[-1] < falling[0],
@@ -1920,11 +1978,12 @@ def compactor_phase(torch, ops, compactor):
     return launches, cases, timing, peak_memory(torch, "compactor")
 
 
-def payload_bytes(tbundle, prefix):
-    """Bytes of the values and slot columns in one bundle."""
+def payload_bytes(tbundle, prefix, slots=True):
+    """Bytes of the values (and, with ``slots``, the slot columns) in one
+    bundle."""
     index = tbundle.BundleReader(prefix)._index
     return sum(e.get("nbytes", 0) for k, e in index.items()
-               if k.endswith("-values") or "-slot-" in k)
+               if k.endswith("-values") or (slots and "-slot-" in k))
 
 
 def table_by_key(np, kv, rowops, t, day):
@@ -2223,6 +2282,483 @@ def reference_growth_phase(torch, np, kv, train, packing, rowops):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# the serving API: export, int8 tables, delta refresh, table ops, sparse
+# lookups, and the DLRM, DeepFM, Wide&Deep and NCF models
+# ---------------------------------------------------------------------------
+
+def dlrm_reference(np, model, dense, embs, features, labels):
+    """Float64 numpy forward of DLRM's towers and interaction: the logits
+    and the loss."""
+    p = {k: v.detach().double().cpu().numpy()
+         for k, v in dense.state_dict().items()}
+
+    def mlp(name, x, n, final_relu):
+        for i in range(n):
+            x = _ref_dense(p, x, f"{name}.{i}", relu=i + 1 < n or final_relu)
+        return x
+
+    x_num = mlp("bottom", features.astype(np.float64),
+                len(model.bottom_hidden), True)
+    t = np.stack([x_num] + [embs[f"T{i}"] for i in range(model.num_tables)],
+                 axis=1)
+    z = np.einsum("bfd,bgd->bfg", t, t)
+    iu, ju = np.triu_indices(t.shape[1], 1)
+    logit = mlp("top", np.concatenate([x_num, z[:, iu, ju]], axis=1),
+                len(model.top_hidden) + 1, False)[:, 0]
+    return logit, sigmoid_ce_mean(np, logit, labels)
+
+
+def quant_bound(torch, rows):
+    """The int8 error bound per row, ``max|row| / 254``, with ``QUANT_SLACK``
+    of it for the float32 roundings of the division and the products."""
+    return rows.abs().amax(dim=1, keepdim=True) / 254.0 * (1 + QUANT_SLACK)
+
+
+def per_key(np, kv, t):
+    """A table's keys (sorted, encoded on the card) and their embedding
+    columns: ``(keys, rows)``."""
+    ex = kv.export_arrays(t)
+    order = np.argsort(ex["keys"])
+    return (kv.encode_ids(ex["keys"][order], device=DEV),
+            ex["values"][order])
+
+
+def dlrm_serving_api_phase(torch, np, kv, quant, models, train, serving,
+                           checkpoint, tbundle):
+    """DLRM at the Criteo Kaggle widths of facebookresearch/dlrm
+    (bench/dlrm_s_criteo_kaggle.sh): 26 tables of dim 16 cut to 2^20 rows
+    holding 2^18 keys each (random rows and weights from the seed), bottom
+    MLP 13-512-256-64-16, top 512-256-1 over the 16 + 351 pairwise dots.
+    Serve batch-2048 requests (5 % unknown ids) against a float64 forward;
+    export for serving; load with no templates (the served predictions
+    bit for bit) and as int8 tables (lookups bit for bit against the CPU
+    on the same int8 table, within max|row|/254 of the f32 rows); three
+    Adam steps of the live tables (slots appear) and a delta save; refresh
+    both loaded dicts (f32: the trainer's rows per key bit for bit and no
+    slot columns; int8: within the bound)."""
+    import shutil
+    import tempfile
+    model = models.DLRM(**DLRM_CONFIG, capacity=DLRM_ROWS)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 50)
+    rng = np.random.RandomState(SEED + 50)
+    keys = {n: rng.permutation(np.unique(rng.randint(
+        0, 1 << 40, DLRM_FILL + DLRM_FILL // 8, dtype=np.int64)))[:DLRM_FILL]
+        for n in model.table_specs}
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_serving_")
+    out = {}
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        state = models.init_state(model, seed=SEED, device=DEV)
+        rows_in = {}
+        for name in sorted(state.tables):
+            rows_in[name] = torch.randn(DLRM_FILL, 16, device=DEV,
+                                        generator=gen)
+            kv.insert(state.tables[name],
+                      kv.encode_ids(keys[name], device=DEV), rows_in[name],
+                      day=1)
+        torch.cuda.synchronize()
+        out["fill_s"] = time.perf_counter() - t0
+        resident, order = {}, {}
+        for name, k in keys.items():
+            found = kv.find(state.tables[name],
+                            kv.encode_ids(k, device=DEV)).found.cpu().numpy()
+            check(found.mean() > 0.999, f"DLRM fill: {name} placed too few")
+            resident[name] = np.nonzero(found)[0]
+            order[name] = resident[name][np.argsort(k[resident[name]])]
+        batches = [dcn_batch(np, rng, keys, resident, BATCH)
+                   for _ in range(REQUESTS + 1)]
+        step = models.make_train_step(model, train=False)
+        step(state, batches[0])                               # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = [step(state, b)[1:] for b in batches[1:]]
+        torch.cuda.synchronize()
+        out["examples_per_s"] = REQUESTS * BATCH / (time.perf_counter() - t0)
+        for loss, preds in outs:
+            check(preds.shape == (BATCH,) and bool(torch.isfinite(preds).all())
+                  and bool(torch.isfinite(loss)), "DLRM: non-finite output")
+        b = batches[1]
+        embs = {}
+        for name in keys:
+            embs[name] = host_rows(torch, np, keys[name], order[name],
+                                   rows_in[name], b["ids"][name]
+                                   ).double().cpu().numpy()
+        ref_logits, ref_loss = dlrm_reference(np, model, state.dense, embs,
+                                              b["features"], b["labels"])
+        loss, preds = outs[0]
+        out["preds_err_ratio"] = err_ratio(np, preds, ref_logits)
+        out["loss_abs_err"] = abs(float(loss) - float(ref_loss))
+        check(out["preds_err_ratio"] <= 1 and out["loss_abs_err"]
+              <= F32_RTOL * max(1.0, abs(float(ref_loss))),
+              f"DLRM: preds/loss differ from the float64 reference: {out}")
+
+        # export, then the template-free loads
+        md = serving.RankingMetadata()
+        for name in sorted(keys):
+            md.add_embedding_column(column_name=name, var_name=name,
+                                    embedding_dim=16)
+        export_dir = os.path.join(workdir, "export")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefix = serving.export_for_serving(export_dir, state.tables, md)
+        out["export_s"] = time.perf_counter() - t0
+        nbytes = payload_bytes(tbundle, prefix)
+        out["export_payload_bytes"] = nbytes
+        out["export_gb_per_s"] = nbytes / out["export_s"] / 1e9
+        t0 = time.perf_counter()
+        loaded, _ = serving.load_for_serving(export_dir, device=DEV)
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+        out["load_gb_per_s"] = nbytes / out["load_s"] / 1e9
+        t0 = time.perf_counter()
+        loaded_q, _ = serving.load_for_serving(export_dir, quantize=True,
+                                               device=DEV)
+        torch.cuda.synchronize()
+        out["load_int8_s"] = time.perf_counter() - t0
+        out["load_int8_gb_per_s"] = nbytes / out["load_int8_s"] / 1e9
+        served = state._replace(tables=loaded)
+        check(all(torch.equal(step(served, bb)[2], p)
+                  for bb, (_, p) in zip(batches[1:4], outs[:3])),
+              "DLRM: predictions from the loaded tables differ from the "
+              "live tables'")
+        worst = 0.0
+        for name, qt in loaded_q.items():
+            q = kv.encode_ids(b["ids"][name], device=DEV)
+            got = quant.lookup_or_zeros(qt, q)
+            on_cpu = quant.QuantKvTable(header=qt.header.cpu(),
+                                        payload=qt.payload.cpu(),
+                                        config=qt.config)
+            check(torch.equal(got.cpu(), quant.lookup_or_zeros(on_cpu,
+                                                               q.cpu())),
+                f"DLRM: {name}'s int8 lookup differs from the CPU's")
+            full = kv.lookup_or_zeros(state.tables[name], q)
+            err = (got - full).abs()
+            check(bool((err <= quant_bound(torch, full)).all()),
+                  f"DLRM: {name}'s int8 rows past max|row|/254")
+            worst = max(worst, float((err / quant_bound(torch, full)
+                                      .clamp(min=1e-30)).max()))
+        out["int8_err_over_bound"] = worst
+        out["f32_payload_gib"] = sum(
+            t.payload.numel() * 4 for t in loaded.values()) / 2 ** 30
+        out["int8_payload_gib"] = sum(
+            t.payload.numel() for t in loaded_q.values()) / 2 ** 30
+
+        # the trainer: a baseline, three Adam steps, a delta save
+        opt = train.AdamOptimizer()
+        tables = {}
+        for name, t in state.tables.items():
+            kv.clear_deltalist(t, "train")
+            tables[name] = opt.init(t)
+        state = models.TrainState(
+            tables=tables, dense=state.dense, step=state.step,
+            opt_state=torch.optim.Adam(state.dense.parameters(), lr=0.01))
+        del tables, rows_in
+        tstep = models.make_train_step(model, opt, sparse_lr=0.01)
+        for bb in [dcn_batch(np, rng, keys, resident, BATCH)
+                   for _ in range(3)]:
+            state, loss, _ = tstep(state, bb)
+        check(bool(torch.isfinite(loss)), "DLRM training: non-finite loss")
+        delta = os.path.join(workdir, "delta-1")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.save(delta, state.tables, delta=True)
+        out["delta_save_s"] = time.perf_counter() - t0
+        # a refresh reads the delta's values, not its slot columns
+        dbytes = payload_bytes(tbundle, delta, slots=False)
+        out["delta_values_bytes"] = dbytes
+        t0 = time.perf_counter()
+        loaded = serving.refresh_from_delta(loaded, delta)
+        torch.cuda.synchronize()
+        out["refresh_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded_q = serving.refresh_from_delta(loaded_q, delta, quantize=True)
+        torch.cuda.synchronize()
+        out["refresh_int8_s"] = time.perf_counter() - t0
+        out["refresh_gb_per_s"] = dbytes / out["refresh_s"] / 1e9
+        out["launches"] = read_launches()
+        for name, t in state.tables.items():
+            k, want = per_key(np, kv, t)
+            want = torch.from_numpy(want).to(DEV)
+            ft = loaded[name]
+            fr = kv.find(ft, k)
+            check(bool(fr.found.all()) and int(kv.size(ft)) == k.shape[0]
+                  and ft.payload.shape[1] == 16 and not ft.config.slot_layout,
+                  f"DLRM refresh: {name} has other keys or slot columns")
+            check(torch.equal(ft.payload[fr.slot.long()], want),
+                  f"DLRM refresh: {name}'s f32 rows differ from the "
+                  "trainer's")
+            got = quant.lookup_or_zeros(loaded_q[name], k)
+            check(bool(((got - want).abs() <= quant_bound(torch, want))
+                       .all()),
+                  f"DLRM refresh: {name}'s int8 rows past max|row|/254")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    check(out["launches"]["gather_rows"] > 0
+          and out["launches"]["scatter_rows"] > 0,
+          f"DLRM serving API path: the row kernels were not launched: "
+          f"{out['launches']}")
+    del state, loaded, loaded_q
+    out["peak_gib"] = peak_memory(torch, "DLRM serving API")
+    print(f"DLRM serving API: {json.dumps(out)}", flush=True)
+    return out["launches"], out
+
+
+def int8_lookup_and_table_ops_phase(torch, np, kv, quant, embedding,
+                                    convert):
+    """(b) The JAX bench's serving-leg shape: a 2^20-row dim-128 table
+    filled with 32,768 ids; ``quant.lookup_or_zeros`` of the ids and their
+    reversal in ids/s beside ``kv.lookup_or_zeros`` on the same table, in
+    turns (f32, int8, int8, f32). (c) On that table, each of the 7 scatter
+    ops over 32,768 ids of which half are present, ``get_count``,
+    ``get_timestamp`` and a TTL eviction of the filled rows no op touched,
+    each against the same calls on a CPU copy bit for bit; then
+    ``safe_embedding_lookup_sparse`` over a batch of 2,048 rows of 1-20 ids
+    (5 % unknown, 5 % negative, weights with some <= 0, a default id), each
+    combiner weighted and not: reruns on the card bit for bit, within 1e-6
+    of the CPU's scale."""
+    rng = np.random.RandomState(SEED + 60)
+    ids = rng.permutation(np.unique(rng.randint(0, 1 << 40, N_IDS + 4096,
+                                                dtype=np.int64)))[:N_IDS]
+    reps = 20
+    out = {}
+    reset_launches()
+    t = kv.create(128, C_ROWS, max_probes=16, seed=SEED, device=DEV)
+    q = kv.encode_ids(ids, device=DEV)
+    qf = q.flip(0)
+    check(not bool(kv.lookup_or_insert(t, q, day=100).overflow),
+          "int8 leg: the fill overflowed")
+    cpu = dataclasses.replace(t, **{f: getattr(t, f).to("cpu", copy=True)
+                                    for f in convert.TABLE_FIELDS})
+    qt = quant.quantize_table(t)
+    qt_cpu = quant.quantize_table(cpu)
+    check(torch.equal(qt.header.cpu(), qt_cpu.header)
+          and torch.equal(qt.payload.cpu(), qt_cpu.payload),
+          "int8 leg: quantize_table on the card differs from the CPU's")
+    calls = {"f32": lambda x: kv.lookup_or_zeros(t, x),
+             "int8": lambda x: quant.lookup_or_zeros(qt, x)}
+    rates = {"f32": [], "int8": []}
+    for leg in ("f32", "int8", "int8", "f32"):
+        fn = calls[leg]
+        fn(q)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn(q)
+            fn(qf)
+        torch.cuda.synchronize()
+        rates[leg].append(2 * reps * N_IDS / (time.perf_counter() - t0))
+    out["int8_leg_launches"] = read_launches()
+    out["ids_per_s"] = rates
+    full = kv.lookup_or_zeros(t, q)
+    got = quant.lookup_or_zeros(qt, q)
+    check(torch.equal(got.cpu(), quant.lookup_or_zeros(qt_cpu, q.cpu())),
+          "int8 leg: the card's int8 lookup differs from the CPU's")
+    check(bool(((got - full).abs() <= quant_bound(torch, full)).all()),
+          "int8 leg: int8 rows past max|row|/254")
+    out["int8_payload_bytes"] = qt.payload.numel()
+    out["f32_payload_bytes"] = t.payload.numel() * 4
+    out["card"] = smi_line()
+    del qt, qt_cpu
+    print(f"int8 lookup leg: {json.dumps(out)}", flush=True)
+
+    # (c) the table ops, on the card and on the CPU copy
+    gen = torch.Generator().manual_seed(SEED + 61)
+    present = ids[:N_IDS // 2]
+    reset_launches()
+    ops_ms = {}
+    for k, op in enumerate(("update", "add", "sub", "mul", "div", "min",
+                            "max")):
+        # fresh ids for every op: disjoint ranges
+        new = rng.randint(1 << (41 + k), 1 << (42 + k), N_IDS // 2,
+                          dtype=np.int64)
+        qq = np.concatenate([present, new])
+        upd = torch.randn(N_IDS, 128, generator=gen)
+        qd, ud = kv.encode_ids(qq, device=DEV), upd.to(DEV)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kv.scatter(t, qd, ud, op, day=110)
+        torch.cuda.synchronize()
+        ops_ms[op] = (time.perf_counter() - t0) * 1e3
+        kv.scatter(cpu, kv.encode_ids(qq, device="cpu"), upd, op, day=110)
+    qall = kv.encode_ids(np.concatenate([ids, new]), device=DEV)
+    counts = kv.get_count(t, qall)
+    days = kv.get_timestamp(t, qall)
+    check(torch.equal(counts.cpu(), kv.get_count(cpu, qall.cpu()))
+          and torch.equal(days.cpu(), kv.get_timestamp(cpu, qall.cpu())),
+          "table ops: get_count/get_timestamp differ from the CPU's")
+    # the present half: the fill and 7 ops; the rest of the fill; the last
+    # op's new ids
+    want_counts = np.concatenate([np.full(N_IDS // 2, 8), np.ones(N_IDS)])
+    want_days = np.concatenate([np.full(N_IDS // 2, 110),
+                                np.full(N_IDS // 2, 100),
+                                np.full(N_IDS // 2, 110)])
+    check(np.array_equal(counts.cpu().numpy(), want_counts)
+          and np.array_equal(days.cpu().numpy(), want_days),
+          "table ops: unexpected counts or days")
+    size_before = int(kv.size(t))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, evicted = kv.delete_with_timestamp(t, 5, 110)
+    torch.cuda.synchronize()
+    ops_ms["delete_with_timestamp"] = (time.perf_counter() - t0) * 1e3
+    _, evicted_cpu = kv.delete_with_timestamp(cpu, 5, 110)
+    check(int(evicted.sum()) == N_IDS // 2
+          and int(kv.size(t)) == size_before - N_IDS // 2,
+          "table ops: the eviction missed its share")
+    check(all(torch.equal(getattr(t, f).cpu(), getattr(cpu, f))
+              for f in convert.TABLE_FIELDS) and torch.equal(evicted.cpu(),
+                                                     evicted_cpu),
+          "table ops: the card's table differs from the CPU's")
+    out_ops = {"ms": ops_ms, "rows": size_before,
+               "evicted": int(evicted.sum()),
+               "evicted_share": int(evicted.sum()) / size_before}
+
+    # the sparse lookups over the table's live keys
+    live = np.concatenate([present, new])
+    lengths = rng.randint(1, 21, BATCH)
+    n = int(lengths.sum())
+    sq = live[rng.randint(0, live.shape[0], n)]
+    unknown = rng.rand(n) < 0.05
+    sq[unknown] = rng.randint(1 << 50, 1 << 51, int(unknown.sum()))
+    neg = rng.rand(n) < 0.05
+    sq[neg] = -sq[neg]
+    seg = np.repeat(np.arange(BATCH), lengths).astype(np.int32)
+    w = (rng.rand(n) - 0.05).astype(np.float32)
+    sparse = {}
+    for combiner in ("sum", "mean", "sqrtn"):
+        for weighted in (False, True):
+
+            def run(dev, table):
+                wt = torch.from_numpy(w).to(dev) if weighted else None
+                return embedding.safe_embedding_lookup_sparse(
+                    table, sq, seg, BATCH, weights=wt, combiner=combiner,
+                    train=False, default_id=int(present[0]))[0]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            a = run(DEV, t)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            b = run(DEV, t)
+            c = run("cpu", cpu)
+            scale = float(c.abs().max())
+            err = float((a.cpu() - c).abs().max())
+            name = f"{combiner}{'_weighted' if weighted else ''}"
+            sparse[name] = {"ms": ms, "max_abs_err": err, "scale": scale}
+            check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+                  f"sparse lookup {name}: a rerun on the card differs")
+            check(np.allclose(a.cpu().numpy(), c.numpy(), rtol=1e-6,
+                              atol=1e-6 * scale),
+                  f"sparse lookup {name}: card and CPU differ: {err}")
+    out_ops["sparse_lookups"] = {"entries": n, "rows": BATCH, **sparse}
+    out_ops["launches"] = read_launches()
+    check(out_ops["launches"]["gather_rows"] > 0
+          and out_ops["launches"]["scatter_rows"] > 0,
+          f"table ops: the row kernels were not launched: {out_ops}")
+    print(f"table ops and sparse lookups: {json.dumps(out_ops)}", flush=True)
+    del t, cpu
+    out["table_ops"] = out_ops
+    out["peak_gib"] = peak_memory(torch, "int8 leg, table ops, sparse")
+    return out["int8_leg_launches"], out_ops["launches"], out
+
+
+def ctr_reference(np, model, name, dense, embs, features):
+    """Float64 numpy forward of DeepFM, Wide&Deep or NCF."""
+    p = {k: v.detach().double().cpu().numpy()
+         for k, v in dense.state_dict().items()}
+
+    def mlp(pre, x, n, final_relu):
+        for i in range(n):
+            x = _ref_dense(p, x, f"{pre}{i}", relu=i + 1 < n or final_relu)
+        return x
+
+    if name == "NCF":
+        x = np.concatenate([embs["user"], embs["movie"]], axis=1)
+        return mlp("", x, len(model.hidden) + 1, False)[:, 0]
+    f = model.num_fields
+    v = np.stack([embs[f"C{i + 1}"] for i in range(f)], axis=1)
+    linear = sum(embs[f"C{i + 1}_w"][:, 0] for i in range(f))
+    h = mlp("dnn.", np.concatenate([v.reshape(v.shape[0], -1), features], 1),
+            len(model.dnn_hidden), True)
+    deep = _ref_dense(p, h, "dnn_logits")[:, 0]
+    if name == "DeepFM":
+        s = v.sum(1)
+        fm = 0.5 * (s * s - (v * v).sum(1)).sum(-1)
+        return fm + linear + deep + p["bias"][0]
+    return linear + _ref_dense(p, features, "wide_numeric")[:, 0] + deep
+
+
+def ctr_models_phase(torch, np, kv, embedding, models, train, convert):
+    """DeepFM and Wide&Deep (26 fields of dim 16 and 26 dim-1 tables, DNN
+    256-128; examples/train_deepfm.py) and NCF (dim 32, 256-64;
+    examples/train_ncf.py), tables of 2^14 rows, Adam 1e-3 sparse and dense
+    (the examples' defaults): three steps on the card against the CPU as in
+    the training checks, then batch-2048 serving against a float64
+    forward."""
+    out, launches = {}, None
+    for i, name in enumerate(("DeepFM", "WideDeep", "NCF")):
+        model = getattr(models, name)(capacity=CTR_ROWS)
+        alias = getattr(model, "id_alias", {})
+        streams = sorted({alias.get(n, n) for n in model.table_specs})
+        rng = np.random.RandomState(SEED + 70 + i)
+        universe = {s: rng.randint(1, 1 << 40, 4000, dtype=np.int64)
+                    for s in streams}
+
+        def batch(b):
+            ids = {s: u[rng.randint(0, 4000, b)] for s, u in universe.items()}
+            bt = {"ids": ids, "labels": (rng.randint(1, 6, b) if name == "NCF"
+                                         else rng.randint(0, 2, b)
+                                         ).astype(np.float32)}
+            if name != "NCF":     # ratings 1-5 for NCF's squared error
+                bt["features"] = rng.randn(b, 13).astype(np.float32)
+            return bt
+        opt = train.AdamOptimizer()
+        tx = functools.partial(torch.optim.Adam, lr=1e-3)
+        init = models.init_state(model, opt, tx, seed=SEED + 70 + i,
+                                 device="cpu")
+        reset_launches()
+        c = card_against_cpu(torch, np, kv, models, convert, model, opt,
+                             1e-3, 1e-3, init, tx,
+                             [batch(CHECK_BATCH) for _ in range(CHECK_STEPS)])
+        state = copy_state(torch, convert, models, init, DEV, tx)
+        state, _, _ = run_steps(models, model, opt, 1e-3, state,
+                                [batch(BATCH) for _ in range(CHECK_STEPS)])
+        b = batch(BATCH)
+        for s in streams:
+            unknown = rng.rand(BATCH) < 0.05
+            b["ids"][s][unknown] = rng.randint(1 << 41, 1 << 42,
+                                               int(unknown.sum()))
+        step = models.make_train_step(model, train=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, loss, preds = step(state, b)
+        torch.cuda.synchronize()
+        c["first_request_ms"] = (time.perf_counter() - t0) * 1e3
+        embs = {n: embedding.gather(embedding.lookup_unique(
+            t, b["ids"][alias.get(n, n)], train=False)[0]
+        ).double().cpu().numpy() for n, t in state.tables.items()}
+        feats = b.get("features")
+        ref = ctr_reference(np, model, name, state.dense, embs,
+                            None if feats is None
+                            else feats.astype(np.float64))
+        c["preds_err_ratio"] = err_ratio(np, preds, ref)
+        check(preds.shape == (BATCH,) and bool(torch.isfinite(loss))
+              and c["preds_err_ratio"] <= 1,
+              f"{name}: serving differs from the float64 reference: {c}")
+        paths = read_launches()
+        launches = paths if launches is None else {
+            k: launches[k] + paths[k] for k in launches}
+        print(f"{name} checks:", json.dumps(c), flush=True)
+        out[name] = c
+        del state, init
+    check(launches["gather_rows"] > 0 and launches["scatter_rows"] > 0,
+          f"CTR models: the row kernels were not launched: {launches}")
+    out["launches"] = launches
+    out["peak_gib"] = peak_memory(torch, "DeepFM, Wide&Deep, NCF")
+    return launches, out
+
+
 def kernel_entry(name, src, replaces, launches, errs, case, key):
     return {"name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches,
@@ -2312,7 +2848,8 @@ def main() -> int:
     try:
         import numpy as np
         from tfplus_tpu_torch import (checkpoint, convert, embedding, kv,
-                                      models, ops, train)
+                                      models, ops, serving, train)
+        from tfplus_tpu_torch.kv import quant
         from tfplus_tpu_torch.checkpoint import bundle as tbundle
         from tfplus_tpu_torch.kv import hashing
         from tfplus_tpu_torch.ops import _build, compactor, rowops
@@ -2364,6 +2901,12 @@ def main() -> int:
     rep_launches, rep = repartition_phase(torch, np, kv, train, checkpoint)
     ref_launches, ref = reference_growth_phase(torch, np, kv, train, packing,
                                                rowops)
+    dlrm_launches, dlrm = dlrm_serving_api_phase(
+        torch, np, kv, quant, models, train, serving, checkpoint, tbundle)
+    int8_launches, ops_launches, int8_ops = int8_lookup_and_table_ops_phase(
+        torch, np, kv, quant, embedding, convert)
+    ctr_launches, ctr = ctr_models_phase(torch, np, kv, embedding, models,
+                                         train, convert)
 
     errs = {k: [c[f"{k}_err"] for c in cases.values()]
             for k in ("gather", "scatter_set", "scatter_add")}
@@ -2372,7 +2915,8 @@ def main() -> int:
     paths = [emb_launches, dcn_launches, flash_launches,
              seq["fill_launches"], seq["BST"][0], seq["DIN"][0],
              grad_launches, dcn_train[0], bst_train[0], comp_launches,
-             grow_launches, rep_launches, ref_launches]
+             grow_launches, rep_launches, ref_launches, dlrm_launches,
+             int8_launches, ops_launches, ctr_launches]
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
     src = "tfplus_tpu_torch/ops/csrc/rowops.cu"
     main_case = cases[f"float32_w128_n{N_IDS}"]     # the serving-leg shape
@@ -2435,6 +2979,9 @@ def main() -> int:
         "compactor": dict(comp_time, peak_gib=comp_peak),
         "growth_checkpoint_resume": grow, "repartition_4_to_6": rep,
         "reference_size_growth": ref}}))
+    print(json.dumps({"serving_api": {
+        "dlrm": dlrm, "int8_leg_and_table_ops": int8_ops,
+        "ctr_models": ctr}}))
     print(smi_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

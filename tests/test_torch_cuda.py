@@ -945,3 +945,223 @@ def test_growth_and_checkpoint_on_the_card_match_the_cpu(cuda, tmp_path):
                       for k in ("keys", "values", "meta")]
     for a, b in zip(out["cpu"], out[cuda]):
         assert torch.equal(a, b.cpu())
+
+
+# ---------------------------------------------------------------------------
+# serving API, int8 tables, table ops, sparse lookups, the CTR models
+# ---------------------------------------------------------------------------
+
+def _bits(t):
+    """A tensor's exact bits (float32 viewed as int32), on the CPU."""
+    t = t.detach().cpu()
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.parametrize("dim", [1, 3, 16])
+def test_narrow_tables_on_the_card_match_the_cpu(cuda, dim):
+    """Tables of dim 1 and 3 (DeepFM's and Wide&Deep's linear weights: 4-
+    and 12-byte rows through the row kernels) and 16: inserts, lookups
+    and a scatter leave the CPU's tables bit for bit."""
+    rng = np.random.RandomState(20 + dim)
+    ids = rng.randint(0, 1 << 40, 900).astype(np.int64)
+    rows = torch.from_numpy(rng.randn(300, dim).astype(np.float32))
+    out = {}
+    for d in ("cpu", cuda):
+        t = kv.create(dim, 1024, init_pool_rows=50, seed=2, device=d)
+        before = rowops.gather_rows.launches
+        res = kv.lookup_or_insert(t, kv.encode_ids(ids[:600], device=d))
+        kv.insert(t, kv.encode_ids(ids[600:], device=d), rows.to(d), day=3)
+        kv.scatter(t, kv.encode_ids(ids[::4], device=d),
+                   rows[:225].to(d) * 0.5, "add", day=4)
+        got = kv.lookup_or_zeros(t, kv.encode_ids(ids + 1, device=d))
+        if d != "cpu":
+            assert rowops.gather_rows.launches > before
+        out[str(d)] = [res.rows, got, t.header, t.payload]
+    for a, b in zip(out["cpu"], out[str(cuda)]):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+def test_int8_tables_on_the_card_match_the_cpu(cuda):
+    """quantize_table and the int8 lookup on the card: header (scales in the
+    pad lanes), int8 payload and dequantized rows equal the CPU's bit for
+    bit (IEEE division and products on both)."""
+    from tfplus_tpu_torch.kv import quant
+    rng = np.random.RandomState(7)
+    ids = rng.randint(0, 1 << 40, 2000).astype(np.int64)
+    rows = rng.randn(2000, 64) * rng.choice([1e-3, 1.0, 50.0], (2000, 1))
+    rows[:5] = 0.0
+    out = {}
+    for d in ("cpu", cuda):
+        t = kv.create(64, 4096, init_pool_rows=100, seed=1, device=d)
+        kv.insert(t, kv.encode_ids(ids, device=d),
+                  torch.from_numpy(rows.astype(np.float32)).to(d), day=2,
+                  blacklist=torch.from_numpy(np.arange(2000) % 9 == 0).to(d))
+        qt = quant.quantize_table(t)
+        q = kv.encode_ids(np.concatenate([ids, ids + 1]), device=d)
+        out[str(d)] = [qt.header, qt.payload, qt.scale,
+                       quant.lookup_or_zeros(qt, q)]
+        if d != "cpu":
+            assert quant.max_quant_error(t) <= float(
+                np.abs(rows).max()) / 254 * (1 + 2 ** -20)
+    for a, b in zip(out["cpu"], out[str(cuda)]):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("op", ["update", "add", "sub", "mul", "div", "min",
+                                "max"])
+def test_scatter_and_ttl_on_the_card_match_the_cpu(cuda, op):
+    """A scatter op over ids half present, then get_count, get_timestamp
+    and a TTL eviction: header, payload and deletion log bit for bit."""
+    rng = np.random.RandomState(8)
+    ids = rng.randint(0, 1 << 40, 1000).astype(np.int64)
+    q = np.concatenate([ids[:500], rng.randint(1 << 41, 1 << 42, 500)])
+    upd = torch.from_numpy(rng.randn(1000, 32).astype(np.float32))
+    out = {}
+    for d in ("cpu", cuda):
+        t = kv.create(32, 4096, init_pool_rows=100, seed=1, device=d)
+        kv.lookup_or_insert(t, kv.encode_ids(ids, device=d), day=10)
+        before = rowops.scatter_rows.launches
+        kv.scatter(t, kv.encode_ids(q, device=d), upd.to(d), op, day=20)
+        if d != "cpu":
+            assert rowops.scatter_rows.launches > before
+        qq = kv.encode_ids(q, device=d)
+        counts, days = kv.get_count(t, qq), kv.get_timestamp(t, qq)
+        _, evicted = kv.delete_with_timestamp(t, 5, 20)
+        out[str(d)] = [counts, days, evicted, t.header, t.payload,
+                       t.deleted_keys, t.deleted_count]
+    for a, b in zip(out["cpu"], out[str(cuda)]):
+        assert torch.equal(_bits(a), _bits(b))
+    assert int(out["cpu"][2].sum()) == 500
+
+
+def test_sparse_lookups_rerun_bit_identical_on_the_card(cuda):
+    """safe_embedding_lookup_sparse on the card, each combiner weighted and
+    not, with negative ids and a default id: two runs bit for bit (forward
+    and the rows' gradient), within 1e-6 of the CPU's scale."""
+    from tfplus_tpu_torch import embedding
+    rng = np.random.RandomState(9)
+    keys = rng.randint(1, 1 << 40, 3000).astype(np.int64)
+    n, b = 20_000, 2048
+    q = keys[rng.randint(0, 3000, n)]
+    q[::17] = -q[::17]
+    seg = np.sort(rng.randint(0, b, n)).astype(np.int32)
+    w = rng.rand(n).astype(np.float32) - 0.1
+    rows = torch.from_numpy(rng.randn(3000, 32).astype(np.float32))
+    tables = {}
+    for d in ("cpu", cuda):
+        tables[str(d)] = t = kv.create(32, 8192, seed=3, device=d)
+        kv.insert(t, kv.encode_ids(keys, device=d), rows.to(d), day=1)
+
+    def run(d, combiner, weights):
+        t = tables[str(d)]
+        wt = None if weights is None else torch.from_numpy(weights).to(d)
+        out, look, _ = embedding.safe_embedding_lookup_sparse(
+            t, q, seg, b, weights=wt, combiner=combiner, train=False,
+            default_id=int(keys[0]))
+        rows = look.rows.detach().requires_grad_()
+        embedding.combine(look, torch.from_numpy(seg).to(d), b, rows=rows,
+                          weights=None if wt is None else wt.clamp(min=0),
+                          combiner=combiner).sum().backward()
+        return out, rows.grad
+
+    for combiner in ("sum", "mean", "sqrtn"):
+        for weights in (None, w):
+            a, ga = run(cuda, combiner, weights)
+            b2, gb = run(cuda, combiner, weights)
+            assert torch.equal(_bits(a), _bits(b2))
+            assert torch.equal(_bits(ga), _bits(gb))
+            c, _ = run("cpu", combiner, weights)
+            scale = float(c.abs().max())
+            np.testing.assert_allclose(a.cpu().numpy(), c.numpy(),
+                                       atol=1e-6 * scale, rtol=1e-6)
+
+
+def test_serving_flow_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """Export, template-free load (f32 and int8) and a delta refresh on the
+    card give the tables the same calls give on the CPU, bit for bit."""
+    from tfplus_tpu_torch import serving
+    rng = np.random.RandomState(10)
+    ids = rng.randint(1, 1 << 40, 700).astype(np.int64)
+    rows = torch.from_numpy(rng.randn(700, 16).astype(np.float32))
+    upd = np.concatenate([ids[:100], rng.randint(1 << 41, 1 << 42, 600)])
+    upd_rows = torch.from_numpy(rng.randn(700, 16).astype(np.float32))
+    out = {}
+    for d in ("cpu", cuda):
+        t = kv.create(16, 2048, seed=1, device=d)
+        kv.insert(t, kv.encode_ids(ids, device=d), rows.to(d), day=3)
+        md = serving.RankingMetadata()
+        md.add_embedding_column(column_name="u", var_name="emb",
+                                embedding_dim=16)
+        d_dir = str(tmp_path / f"srv_{d}")
+        serving.export_for_serving(d_dir, {"emb": t}, md)
+        f32, _ = serving.load_for_serving(d_dir, device=d)
+        i8, _ = serving.load_for_serving(d_dir, quantize=True, device=d)
+        kv.clear_deltalist(t)
+        kv.insert(t, kv.encode_ids(upd, device=d), upd_rows.to(d), day=4)
+        delta = str(tmp_path / f"delta_{d}")
+        checkpoint.save(delta, {"emb": t}, delta=True)
+        f32 = serving.refresh_from_delta(f32, delta)["emb"]
+        i8 = serving.refresh_from_delta(i8, delta, quantize=True)["emb"]
+        out[str(d)] = [f32.header, f32.payload, i8.header, i8.payload]
+    for a, b in zip(out["cpu"], out[str(cuda)]):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("name", ["DLRM", "DeepFM", "WideDeep", "NCF"])
+def test_ctr_models_train_the_same_on_the_card(cuda, name):
+    """Three training steps of each CTR model on the card and on the CPU:
+    headers bit for bit, losses within 1e-5; payloads and dense parameters
+    within atol 2e-5, rtol 1e-4 on all but 1e-3 of the elements and within
+    one learning rate per step everywhere (``chip_smoke.py``'s
+    ``TRAIN_TOL``): Adam's step ``lr·m̂/(√v̂ + ε)`` turns two summation
+    orders of a gradient that nearly cancels into steps that differ by up
+    to about ``lr`` (on the H100, 2 of DLRM's 24,576 payload elements lay
+    past the tight limit, by 0.005 of a learning rate)."""
+    import functools
+
+    from tfplus_tpu_torch import train
+    kw = {"DLRM": dict(num_tables=4, embedding_dim=8, bottom_hidden=(16, 8),
+                       top_hidden=(16,), capacity=1024),
+          "DeepFM": dict(num_fields=4, embedding_dim=8, dnn_hidden=(16, 8),
+                         capacity=1024),
+          "WideDeep": dict(num_fields=4, embedding_dim=8, dnn_hidden=(16, 8),
+                           capacity=1024),
+          "NCF": dict(embedding_dim=8, hidden=(16, 8), capacity=1024)}[name]
+    model = getattr(models, name)(**kw)
+    opt = train.AdamOptimizer()
+    alias = getattr(model, "id_alias", {})
+    streams = sorted({alias.get(n, n) for n in model.table_specs})
+    rng = np.random.RandomState(11)
+    batches = [{"ids": {s: rng.randint(1, 400, 128) for s in streams},
+                "features": rng.randn(128, 13).astype(np.float32),
+                "labels": rng.randint(0, 2, 128).astype(np.float32)}
+               for _ in range(3)]
+    out = {}
+    for dev in ("cpu", cuda):
+        state = models.init_state(model, opt,
+                                  functools.partial(torch.optim.Adam, lr=1e-2),
+                                  seed=2, device=dev)
+        step = models.make_train_step(model, opt, sparse_lr=0.05)
+        losses = []
+        for b in batches:
+            state, loss, _ = step(state, b)
+            losses.append(float(loss))
+        out[str(dev)] = (losses, {n: (t.header.cpu(), t.payload.cpu())
+                                  for n, t in state.tables.items()},
+                         [p.detach().cpu() for p in state.dense.parameters()])
+    (lc, tc, pc), (lg, tg, pg) = out["cpu"], out[str(cuda)]
+    np.testing.assert_allclose(lg, lc, atol=1e-5, rtol=1e-5)
+    for n in tc:
+        assert torch.equal(tc[n][0], tg[n][0])
+
+    def assert_within(got, want, lr):
+        over = total = 0
+        for g, w in zip(got, want):
+            d = (g.double() - w.double()).abs()
+            over += int((d > 2e-5 + 1e-4 * w.double().abs()).sum())
+            total += w.numel()
+            assert float(d.max()) <= len(batches) * lr
+        assert over <= 1e-3 * total
+
+    assert_within([tg[n][1] for n in tc], [tc[n][1] for n in tc], 0.05)
+    assert_within(pg, pc, 1e-2)

@@ -1,6 +1,8 @@
 """The port stands alone: importing tfplus_tpu_torch, every submodule
 (the optimizer suite, the training step, the checkpoint package, the
-filesystems, the progress bar and the compactor too) and chip_smoke.py
+filesystems, the progress bar, the compactor, the serving API, the int8
+tables, the variable store, the config and the CTR models too) and
+chip_smoke.py
 loads neither JAX nor the JAX package, and needs no nvcc."""
 import os
 import subprocess
@@ -29,7 +31,10 @@ new = {"tfplus_tpu_torch.ops.rowops", "tfplus_tpu_torch.ops.flash_attention",
        "tfplus_tpu_torch.checkpoint.manager",
        "tfplus_tpu_torch.checkpoint.repartition", "tfplus_tpu_torch.io",
        "tfplus_tpu_torch.io.filesystem", "tfplus_tpu_torch.utils.progress",
-       "tfplus_tpu_torch.ops.compactor"}
+       "tfplus_tpu_torch.ops.compactor", "tfplus_tpu_torch.config",
+       "tfplus_tpu_torch.kv.quant", "tfplus_tpu_torch.variables",
+       "tfplus_tpu_torch.serving", "tfplus_tpu_torch.models.dlrm",
+       "tfplus_tpu_torch.models.deepfm", "tfplus_tpu_torch.models.ncf"}
 assert new <= set(names), sorted(new - set(names))
 from tfplus_tpu_torch.models import BST, DIN
 from tfplus_tpu_torch.nn import flash_attention_layer
@@ -45,6 +50,15 @@ from tfplus_tpu_torch.io import MemFileSystem, get_filesystem
 from tfplus_tpu_torch.kv import export_arrays, grow, grow_to_fit, compact
 from tfplus_tpu_torch.ops import compact as compact_rows
 from tfplus_tpu_torch.utils.progress import ProgressBar
+from tfplus_tpu_torch import get_kv_variable, KvVariableStore
+from tfplus_tpu_torch.serving import (export_for_serving, load_for_serving,
+                                      refresh_from_delta)
+from tfplus_tpu_torch.kv import (scatter, delete_with_timestamp, get_count,
+                                 get_timestamp)
+from tfplus_tpu_torch.kv.quant import QuantKvTable, lookup_or_zeros
+from tfplus_tpu_torch.embedding import (combine, safe_embedding_lookup_sparse,
+                                        grads_to_unique)
+from tfplus_tpu_torch.models import DLRM, DeepFM, WideDeep, NCF
 print(len(names))
 """
 

@@ -243,3 +243,78 @@ def test_entry_points_do_not_fall_back_to_cpu():
         pytest.skip("a card is present: the default device is usable")
     with pytest.raises(RuntimeError, match="cuda"):
         tkv.create(8, 64)
+
+
+def _blacklisted_table(rng):
+    """A JAX table with 80 rows (a third blacklisted) stamped day 5 and its
+    port copy: ``(ids, jt, tt)``. Its shapes (capacity 256, max_probes 16,
+    slots m and v, batches of BATCH) are test_op_sequence's, whose JAX
+    compiles it reuses."""
+    jt = jkv.ensure_slots(jkv.create(8, 256, max_probes=16,
+                                     init_pool_rows=50, seed=4),
+                          {"m": 1, "v": 2})
+    ids = rng.permutation(np.unique(rng.randint(1, 1 << 40, 90)))[:80]
+    for part in (ids[:BATCH], ids[BATCH:]):
+        jt = jkv.insert(jt, jkv.encode_ids_np_to_device(part),
+                        jnp.asarray(rng.randn(BATCH, 8).astype(np.float32)),
+                        day=5, blacklist=jnp.asarray(rng.rand(BATCH) < 0.33))
+    return ids, jt, to_port(jt)
+
+
+@pytest.mark.parametrize("op", ["update", "add", "sub", "mul", "div", "min",
+                                "max"])
+def test_scatter_matches_jax(op):
+    """Each scatter op over ids half present (some blacklisted, which the
+    write re-activates) and half new (inserted with init-pool rows first),
+    with a validity mask: the same table bit for bit, slot columns kept."""
+    rng = np.random.RandomState(11)
+    ids, jt, tt = _blacklisted_table(rng)
+    for day in (6, 7):
+        q = np.concatenate([rng.choice(ids, BATCH // 2, replace=False),
+                            rng.randint(1 << 41, 1 << 42, BATCH // 2)])
+        upd = rng.randn(BATCH, 8).astype(np.float32)
+        valid = rng.rand(BATCH) < 0.9
+        jt = jkv.scatter(jt, jkv.encode_ids_np_to_device(q),
+                         jnp.asarray(upd), op, valid=jnp.asarray(valid),
+                         day=day)
+        out = tkv.scatter(tt, tkv.encode_ids_np_to_device(q, "cpu"),
+                          torch.from_numpy(upd), op,
+                          valid=torch.from_numpy(valid), day=day)
+        assert out is tt
+        assert_same_table(jt, tt)
+    with pytest.raises(ValueError, match="op must be one of"):
+        tkv.scatter(tt, tkv.encode_ids_np_to_device(q, "cpu"),
+                    torch.from_numpy(upd), "pow")
+
+
+def test_delete_with_timestamp_and_counts_match_jax():
+    """TTL eviction on the 13-bit day ring (rows stamped across the wrap),
+    the deletion log of the evicted keys, and ``get_count`` /
+    ``get_timestamp`` before and after, bit for bit."""
+    rng = np.random.RandomState(12)
+    ids, jt, tt = _blacklisted_table(rng)
+    new = rng.randint(1 << 41, 1 << 42, BATCH)
+    for q, day in ((ids[:BATCH], 8185), (ids[BATCH:], 8190), (new, 2)):
+        cnt = rng.randint(1, 9, BATCH).astype(np.int32)
+        jt = jkv.lookup_or_insert(jt, jkv.encode_ids_np_to_device(q),
+                                  jnp.asarray(cnt), day=day).table
+        tkv.lookup_or_insert(tt, tkv.encode_ids_np_to_device(q, "cpu"),
+                             torch.from_numpy(cnt), day=day)
+    q = np.concatenate([ids[30:50], new[:10], rng.randint(1 << 43, 1 << 44,
+                                                          10)])
+    jq, tq = jkv.encode_ids_np_to_device(q), tkv.encode_ids_np_to_device(
+        q, "cpu")
+    assert_same(jkv.get_count(jt, jq), tkv.get_count(tt, tq))
+    assert_same(jkv.get_timestamp(jt, jq), tkv.get_timestamp(tt, tq))
+    for threshold, now in ((8, 5), (3, 5)):
+        jt, jev = jkv.delete_with_timestamp(jt, threshold, now)
+        out, tev = tkv.delete_with_timestamp(tt, threshold, now)
+        assert out is tt
+        assert_same(jev, tev)
+        assert_same_table(jt, tt)
+        assert_same(jkv.get_count(jt, jq), tkv.get_count(tt, tq))
+        assert_same(jkv.get_timestamp(jt, jq), tkv.get_timestamp(tt, tq))
+    # the rows stamped 8185 (age 12), then those stamped 8190 (age 7); day
+    # 2's rows (age 3, not above 3) stay
+    assert int(tkv.size(tt)) == BATCH
+    assert int(tt.deleted_count) == 80

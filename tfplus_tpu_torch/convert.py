@@ -58,7 +58,10 @@ def _flatten(tree, prefix=""):
 def dense_from_numpy(model: nn.Module, params) -> nn.Module:
     """Load a JAX dense-parameter pytree (nested dicts and lists of numpy
     arrays) into ``model`` in place; the pytree's paths are the module's
-    state-dict names (``dnn.0.w``, ``cross_logits.b``, ...). Every parameter
+    state-dict names (``dnn.0.w``, ``cross_logits.b``, ...). That covers
+    every model of the port: a leaf at the top (DeepFM's ``bias``, an
+    ``nn.Parameter``), a pytree that is a list (NCF's tower, an ``MLP``:
+    ``0.w``) and nested towers (DLRM's ``bottom.0.w``). Every parameter
     must be matched exactly once."""
     state = model.state_dict()
     flat = _flatten(params)

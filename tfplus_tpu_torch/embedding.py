@@ -4,7 +4,15 @@ Counterpart of ``tfplus_tpu/embedding.py``: dedup → one table lookup
 (inserting on miss when training) → inverse-index take, whose backward sums
 duplicate ids' gradients into the unique rows.
 Ragged inputs stay fixed-size ``[N]`` with a validity mask, as in the JAX
-package. The combiners and the ``*_sparse`` variants are not ported yet.
+package: a sparse batch is the COO triple ``(ids[N], segment_ids[N],
+valid[N])``, and the combiners (sum, mean, sqrtn, weighted or not) reduce it
+to ``[num_segments, D]``.
+
+Segment sums run in a fixed order, so a rerun is bit-identical: on the card
+through ``index_put_(accumulate=True)``, which sorts the indices, and on the
+CPU through ``index_add_``, which adds serially. The JAX package's
+``segment_sum`` adds in an order of its own, so the two agree to float32
+rounding, not bit for bit.
 """
 from __future__ import annotations
 
@@ -121,6 +129,132 @@ def embedding_lookup(table: kvt.KvTable, ids, *, train: bool = True,
     look, table = lookup_unique(table, flat, train=train, valid=valid, day=day)
     emb = gather(look).reshape(*batch_shape, table.dim)
     return emb, look, table
+
+
+def _segment_sum(x: torch.Tensor, seg: torch.Tensor,
+                 num_segments: int) -> torch.Tensor:
+    """``out[s] = Σ x[i] over seg[i] == s`` in a fixed order (see the module
+    docstring); differentiable with respect to ``x``."""
+    out = x.new_zeros((num_segments,) + x.shape[1:])
+    if x.is_cuda:
+        return out.index_put_((seg,), x, accumulate=True)
+    return out.index_add_(0, seg, x)
+
+
+def _on(x, device, dtype=None) -> torch.Tensor:
+    """A host array or a tensor as a tensor on ``device``."""
+    t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+    return t.to(device=device, dtype=dtype)
+
+
+_COMBINERS = ("sum", "mean", "sqrtn")
+
+
+def combine(look: Lookup, segment_ids: torch.Tensor, num_segments: int,
+            rows: Optional[torch.Tensor] = None,
+            weights: Optional[torch.Tensor] = None,
+            combiner: str = "mean") -> torch.Tensor:
+    """Segment-combine looked-up rows into ``[num_segments, D]``: sum, mean
+    (Σwx/Σw) or sqrtn (Σwx/√Σw²), with unit weights when ``weights`` is
+    None. Differentiable with respect to ``rows`` and ``weights``."""
+    rows = look.rows if rows is None else rows
+    x = _TakeRows.apply(rows, look.inverse.long())      # [N, D] input order
+    return combine_rows(x, segment_ids, num_segments, valid=look.valid,
+                        weights=weights, combiner=combiner)
+
+
+def combine_rows(x: torch.Tensor, segment_ids: torch.Tensor,
+                 num_segments: int, *,
+                 valid: Optional[torch.Tensor] = None,
+                 weights: Optional[torch.Tensor] = None,
+                 combiner: str = "mean") -> torch.Tensor:
+    """The combiner over per-position rows ``x [N, D]`` (already in input
+    order). Invalid positions go to an extra segment that is dropped.
+    Differentiable with respect to ``x`` and ``weights``."""
+    if combiner not in _COMBINERS:
+        raise ValueError(f"combiner must be one of {_COMBINERS}")
+    n, dev = x.shape[0], x.device
+    if valid is None:
+        valid = torch.ones((n,), dtype=torch.bool, device=dev)
+    w = (torch.ones((n,), dtype=x.dtype, device=dev) if weights is None
+         else _on(weights, dev, x.dtype))
+    w = torch.where(valid, w, 0.0)
+    seg = torch.where(valid, _on(segment_ids, dev).long(), num_segments)
+    num = _segment_sum(x * w[:, None], seg, num_segments + 1)[:-1]
+    if combiner == "sum":
+        return num
+    if combiner == "mean":
+        den = _segment_sum(w, seg, num_segments + 1)[:-1]
+    else:
+        den = torch.sqrt(_segment_sum(w * w, seg, num_segments + 1)[:-1])
+    return num / torch.clamp(den, min=1e-12)[:, None]
+
+
+def embedding_lookup_sparse(table: kvt.KvTable, ids, segment_ids,
+                            num_segments: int, *,
+                            weights: Optional[torch.Tensor] = None,
+                            valid: Optional[torch.Tensor] = None,
+                            combiner: str = "mean", train: bool = True,
+                            day=0):
+    """COO sparse lookup and combine: ``ids[N]`` with ``segment_ids[N]``
+    (the output row of each id, in any order) and a ``valid[N]`` padding
+    mask → ``[num_segments, D]``. Returns ``(combined, Lookup, table)``."""
+    look, table = lookup_unique(table, ids, train=train, valid=valid, day=day)
+    out = combine(look, _on(segment_ids, table.device, torch.int32),
+                  num_segments, weights=weights, combiner=combiner)
+    return out, look, table
+
+
+def safe_embedding_lookup_sparse(table: kvt.KvTable, ids, segment_ids,
+                                 num_segments: int, *,
+                                 weights: Optional[torch.Tensor] = None,
+                                 valid: Optional[torch.Tensor] = None,
+                                 combiner: str = "mean", train: bool = True,
+                                 default_id: Optional[int] = None,
+                                 prune_negative: bool = True,
+                                 day=0):
+    """:func:`embedding_lookup_sparse` that prunes invalid entries first:
+    negative ids (the sign is the encoded high word's) and weights <= 0.
+    Output rows left with no entry get the ``default_id`` row, or zeros.
+    Raw ``uint64`` numpy ids are never pruned for their sign: their top bit
+    is part of the key (string fingerprints span all 64 bits); pass
+    ``prune_negative=False`` for pre-encoded keys of that kind."""
+    dev = table.device
+    q = _canon_ids(ids, dev)
+    n = q.shape[0]
+    valid = (torch.ones((n,), dtype=torch.bool, device=dev) if valid is None
+             else _on(valid, dev, torch.bool))
+    if prune_negative and not (isinstance(ids, np.ndarray)
+                               and ids.dtype == np.uint64):
+        valid = valid & (q[:, 1] >= 0)
+    if weights is not None:
+        weights = _on(weights, dev)
+        valid = valid & (weights > 0)
+    seg = _on(segment_ids, dev, torch.int32)
+    out, look, table = embedding_lookup_sparse(
+        table, q, seg, num_segments, weights=weights, valid=valid,
+        combiner=combiner, train=train, day=day)
+    present = _segment_sum(valid.to(torch.int32),
+                           torch.where(valid, seg, num_segments).long(),
+                           num_segments + 1)[:-1]
+    empty = (present == 0)[:, None]
+    if default_id is not None:
+        dq = hashing.encode_ids_np_to_device(
+            np.array([default_id], np.int64), dev)
+        out = torch.where(empty, kvt.lookup_or_zeros(table, dq)[0][None, :],
+                          out)
+    else:
+        out = torch.where(empty, torch.zeros_like(out), out)
+    return out, look, table
+
+
+def grads_to_unique(look: Lookup,
+                    grad_per_position: torch.Tensor) -> torch.Tensor:
+    """Sum per-input-position gradients onto the unique rows (invalid
+    positions contribute nothing), in a fixed order."""
+    g = torch.where(look.valid[:, None], grad_per_position,
+                    torch.zeros_like(grad_per_position))
+    return _segment_sum(g, look.inverse.long(), look.inverse.shape[0])
 
 
 def partitioned_lookup(shards, ids, *, train: bool = True, day=0):

@@ -131,6 +131,21 @@ def _set_all_meta(header: torch.Tensor, meta: torch.Tensor) -> torch.Tensor:
     return header
 
 
+def _set_all_pad(header: torch.Tensor, words: torch.Tensor) -> torch.Tensor:
+    """Replace the whole pad plane (lanes 48-63; ``words`` is int32[C]), in
+    place. The pad lanes are free 32-bit storage per slot that comes with
+    the probe's bucket read: the int8 serving table keeps its per-row
+    dequantization scale there (``kv/quant.py``)."""
+    g = header.shape[0]
+    header.view(g, 4, _B)[:, 3, :] = words.view(g, _B)
+    return header
+
+
+def _get_all_pad(header: torch.Tensor) -> torch.Tensor:
+    """The whole pad plane as int32[C] (a copy)."""
+    return header.view(header.shape[0], 4, _B)[:, 3, :].reshape(-1)
+
+
 def _empty_header(num_buckets: int, device) -> torch.Tensor:
     """All-empty planar header: key lanes = EMPTY sentinel, meta/pad = 0."""
     header = torch.zeros((num_buckets, 64), dtype=torch.int32, device=device)
@@ -174,12 +189,25 @@ class KvTable:
         """Packed meta words, int64 holding uint32 values."""
         return _meta_u32(self.header.view(-1, 4, _B)[:, 2, :].reshape(-1))
 
+    # column views of the payload (no copy)
+    @property
+    def values(self) -> torch.Tensor:
+        return self.payload[..., :self.config.dim]
+
+    @property
+    def slots(self) -> Dict[str, torch.Tensor]:
+        return {name: self.payload[..., s:s + w]
+                for name, (s, w) in self.config.slot_columns().items()}
+
 
 class FindResult(NamedTuple):
     slot: torch.Tensor         # int32[N]; -1 if not found
     found: torch.Tensor        # bool[N]
     insert_slot: torch.Tensor  # int32[N]; first free candidate (-1 if none)
     meta: torch.Tensor         # int64[N] packed meta of the found slot (0 if none)
+    # int32[N] pad-lane word of the found slot (0 if none); only with
+    # find(want_pad=True)
+    pad: Optional[torch.Tensor] = None
 
 
 class LookupResult(NamedTuple):
@@ -230,34 +258,39 @@ def create(dim: int,
         if pool.ndim != 2 or pool.shape[1] != dim:
             raise ValueError(f"init pool must be [P, {dim}], got "
                              f"{tuple(pool.shape)}")
-    deleted_keys = torch.full((DELETED_LOG_CAPACITY, 2), hashing.EMPTY_LO,
-                              dtype=torch.int32, device=dev)
-
-    def scalar(dtype):
-        return torch.zeros((), dtype=dtype, device=dev)
-
     return KvTable(
         header=_empty_header(capacity // _B, dev),
         payload=torch.zeros((capacity, dim), dtype=value_dtype, device=dev),
         init_pool=pool.to(device=dev, dtype=value_dtype),
-        deleted_keys=deleted_keys,
+        config=cfg, **_empty_deletion_log(dev))
+
+
+def _empty_deletion_log(device) -> Dict[str, torch.Tensor]:
+    """A new table's deletion-log fields: no deleted keys, no overflow, both
+    streams' watermarks at 0."""
+    def scalar(dtype):
+        return torch.zeros((), dtype=dtype, device=device)
+
+    return dict(
+        deleted_keys=torch.full((DELETED_LOG_CAPACITY, 2), hashing.EMPTY_LO,
+                                dtype=torch.int32, device=device),
         deleted_count=scalar(torch.int32),
         deleted_overflow=scalar(torch.bool),
         deleted_seen_train=scalar(torch.int32),
-        deleted_seen_pred=scalar(torch.int32),
-        config=cfg,
-    )
+        deleted_seen_pred=scalar(torch.int32))
 
 
 # ---------------------------------------------------------------------------
 # probing
 # ---------------------------------------------------------------------------
 
-def _bucket_scan(g: torch.Tensor, q: torch.Tensor, valid: torch.Tensor):
+def _bucket_scan(g: torch.Tensor, q: torch.Tensor, valid: torch.Tensor,
+                 want_pad: bool = False):
     """Scan gathered planar buckets ``g`` [N, 64] for a key match and the
-    first free lane. Returns ``(mj, fj, meta)``: first matching lane, first
-    free lane (both == 16 when none) and the matched slot's packed meta (0
-    when none; at most one lane matches, so a masked sum extracts it)."""
+    first free lane. Returns ``(mj, fj, meta, pad)``: first matching lane,
+    first free lane (both == 16 when none), the matched slot's packed meta
+    (0 when none; at most one lane matches, so a masked sum extracts it)
+    and, only with ``want_pad``, its pad-lane word the same way."""
     lo = g[:, :_B]
     hi = g[:, _B:2 * _B]
     match = (lo == q[:, :1]) & (hi == q[:, 1:2]) & valid[:, None]
@@ -267,7 +300,10 @@ def _bucket_scan(g: torch.Tensor, q: torch.Tensor, valid: torch.Tensor):
     mj = torch.where(match, j, _B).amin(dim=1)
     fj = torch.where(free, j, _B).amin(dim=1)
     meta = torch.where(match, _meta_u32(g[:, 2 * _B:3 * _B]), 0).sum(dim=1)
-    return mj, fj, meta
+    pad = None
+    if want_pad:
+        pad = torch.where(match, g[:, 3 * _B:], 0).sum(dim=1).to(torch.int32)
+    return mj, fj, meta, pad
 
 
 def _valid_keys(q: torch.Tensor, valid: Optional[torch.Tensor]):
@@ -276,24 +312,29 @@ def _valid_keys(q: torch.Tensor, valid: Optional[torch.Tensor]):
 
 
 def find(table: KvTable, q: torch.Tensor,
-         valid: Optional[torch.Tensor] = None) -> FindResult:
-    """Probe both candidate buckets of each query key (int32[N, 2])."""
+         valid: Optional[torch.Tensor] = None, *,
+         want_pad: bool = False) -> FindResult:
+    """Probe both candidate buckets of each query key (int32[N, 2]).
+    ``want_pad`` also returns the found slots' pad-lane words, read from
+    the same bucket rows. Reads only ``table.header``, so an int8
+    ``QuantKvTable`` probes through it too."""
     valid = _valid_keys(q, valid)
     b1, b2 = hashing.bucket_choices(q, table.capacity)
-    mj1, fj1, meta1 = _bucket_scan(table.header[b1], q, valid)
-    mj2, fj2, meta2 = _bucket_scan(table.header[b2], q, valid)
+    mj1, fj1, meta1, pad1 = _bucket_scan(table.header[b1], q, valid, want_pad)
+    mj2, fj2, meta2, pad2 = _bucket_scan(table.header[b2], q, valid, want_pad)
     f1 = mj1 < _B
     f2 = mj2 < _B
     found = f1 | f2
     slot = torch.where(f1, b1 * _B + mj1,
                        torch.where(f2, b2 * _B + mj2, -1))
     meta = torch.where(f1, meta1, meta2)
+    pad = torch.where(f1, pad1, pad2) if want_pad else None
     hf1 = fj1 < _B
     has_free = (hf1 | (fj2 < _B)) & valid
     ins = torch.where(has_free, torch.where(hf1, b1 * _B + fj1, b2 * _B + fj2),
                       -1)
     return FindResult(slot=slot.to(torch.int32), found=found,
-                      insert_slot=ins.to(torch.int32), meta=meta)
+                      insert_slot=ins.to(torch.int32), meta=meta, pad=pad)
 
 
 def _claim_insert(header: torch.Tensor, q: torch.Tensor, need: torch.Tensor,
@@ -505,6 +546,37 @@ def insert_raw(table: KvTable, q: torch.Tensor, payload_rows: torch.Tensor,
     return table
 
 
+_SCATTER_OPS = {"update": lambda cur, u: u, "add": torch.add,
+                "sub": torch.sub, "mul": torch.mul, "div": torch.div,
+                "min": torch.minimum, "max": torch.maximum}
+
+
+def scatter(table: KvTable, q: torch.Tensor, updates: torch.Tensor, op: str,
+            *, valid: Optional[torch.Tensor] = None, day=0) -> KvTable:
+    """Elementwise scatter family over rows, in place: ``row = op(row,
+    update)`` for ``op`` in update/add/sub/mul/div/min/max. Missing keys are
+    inserted with init-pool rows first, then the op applies; slot columns
+    are kept. A written row is marked touched for both delta streams and
+    leaves the blacklist. ``q`` must be deduplicated."""
+    if op not in _SCATTER_OPS:
+        raise ValueError(f"op must be one of {tuple(_SCATTER_OPS)}")
+    # the lookup inserts into table's own header and payload
+    res = lookup_or_insert(table, q, valid=valid, day=day)
+    ok = res.slot >= 0
+    dim = table.config.dim
+    # the rows as they were after the inserts: a copy, which the write
+    # below cannot change under us
+    cur_wide = res.payload_rows
+    cur = cur_wide[:, :dim]
+    out = _SCATTER_OPS[op](cur, updates.to(device=cur.device,
+                                           dtype=cur.dtype))
+    wide = torch.cat([out, cur_wide[:, dim:]], dim=1)
+    rowops.scatter_rows(table.payload, torch.where(ok, res.slot, -1), wide)
+    _set_meta_at(table.header, torch.where(ok, res.slot, table.capacity),
+                 (res.meta_rows | FLAG_TOUCH_BOTH) & ~FLAG_BLACKLIST)
+    return table
+
+
 def _log_deletes(table: KvTable, q: torch.Tensor,
                  mask: torch.Tensor) -> KvTable:
     """Append deleted keys to the table's deletion log (for delta export)."""
@@ -532,6 +604,26 @@ def delete(table: KvTable, q: torch.Tensor,
     return _log_deletes(table, q, fr.found), fr.found
 
 
+def delete_with_timestamp(table: KvTable, threshold_days: int, day):
+    """Evict, in place, every row untouched for more than ``threshold_days``
+    days before ``day`` (ages on the 13-bit day ring). Evicted slots become
+    tombstones with meta and pad lanes 0, their payload rows zeros, and
+    their keys go to the deletion log. Returns ``(table, evicted_mask[C])``.
+    """
+    # the keys as they were: the sweep below overwrites them in place
+    keys = table.keys
+    occ = ~hashing.is_free(keys)
+    age = packing.day_age(day, packing.get_day(table.meta))
+    evict = occ & (age > threshold_days)
+    g = table.header.shape[0]
+    v = table.header.view(g, 4, _B)
+    repl = torch.tensor([hashing.TOMB_LO, hashing.TOMB_HI, 0, 0],
+                        dtype=torch.int32, device=v.device).view(1, 4, 1)
+    v.copy_(torch.where(evict.view(g, 1, _B), repl, v))
+    table.payload.masked_fill_(evict[:, None], 0)
+    return _log_deletes(table, keys, evict), evict
+
+
 # ---------------------------------------------------------------------------
 # introspection
 # ---------------------------------------------------------------------------
@@ -549,6 +641,19 @@ def sum_freq(table: KvTable) -> int:
     """Σ frequency over live rows (exact, int64)."""
     occ = occupied_mask(table)
     return int(torch.where(occ, packing.get_freq(table.meta), 0).sum())
+
+
+def get_count(table: KvTable, q: torch.Tensor) -> torch.Tensor:
+    """Per-key visit frequency, int32 (0 for unknown keys)."""
+    fr = find(table, q)
+    return torch.where(fr.found, packing.get_freq(fr.meta), 0).to(torch.int32)
+
+
+def get_timestamp(table: KvTable, q: torch.Tensor) -> torch.Tensor:
+    """Per-key last-update day on the 13-bit ring, int32 (0 for unknown
+    keys)."""
+    fr = find(table, q)
+    return torch.where(fr.found, packing.get_day(fr.meta), 0).to(torch.int32)
 
 
 def stats(table: KvTable) -> dict:
