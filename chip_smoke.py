@@ -19,8 +19,13 @@ failed check:
    64/128/384, and f32 widths 1 and 3, the 4- and 12-byte rows of DeepFM's
    and Wide&Deep's linear tables; 32,768 indices with negative, duplicated
    and edge values; the DCN's 2,048-row gathers and 2^19-row fill
-   scatters) and timed beside it and beside one PyTorch call that computes
-   the same function.
+   scatters) and at the payload widths the training paths give it at
+   2,048 rows (f32 widths 3, 16, 48, 96, 192, 256 and 512: dim-1, DLRM's
+   and NCF's tables with Adam's slots, BST's 3·64 and DCN's GroupAdam
+   4·D), rerun bit for bit, and timed beside it, beside the earlier kernels on
+   the same inputs (``earlier_ms``, ``csrc/rowops_earlier.cu``) and beside
+   one PyTorch call that computes the same function; each case prints the
+   launch plan (``rowops.plan``) that gather, set and add took.
 3. Embedding serving (the bench's serving-leg shape): a 1M-row dim-128
    table filled by ``lookup_or_insert`` of 32,768 ids, then repeated
    ``lookup_or_zeros`` of those ids and their reversal.
@@ -273,21 +278,33 @@ def time_ms(torch, fn, reps=25):
     bracketed by CUDA events behind a short device-side sleep, so the host's
     launch overhead is hidden unless ``fn`` synchronises itself (the plain
     scatter's boolean indexing does, and its time includes that)."""
-    fn()
+    return time_turns(torch, {"fn": fn}, reps)["fn"]
+
+
+def time_turns(torch, fns, reps=25):
+    """As ``time_ms`` for each of ``fns`` ({key: fn}), the functions taking
+    turns within every repetition, each repetition starting one function
+    further on, so that neither a drift of the card's clocks nor a place in
+    the order favours any: {key: median ms}."""
+    for fn in fns.values():
+        fn()
     torch.cuda.synchronize()
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=DEV)
-    events = []
-    for _ in range(reps):
-        flush.zero_()
-        torch.cuda._sleep(SLEEP_CYCLES)
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        events.append((a, b))
+    events = {key: [] for key in fns}
+    keys = list(fns)
+    for rep in range(reps):
+        for key in keys[rep % len(keys):] + keys[:rep % len(keys)]:
+            flush.zero_()
+            torch.cuda._sleep(SLEEP_CYCLES)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fns[key]()
+            b.record()
+            events[key].append((a, b))
     torch.cuda.synchronize()
-    return statistics.median(a.elapsed_time(b) for a, b in events)
+    return {key: statistics.median(a.elapsed_time(b) for a, b in ev)
+            for key, ev in events.items()}
 
 
 def bound_ms(nbytes):
@@ -296,9 +313,10 @@ def bound_ms(nbytes):
 
 def kernel_case(torch, rowops, dtype, width, n, gen):
     """Hold both kernels (scatter: set and add) against their plain versions
-    at one shape, and time kernel, plain version and the one-call library
-    yardstick. Bounds count each index read once, each distinct source row
-    read once and each output row written once."""
+    at one shape and rerun them bit for bit; time kernel, the earlier kernel on
+    the same inputs, plain version and the one-call library yardstick, and
+    record the launch plan each took. Bounds count each index read once,
+    each distinct source row read once and each output row written once."""
     values = torch.randn(C_ROWS, width, device=DEV, generator=gen).to(dtype)
     esz = values.element_size()
     # gather: duplicates, negatives, the last row and beyond it
@@ -316,11 +334,16 @@ def kernel_case(torch, rowops, dtype, width, n, gen):
     sidx[65] = C_ROWS + 3
     rows = torch.randn(n, width, device=DEV, generator=gen).to(dtype)
 
-    out = {}
+    row_bytes = width * esz
+    out = {"plan": {
+        kind: rowops.plan(row_bytes, n, align=rowops._align(values, rows),
+                          dtype=dtype, kind=kind)
+        for kind in ("gather", "set", "add")}}
     got = rowops.gather_rows(values, gidx)
     want = rowops.gather_rows_plain(values, gidx)
     check(torch.equal(got, want), f"gather_rows {dtype} W={width} differs")
     out["gather_err"] = (got.float() - want.float()).abs().max().item()
+    rerun = [torch.equal(rowops.gather_rows(values, gidx), got)]
     for add in (False, True):
         v1, v2 = values.clone(), values.clone()
         rowops.scatter_rows(v1, sidx, rows, add=add)
@@ -329,41 +352,61 @@ def kernel_case(torch, rowops, dtype, width, n, gen):
               f"scatter_rows(add={add}) {dtype} W={width} differs")
         out[f"scatter_{'add' if add else 'set'}_err"] = \
             (v1.float() - v2.float()).abs().max().item()
+        v2.copy_(values)
+        rerun.append(torch.equal(rowops.scatter_rows(v2, sidx, rows,
+                                                     add=add), v1))
         del v1, v2
     torch.cuda.synchronize()
+    out["rerun_bit_identical"] = all(rerun)
+    check(out["rerun_bit_identical"],
+          f"row kernels {dtype} W={width} n={n}: a rerun differs {rerun}")
 
-    row_bytes = width * esz
     clamped = gidx.long().clamp(0, C_ROWS - 1)
     keep = (sidx >= 0) & (sidx < C_ROWS)
     kept_idx, kept_rows = sidx[keep].long(), rows[keep]
     n_kept = int(keep.sum())
     n_rows_read = int(torch.unique(clamped).numel())
-    out["gather_ms"] = time_ms(torch, lambda: rowops.gather_rows(values, gidx))
+    # the kernel, the earlier kernel and the library call take turns
+    times = time_turns(torch, {
+        "gather": lambda: rowops.gather_rows(values, gidx),
+        "gather_earlier": lambda: rowops._gather_rows_earlier(values, gidx),
+        "gather_library": lambda: torch.index_select(
+            values, 0, gidx.clamp(0, C_ROWS - 1))})
     out["gather_plain_ms"] = time_ms(
         torch, lambda: rowops.gather_rows_plain(values, gidx))
-    out["gather_library_ms"] = time_ms(
-        torch, lambda: torch.index_select(values, 0,
-                                          gidx.clamp(0, C_ROWS - 1)))
     out["gather_bound_ms"] = bound_ms(n * 4 + n_rows_read * row_bytes
                                       + n * row_bytes)
     target = values.clone()
-    out["scatter_ms"] = time_ms(
-        torch, lambda: rowops.scatter_rows(target, sidx, rows))
+    times.update(time_turns(torch, {
+        "scatter": lambda: rowops.scatter_rows(target, sidx, rows),
+        "scatter_earlier": lambda: rowops._scatter_rows_earlier(
+            target, sidx, rows),
+        "scatter_library": lambda: target.index_copy_(0, kept_idx,
+                                                      kept_rows)}))
     out["scatter_plain_ms"] = time_ms(
         torch, lambda: rowops.scatter_rows_plain(target, sidx, rows))
-    out["scatter_library_ms"] = time_ms(
-        torch, lambda: target.index_copy_(0, kept_idx, kept_rows))
     out["scatter_bound_ms"] = bound_ms(n * 4 + 2 * n_kept * row_bytes)
-    out["scatter_add_ms"] = time_ms(
-        torch, lambda: rowops.scatter_rows(target, sidx, rows, add=True))
+    times.update(time_turns(torch, {
+        "scatter_add": lambda: rowops.scatter_rows(target, sidx, rows,
+                                                   add=True),
+        "scatter_add_earlier": lambda: rowops._scatter_rows_earlier(
+            target, sidx, rows, add=True),
+        "scatter_add_library": lambda: target.index_add_(0, kept_idx,
+                                                         kept_rows)}))
     out["scatter_add_plain_ms"] = time_ms(
         torch, lambda: rowops.scatter_rows_plain(target, sidx, rows, add=True))
-    out["scatter_add_library_ms"] = time_ms(
-        torch, lambda: target.index_add_(0, kept_idx, kept_rows))
     out["scatter_add_bound_ms"] = bound_ms(n * 4 + 3 * n_kept * row_bytes)
+    out.update({f"{key}_ms": ms for key, ms in times.items()})
     del values, target
     torch.cuda.empty_cache()
     return out
+
+
+# the payload widths the training paths scatter and gather at 2,048 rows:
+# DeepFM/W&D dim 1 + Adam (3), DLRM serving (16), DLRM/DeepFM dim 16 + Adam
+# (48), NCF dim 32 + Adam (96), BST dim 64 + Adam (192), DCN GroupAdam 4·D
+# (256, 512)
+TRAIN_WIDTHS = (3, 16, 48, 96, 192, 256, 512)
 
 
 def kernel_phase(torch, rowops):
@@ -377,6 +420,7 @@ def kernel_phase(torch, rowops):
     # the DCN request's gathers and the DCN fill's scatters
     shapes += [(torch.float32, width, n)
                for n in (BATCH, FILL) for width in (64, 128)]
+    shapes += [(torch.float32, width, BATCH) for width in TRAIN_WIDTHS]
     cases = {}
     for dtype, width, n in shapes:
         name = f"{str(dtype).split('.')[-1]}_w{width}_n{n}"
@@ -1868,29 +1912,39 @@ def training_checks_phase(torch, np, kv, models, train, convert):
 
 def profile_calls(torch, name, calls, call_s, out_dir):
     """torch.profiler over a few calls of one path: device kernel time and
-    kernel launches per call, and the device's busy share of an unprofiled
-    call that took ``call_s``; the table of ops and kernels goes to
-    ``out_dir/<name>_profile.txt``."""
+    kernel launches per call, the row kernels' share of them beside what
+    the row wrappers counted in the same calls, and the device's busy share
+    of an unprofiled call that took ``call_s``; the table of ops and kernels
+    goes to ``out_dir/<name>_profile.txt``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     os.makedirs(out_dir, exist_ok=True)
     torch.cuda.synchronize()
+    before = read_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for call in calls:
             call()
         torch.cuda.synchronize()
+    after = read_launches()
+    counted = sum(after[k] - before[k]
+                  for k in ("gather_rows", "scatter_rows")) / len(calls)
     avgs = prof.key_averages()
     kernels = [e for e in avgs if e.device_type == DeviceType.CUDA]
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / len(calls)
     launches = sum(e.count for e in kernels) / len(calls)
+    rows = [e for e in kernels if "rows_kernel" in e.key]
+    rows_ms = sum(e.self_device_time_total for e in rows) / 1e3 / len(calls)
+    rows_launches = sum(e.count for e in rows) / len(calls)
     path = os.path.join(out_dir, f"{name}_profile.txt")
     with open(path, "w") as f:
         f.write(avgs.table(sort_by="self_cuda_time_total", row_limit=60))
     print(f"{name} profile: {dev_ms:.4f} ms of device kernels and "
           f"{launches:.1f} kernel launches per call; device busy "
           f"{dev_ms / (call_s * 1e3):.4f} of an unprofiled call "
-          f"({call_s * 1e3:.4f} ms); table in {path}", flush=True)
+          f"({call_s * 1e3:.4f} ms); row kernels {rows_ms:.4f} ms in "
+          f"{rows_launches:.1f} launches (the row wrappers counted "
+          f"{counted:.1f}); table in {path}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2759,13 +2813,33 @@ def ctr_models_phase(torch, np, kv, embedding, models, train, convert):
     return launches, out
 
 
-def kernel_entry(name, src, replaces, launches, errs, case, key):
+def kernel_entry(name, src, replaces, launches, errs, cases, main, keys):
+    """A row kernel's entry at the main case, with the earlier kernel on the
+    same inputs as the earlier one, and per case and key (``gather``;
+    ``scatter``, ``scatter_add``) its time, the earlier kernel's, the
+    bound, the library call's and the plan's word bytes, lanes per row,
+    words per lane and rows in flight."""
+    case = cases[main]
+    key = keys[0]
+    plan_of = {"gather": "gather", "scatter": "set", "scatter_add": "add"}
     return {"name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches,
             "max_abs_err": max(errs),
             "ms": case[f"{key}_ms"], "plain_ms": case[f"{key}_plain_ms"],
             "bound_ms": case[f"{key}_bound_ms"], "bound_by": "bytes",
-            "library_ms": case[f"{key}_library_ms"]}
+            "library_ms": case[f"{key}_library_ms"],
+            "earlier_source": CSRC + "rowops_earlier.cu",
+            "earlier_ms": case[f"{key}_earlier_ms"],
+            "cases": {n: {k: [c[f"{k}_ms"], c[f"{k}_earlier_ms"],
+                              c[f"{k}_bound_ms"], c[f"{k}_library_ms"],
+                              [c["plan"][plan_of[k]][p] for p in (
+                                  "word_bytes", "lanes_per_row",
+                                  "words_per_lane", "rows_in_flight")]]
+                          for k in keys}
+                      for n, c in cases.items()},
+            "cases_columns": ["ms", "earlier_ms", "bound_ms", "library_ms",
+                              "plan: word_bytes, lanes_per_row, "
+                              "words_per_lane, rows_in_flight"]}
 
 
 CSRC = "tfplus_tpu_torch/ops/csrc/"
@@ -2918,16 +2992,16 @@ def main() -> int:
              grow_launches, rep_launches, ref_launches, dlrm_launches,
              int8_launches, ops_launches, ctr_launches]
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
-    src = "tfplus_tpu_torch/ops/csrc/rowops.cu"
-    main_case = cases[f"float32_w128_n{N_IDS}"]     # the serving-leg shape
+    src = CSRC + "rowops.cu"
+    main_case = f"float32_w128_n{N_IDS}"            # the serving-leg shape
     kernels = [
         kernel_entry("gather_rows", src, "tfplus_tpu/ops/rowops.py:76",
-                     launches["gather_rows"], errs["gather"], main_case,
-                     "gather"),
+                     launches["gather_rows"], errs["gather"], cases,
+                     main_case, ("gather",)),
         kernel_entry("scatter_rows", src, "tfplus_tpu/ops/rowops.py:122",
                      launches["scatter_rows"],
-                     errs["scatter_set"] + errs["scatter_add"], main_case,
-                     "scatter"),
+                     errs["scatter_set"] + errs["scatter_add"], cases,
+                     main_case, ("scatter", "scatter_add")),
         attention_entry("flash_fwd", "tfplus_tpu/ops/flash_attention.py:328",
                         launches, attn_cases, "bench_causal_bf16",
                         "s1000_dropout_causal_float32"),

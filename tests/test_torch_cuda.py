@@ -1,8 +1,11 @@
 """The port's CUDA kernels on the card.
 
 Each row kernel is held bit for bit against its plain PyTorch version (these
-are copies and single adds), including the narrow-word paths for odd widths
-and misaligned rows, and the table engine's serving calls on the card leave
+are copies and single adds) at every class boundary of its launch plan
+(rows of 1-1,024 elements in f32, bf16 and f16, tables 16-, 8-, 4- and
+2-byte aligned, 1-32,768 indices with negative ones, C - 1 and C), reruns
+bit for bit, and the plan itself is pinned to its rule; the table engine's
+serving calls on the card leave
 the same header and payload as the same calls on the CPU. Each flash-forward
 kernel is held against its plain version at odd lengths (Sq 333 against
 Skv 275/400, a single query row, fewer keys than one tile), head dims
@@ -55,39 +58,152 @@ def _values(gen, c, w, dtype, device):
     return torch.randn(c, w, generator=gen).to(device=device, dtype=dtype)
 
 
+# Every class boundary of the row kernels' plan: rows of 1-1,024 elements,
+# in 2-, 4-, 8- and 16-byte words, 1-32 lanes, 1-8 words a lane.
+ROW_WIDTHS = [1, 2, 3, 4, 5, 7, 8, 15, 16, 17, 31, 32, 33, 63, 64, 65, 127,
+              128, 129, 192, 256, 384, 512, 1024]
+ROW_COUNTS = [1, 31, 32, 33, 2047, 2048, 32768]
+
+
+def _aligned_views(gen, c, w, dtype, device):
+    """``[c, w]`` views ``buf[k:].view(c, w)`` of one buffer whose base is
+    16-, 8-, 4- and (2-byte types) 2-byte aligned: {alignment: view}."""
+    esz = torch.empty((), dtype=dtype).element_size()
+    buf = _values(gen, 1, c * w + 16, dtype, device)[0]
+    assert buf.data_ptr() % 256 == 0
+    return {a: buf[k:k + c * w].view(c, w)
+            for a, k in ((16, 0), (8, 8 // esz), (4, 4 // esz), (2, 1))
+            if a >= esz}
+
+
+def _edge_indices(gen, c, n, unique):
+    """n int32 indices into c rows with C - 1, a negative one and C (then
+    C + 5) among them: unique (scatter) or with repeats (gather)."""
+    edges = torch.tensor([c - 1, -1, c, -9, c + 5], dtype=torch.int32)
+    if unique:
+        rest = torch.randperm(c + 40, generator=gen).to(torch.int32) - 20
+        rest = rest[~torch.isin(rest, edges)]
+    else:
+        rest = torch.randint(-7, c + 7, (n,), generator=gen,
+                             dtype=torch.int32)
+    return torch.cat([edges, rest])[:n]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
-@pytest.mark.parametrize("width", [1, 3, 64, 129, 384])
+@pytest.mark.parametrize("width", ROW_WIDTHS)
 def test_gather_matches_plain(cuda, dtype, width):
+    """Bit for bit against the plain version, at every count of rows and
+    every alignment of the table, and again on a rerun."""
     gen = torch.Generator().manual_seed(width)
-    c, n = 4099, 5000
-    values = _values(gen, c, width, dtype, cuda)
-    idx = torch.randint(-7, c + 7, (n,), generator=gen, dtype=torch.int32)
-    idx = idx.to(cuda)
-    before = rowops.gather_rows.launches
-    got = rowops.gather_rows(values, idx)
-    assert rowops.gather_rows.launches == before + 1
-    torch.cuda.synchronize()
-    assert torch.equal(got, rowops.gather_rows_plain(values, idx))
+    c = 4099
+    for align, values in _aligned_views(gen, c, width, dtype, cuda).items():
+        for n in ROW_COUNTS:
+            idx = _edge_indices(gen, c, n, unique=False).to(cuda)
+            before = rowops.gather_rows.launches
+            got = rowops.gather_rows(values, idx)
+            assert rowops.gather_rows.launches == before + 1
+            torch.cuda.synchronize()
+            want = rowops.gather_rows_plain(values, idx)
+            assert torch.equal(got, want), (align, n)
+            assert torch.equal(rowops.gather_rows(values, idx), got)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
-@pytest.mark.parametrize("width", [1, 3, 64, 129, 384])
+@pytest.mark.parametrize("width", ROW_WIDTHS)
 @pytest.mark.parametrize("add", [False, True])
 def test_scatter_matches_plain(cuda, dtype, width, add):
+    """Bit for bit against the plain version (indices < 0 and >= C
+    dropped), at every count of rows and every alignment of the table and
+    the rows, and again on a rerun from the same table."""
     gen = torch.Generator().manual_seed(1000 + width)
-    c, n = 4099, 3000
-    values = _values(gen, c, width, dtype, cuda)
-    rows = _values(gen, n, width, dtype, cuda)
-    idx = torch.randperm(c + 40, generator=gen)[:n].to(torch.int32) - 20
-    idx = idx.to(cuda)
-    want = rowops.scatter_rows_plain(values.clone(), idx, rows, add)
-    before = rowops.scatter_rows.launches
-    got = rowops.scatter_rows(values, idx, rows, add=add)
-    assert got is values and rowops.scatter_rows.launches == before + 1
-    torch.cuda.synchronize()
-    assert torch.equal(got, want)
+    for n in ROW_COUNTS:
+        c = 4099 if n < 4099 else n + 1000
+        views = _aligned_views(gen, c, width, dtype, cuda)
+        rows_at = _aligned_views(gen, n, width, dtype, cuda)
+        for align, values in views.items():
+            rows = rows_at[align]
+            idx = _edge_indices(gen, c, n, unique=True).to(cuda)
+            start = values.clone()
+            want = rowops.scatter_rows_plain(values.clone(), idx, rows, add)
+            before = rowops.scatter_rows.launches
+            got = rowops.scatter_rows(values, idx, rows, add=add)
+            assert got is values
+            assert rowops.scatter_rows.launches == before + 1
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (align, n)
+            again = rowops.scatter_rows(start, idx, rows, add=add)
+            assert torch.equal(again, got)
+
+
+def _expected_plan(row_bytes, n, align, sms):
+    """The plan rule of csrc/rowops.cu, written out again."""
+    wb = next(w for w in (16, 8, 4, 2) if row_bytes % w == 0
+              and align % w == 0)
+    words = row_bytes // wb
+    lanes = 32 if words >= 32 else 1 << (words - 1).bit_length()
+    k = min(8, 1 << (-(-words // 32) - 1).bit_length()) if words > 32 else 1
+    u = 2 if k == 1 and n > 2 * sms * 64 * (32 // lanes) else 1
+    return wb, lanes, k, u
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_rowops_plan_pins_the_classes(cuda, dtype):
+    """``tfp_rowops_plan`` at every class boundary: the word, the lanes per
+    row, the words per lane and the rows in flight follow the rule, and
+    the grid gives every tile of rows a warp."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    esz = torch.empty((), dtype=dtype).element_size()
+    pinned = {(torch.float32, 1): (4, 1, 1), (torch.float32, 2): (8, 1, 1),
+              (torch.float32, 3): (4, 4, 1), (torch.float32, 64): (16, 16, 1),
+              (torch.float32, 512): (16, 32, 4),
+              (torch.float32, 1024): (16, 32, 8),
+              (torch.bfloat16, 5): (2, 8, 1), (torch.bfloat16, 64): (16, 8, 1),
+              (torch.bfloat16, 128): (16, 16, 1)}
+    kinds = ["gather", "set", "add"]
+    for width in ROW_WIDTHS:
+        for align in (16, 8, 4, 2):
+            if align < esz:
+                continue
+            for n in ROW_COUNTS + [1 << 19]:
+                for kind in kinds:
+                    got = rowops.plan(width * esz, n, align=align,
+                                      dtype=dtype, kind=kind)
+                    want = _expected_plan(width * esz, n, align, sms)
+                    assert (got["word_bytes"], got["lanes_per_row"],
+                            got["words_per_lane"],
+                            got["rows_in_flight"]) == want
+                    if align == 16 and (dtype, width) in pinned:
+                        assert want[:3] == pinned[dtype, width]
+                    rows_per_block = (8 * (32 // got["lanes_per_row"])
+                                      * got["rows_in_flight"])
+                    assert got["block"] == 256
+                    assert got["grid"] == -(-n // rows_per_block)
+    with pytest.raises(RuntimeError):
+        rowops.plan(0, 10)
+
+
+@pytest.mark.parametrize("width", [1, 3, 64, 512])
+def test_timed_only_launches_match_plain(cuda, width):
+    """The earlier kernels, which chip_smoke.py times beside the wrappers,
+    compute the same rows and count nothing."""
+    gen = torch.Generator().manual_seed(50 + width)
+    c, n = 5000, 3000
+    values = _values(gen, c, width, torch.float32, cuda)
+    rows = _values(gen, n, width, torch.float32, cuda)
+    gidx = _edge_indices(gen, c, n, unique=False).to(cuda)
+    sidx = _edge_indices(gen, c, n, unique=True).to(cuda)
+    counts = (rowops.gather_rows.launches, rowops.scatter_rows.launches)
+    want = rowops.gather_rows_plain(values, gidx)
+    assert torch.equal(rowops._gather_rows_earlier(values, gidx), want)
+    for add in (False, True):
+        want = rowops.scatter_rows_plain(values.clone(), sidx, rows, add)
+        got = rowops._scatter_rows_earlier(values.clone(), sidx, rows, add)
+        assert torch.equal(got, want)
+    assert (rowops.gather_rows.launches,
+            rowops.scatter_rows.launches) == counts
 
 
 def test_misaligned_rows_take_the_narrow_words(cuda):

@@ -24,7 +24,7 @@ def _as_np(t):
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("width", [16, 48])
+@pytest.mark.parametrize("width", [1, 3, 5, 16, 48])
 def test_gather_rows(dt, width):
     rng = np.random.RandomState(width)
     c, n = 37, 64
@@ -39,7 +39,7 @@ def test_gather_rows(dt, width):
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("width", [16, 48])
+@pytest.mark.parametrize("width", [1, 3, 5, 16, 48])
 @pytest.mark.parametrize("add", [False, True])
 def test_scatter_rows(dt, width, add):
     rng = np.random.RandomState(width + add)
