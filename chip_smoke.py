@@ -141,10 +141,47 @@ failed check:
    256-128) and NCF (dim 32, 256-64), the examples' widths, on 2^14-row
    tables: three Adam steps on the card against the CPU as in phase 10,
    then batch-2048 serving against a float64 forward.
+20. Criteo data to DCN training: a 2^18-line Criteo Kaggle-layout TSV made
+   from the seed (Zipf-skewed hex categoricals, empty fields) is parsed by
+   the native helper library (built with g++ into
+   ``tfplus_tpu_torch/_build/native/``; the script fails if it does not
+   build) and by the pure-Python parser, bit for bit, and read through
+   ``build_binary_cache``, ``BinaryCriteoCache.batches(2048)`` and
+   ``CriteoLoader(threads=8)``, each in MB/s of the TSV. The reference DCN
+   of phase 11 (2^20-row GroupAdam tables, empty at the start) trains 16
+   batch-2048 steps from the cache four times from equal states, in
+   turns: through the per-leaf feed (28 pageable copies), through
+   ``data.make_packed_feed`` (one pinned buffer, one non-blocking copy,
+   unpacked on the card) twice, and per leaf again; losses and tables bit
+   for bit, examples/s, the feed's host ms per batch and the device µs of
+   its copies (CUDA events around each copy).
+21. The multi-table step (``models.make_train_step_multi``) at the
+   reference DCN's widths: three steps on 2^14-row groups on the card
+   against the CPU as in phase 10, and two runs from cloned states bit
+   for bit; then one GroupAdam table per dim (dim 64: 18 logical tables in
+   2^23 rows; dim 128: 8 in 2^22) with 2^18 tagged keys per logical table,
+   serving requests checked against a host-side map and a float64
+   forward, then 10 requests and 10 training steps (batch 2048, 5 %
+   unseen ids) beside the per-table step on 26 tables of 2^19 rows holding
+   the same keys and rows (built after the groups are freed; its
+   predictions equal the multi-table step's bit for bit): examples/s,
+   launches and ``aten::nonzero`` syncs per call from torch.profiler, and
+   row-kernel launches.
+22. The host-DRAM tier (``kv.storage.HybridTable``): a dim-128 Adam table
+   of 2^21 rows under a 2^19-row budget, 64 batches of the unique ids of
+   32,768 Zipf(1.05) draws from 2^22; each step prefetches the batch,
+   looks it up, applies Adam to ``rows * 0.1``, prefetches the next batch
+   on the worker thread while the step runs, promotes it and spills to
+   the budget. After every spill the device holds at most the budget; the
+   logical size is every id seen; the hybrid export equals a 2^23-row
+   table's that never spilled, per key bit for bit, and
+   ``restore_hybrid_split`` gives the same rows again. Step ms with and
+   without the tier, spill and prefetch ms and GB/s, host-tier bytes.
 
 Each path (the serving and training paths, the flash entry points, the
 compactor entry point, the growth, checkpoint and repartition paths, and
-the serving-API, int8, table-op and CTR-model paths) runs
+the serving-API, int8, table-op and CTR-model paths, the Criteo-fed DCN, the
+multi-table and per-table steps and the hybrid tier) runs
 with the kernels' launch counts set to 0 just before it and read just after
 it. Each phase frees its tables before the next and prints the peak device
 memory it reached. The line before the last is the ``{"kernels": [...]}``
@@ -162,6 +199,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 DEV = "cuda"
@@ -1781,10 +1819,11 @@ def check_setup(np, models, train, name, seed):
     return model, train.AdamOptimizer(), 0.01, 0.01, batch
 
 
-def run_steps(models, model, opt, lr, state, batches):
-    """Train on ``batches``: ``(state, losses, the dense gradients of the
-    first step)``."""
-    step = models.make_train_step(model, opt, sparse_lr=lr)
+def run_steps(models, model, opt, lr, state, batches, multi=False):
+    """Train on ``batches`` (the multi-table step with ``multi``):
+    ``(state, losses, the dense gradients of the first step)``."""
+    make = models.make_train_step_multi if multi else models.make_train_step
+    step = make(model, opt, sparse_lr=lr)
     losses, first = [], None
     for b in batches:
         state, loss, _ = step(state, b)
@@ -1801,27 +1840,49 @@ def state_arrays(torch, state):
             {k: v.detach().cpu() for k, v in state.dense.state_dict().items()})
 
 
+def batch_keys(torch, np, kv, model, batches, name, dev):
+    """The encoded keys ``batches`` looked up in table ``name``: a group's
+    tagged keys, logical table by logical table, for a multi-table
+    state's ``__group_<dim>``."""
+    alias = getattr(model, "id_alias", {})
+
+    def ids(n):
+        return np.concatenate([b["ids"][alias.get(n, n)] for b in batches])
+    if not name.startswith("__group_"):
+        return kv.encode_ids(ids(name), device=dev)
+    return torch.cat([kv.tag_ids(kv.encode_ids(ids(n), device=dev), j)
+                      for j, n in enumerate(group_names(model)[name])])
+
+
+def group_names(model):
+    """{group table name: its logical tables in order} of a multi-table
+    state for ``model``."""
+    from tfplus_tpu_torch.models import common
+    return {f"__group_{dim}": names
+            for dim, names in common._dim_groups(model).items()}
+
+
 def card_against_cpu(torch, np, kv, models, convert, model, opt, lr,
-                     dense_lr, init, tx, batches):
+                     dense_lr, init, tx, batches, multi=False):
     """``batches`` of training steps from ``init`` (a CPU state) on the CPU
-    and on the card: headers and the batches' slots bit for bit, losses and
-    step 1's dense gradients within ``TRAIN_TOL``, the placed rows and the
-    dense parameters within its tight limits on all but a share of
-    elements and within a step's learning rate per step everywhere. Returns
-    the comparison and raises if it fails."""
+    and on the card (the multi-table step with ``multi``): headers and the
+    batches' slots bit for bit, losses and step 1's dense gradients within
+    ``TRAIN_TOL``, the placed rows and the dense parameters within its
+    tight limits on all but a share of elements and within a step's
+    learning rate per step everywhere. Returns the comparison and raises if
+    it fails."""
     states, losses, grads = {}, {}, {}
     for dev in ("cpu", DEV):
         states[dev], losses[dev], grads[dev] = run_steps(
             models, model, opt, lr,
-            copy_state(torch, convert, models, init, dev, tx), batches)
+            copy_state(torch, convert, models, init, dev, tx), batches,
+            multi)
     (tc, pc), (tg, pg) = (state_arrays(torch, states[d])
                           for d in ("cpu", DEV))
-    alias = getattr(model, "id_alias", {})
 
     def slots(dev, n):
-        ids = np.concatenate([b["ids"][alias.get(n, n)] for b in batches])
-        return kv.find(states[dev].tables[n],
-                       kv.encode_ids(ids, device=dev)).slot.cpu()
+        return kv.find(states[dev].tables[n], batch_keys(
+            torch, np, kv, model, batches, n, dev)).slot.cpu()
 
     atol, rtol = TRAIN_TOL["atol"], TRAIN_TOL["rtol"]
 
@@ -1911,14 +1972,15 @@ def training_checks_phase(torch, np, kv, models, train, convert):
 
 
 def profile_calls(torch, name, calls, call_s, out_dir):
-    """torch.profiler over a few calls of one path: device kernel time and
-    kernel launches per call, the row kernels' share of them beside what
-    the row wrappers counted in the same calls, and the device's busy share
-    of an unprofiled call that took ``call_s``; the table of ops and kernels
-    goes to ``out_dir/<name>_profile.txt``."""
+    """torch.profiler over a few calls of one path: device kernel time,
+    kernel launches and ``aten::nonzero`` calls (each a sync) per call, the
+    row kernels' share of them beside what the row wrappers counted in the
+    same calls, and the device's busy share of an unprofiled call that took
+    ``call_s``; the table of ops and kernels goes to
+    ``out_dir/<name>_profile.txt`` when ``out_dir`` is given. Returns the
+    per-call numbers."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    os.makedirs(out_dir, exist_ok=True)
     torch.cuda.synchronize()
     before = read_launches()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1936,15 +1998,25 @@ def profile_calls(torch, name, calls, call_s, out_dir):
     rows = [e for e in kernels if "rows_kernel" in e.key]
     rows_ms = sum(e.self_device_time_total for e in rows) / 1e3 / len(calls)
     rows_launches = sum(e.count for e in rows) / len(calls)
-    path = os.path.join(out_dir, f"{name}_profile.txt")
-    with open(path, "w") as f:
-        f.write(avgs.table(sort_by="self_cuda_time_total", row_limit=60))
-    print(f"{name} profile: {dev_ms:.4f} ms of device kernels and "
-          f"{launches:.1f} kernel launches per call; device busy "
-          f"{dev_ms / (call_s * 1e3):.4f} of an unprofiled call "
-          f"({call_s * 1e3:.4f} ms); row kernels {rows_ms:.4f} ms in "
-          f"{rows_launches:.1f} launches (the row wrappers counted "
-          f"{counted:.1f}); table in {path}", flush=True)
+    nonzero = sum(e.count for e in avgs if e.key == "aten::nonzero") \
+        / len(calls)
+    where = ""
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        path = os.path.join(out_dir, f"{name}_profile.txt")
+        with open(path, "w") as f:
+            f.write(avgs.table(sort_by="self_cuda_time_total", row_limit=60))
+        where = f"; table in {path}"
+    print(f"{name} profile: {dev_ms:.4f} ms of device kernels, "
+          f"{launches:.1f} kernel launches and {nonzero:.1f} aten::nonzero "
+          f"per call; device busy {dev_ms / (call_s * 1e3):.4f} of an "
+          f"unprofiled call ({call_s * 1e3:.4f} ms); row kernels "
+          f"{rows_ms:.4f} ms in {rows_launches:.1f} launches (the row "
+          f"wrappers counted {counted:.1f}){where}", flush=True)
+    return {"device_ms": dev_ms, "launches": launches,
+            "nonzero_syncs": nonzero, "busy": dev_ms / (call_s * 1e3),
+            "row_kernel_launches": rows_launches,
+            "row_wrapper_launches": counted}
 
 
 # ---------------------------------------------------------------------------
@@ -2813,6 +2885,541 @@ def ctr_models_phase(torch, np, kv, embedding, models, train, convert):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# the data feed, the multi-table step and the host-DRAM storage tier
+# ---------------------------------------------------------------------------
+
+CRITEO_ROWS = 1 << 18            # lines of the generated Criteo TSV
+CRITEO_STEPS = 16                # batch-2048 DCN steps per feed
+MULTI_ROWS = {64: 1 << 23, 128: 1 << 22}   # rows of each dim's group
+MULTI_FILL = 1 << 18             # keys per logical table
+PER_TABLE_ROWS = 1 << 19         # the per-table step's tables, same keys
+MULTI_STEPS = 10                 # timed steps and requests of each step
+# The hybrid table's device rows: twice its max_live below. At 2^20 rows
+# (load 0.5 after each spill) its lookups left 2-24 ids a step unplaced
+# from step 30 on, on the card and the CPU alike: the placement (first
+# fit over two 16-slot buckets, the JAX package's bit for bit) fills
+# single buckets long before the load factor.
+HYBRID_ROWS = 1 << 21
+HYBRID_BUDGET = 1 << 19          # its max_live
+HYBRID_TWIN_ROWS = 1 << 23       # the table that never spills
+HYBRID_BATCHES = 64
+HYBRID_IDS = 1 << 15             # ids drawn per batch
+HYBRID_UNIVERSE = 1 << 22
+HYBRID_ZIPF = 1.05
+
+
+def criteo_tsv(np, rng, rows):
+    """A Criteo Kaggle-layout TSV of ``rows`` lines: a 0/1 label, 13 integer
+    columns (log-normal counts up to 99,999, the second column -1 to -3 in
+    5 % of rows, 10-40 % empty) and 26 categorical columns of 8 hex digits
+    (Zipf-skewed per column over vocabularies of 10 to 10^7, 4 % empty).
+    Built without a loop over rows: every field right-aligned in a fixed
+    width of a byte matrix, padded with 0 bytes, which one mask drops."""
+    m = np.zeros((rows, 2 + 13 * 7 + 26 * 9), np.uint8)
+    m[:, 0] = ord("0") + rng.randint(0, 2, rows)
+    col = 1
+    for j in range(13):
+        m[:, col] = ord("\t")
+        v = np.minimum(np.floor(rng.lognormal(1.0, 1.6, rows)),
+                       99999).astype(np.int64)
+        neg = (rng.rand(rows) < 0.05) if j == 1 else np.zeros(rows, bool)
+        v = np.where(neg, rng.randint(1, 4, rows), v)
+        empty = rng.rand(rows) < 0.1 + 0.3 * rng.rand()
+        m[:, col + 1] = np.where(neg & ~empty, ord("-"), 0)
+        for k in range(5):                   # 10^4 .. 10^0
+            p = 10 ** (4 - k)
+            pad = empty | ((v < p) & (k < 4))
+            m[:, col + 2 + k] = np.where(pad, 0, ord("0") + (v // p) % 10)
+        col += 7
+    hexd = np.frombuffer(b"0123456789abcdef", np.uint8)
+    for j in range(26):
+        m[:, col] = ord("\t")
+        vocab = int(10 ** rng.uniform(1, 7))
+        rank = (rng.zipf(1.05 + 0.5 * rng.rand(), rows) - 1) % vocab
+        v = (rank * 0x9E3779B1 + rng.randint(0, 2 ** 31)) & 0xFFFFFFFF
+        empty = rng.rand(rows) < 0.04
+        for k in range(8):
+            m[:, col + 1 + k] = np.where(empty, 0,
+                                         hexd[(v >> (4 * (7 - k))) & 15])
+        col += 9
+    m[:, col] = ord("\n")
+    return m[m != 0].tobytes()
+
+
+def copy_device_us(torch, copies):
+    """Device µs of each host-to-device copy in ``copies`` (callables that
+    enqueue one copy each), summed: a pair of CUDA events around each copy,
+    all enqueued behind a device-side sleep, so the host's work between
+    copies is not counted (a pageable copy blocks the host until it has
+    run, so its pair holds its own staging waits only)."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    pairs = []
+    for copy_one in copies:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        copy_one()
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) * 1e3
+
+
+def criteo_training_phase(torch, np, kv, models, train, native, criteo,
+                          feed):
+    """Phase 20: a generated Criteo file through the native and the Python
+    parsers, the binary cache and the threaded loader, then the reference
+    DCN trained from empty tables on the cache's batches through the
+    per-leaf feed and through the packed one, from equal states."""
+    check(native.available(), "the native helper library did not build")
+    rng = np.random.RandomState(SEED + 90)
+    t0 = time.perf_counter()
+    buf = criteo_tsv(np, rng, CRITEO_ROWS)
+    out = {"rows": CRITEO_ROWS, "mb": len(buf) / 1e6,
+           "generate_s": time.perf_counter() - t0}
+    mb = out["mb"]
+
+    def rate(key, fn):
+        t0 = time.perf_counter()
+        res = fn()
+        out[key] = mb / (time.perf_counter() - t0)
+        return res
+    lib = rate("parse_library_mb_s",
+               lambda: native.parse_criteo_batch(buf, CRITEO_ROWS + 1))
+    py = rate("parse_python_mb_s",
+              lambda: native.parse_criteo_batch_py(buf, CRITEO_ROWS + 1))
+    check(len(lib[2]) == CRITEO_ROWS and lib[3] == len(buf)
+          and lib[3] == py[3]
+          and all(a.dtype == b.dtype and a.tobytes() == b.tobytes()
+                  for a, b in zip(lib[:3], py[:3])),
+          "Criteo: the library's parse differs from the Python parser's")
+    names = [f"C{i + 1}" for i in range(26)]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "train.txt")
+        with open(path, "wb") as f:
+            f.write(buf)
+        cache = criteo.BinaryCriteoCache(rate(
+            "build_cache_mb_s",
+            lambda: criteo.build_binary_cache(path, os.path.join(tmp, "c"))))
+        check(cache.rows == CRITEO_ROWS
+              and np.array_equal(cache.categorical[:], lib[1])
+              and np.array_equal(cache.numeric[:].view(np.int32),
+                                 lib[0].view(np.int32))
+              and np.array_equal(cache.label[:], lib[2]),
+              "Criteo: the cache differs from the library's parse")
+
+        def read_cache():         # every column of every batch, copied
+            return sum(np.array(v).nbytes for b in cache.batches(BATCH)
+                       for v in b.values())
+        rate("cache_read_mb_s", read_cache)
+
+        def loader():
+            with native.CriteoLoader(path, BATCH, threads=8) as ld:
+                return sum(len(b[2]) for b in ld)
+        check(rate("loader_8_threads_mb_s", loader) == CRITEO_ROWS,
+              "Criteo: the threaded loader lost rows")
+        print("Criteo readers:", json.dumps(out), flush=True)
+
+        def host_batch(b):
+            pairs = np.asarray(b["categorical"]).view(np.int32).reshape(
+                -1, 26, 2)
+            return {"ids": {n: pairs[:, j] for j, n in enumerate(names)},
+                    "features": b["numeric"], "labels": b["label"]}
+        first = next(cache.batches(BATCH))
+        pack, unpack = feed.make_packed_feed(host_batch(first), device=DEV)
+
+        def leaves(b):            # 26 id columns, features, labels
+            hb = host_batch(b)
+            return [np.array(v) for v in
+                    [hb["ids"][n] for n in names]
+                    + [hb["features"], hb["labels"]]]
+
+        def leaf_feed(b):         # one pageable copy per leaf
+            out = [torch.from_numpy(x).to(DEV) for x in leaves(b)]
+            return {"ids": dict(zip(names, out[:26])), "features": out[26],
+                    "labels": out[27]}
+
+        def packed_feed(b):       # one pinned buffer, one async copy
+            return unpack(pack(host_batch(b)).to(DEV, non_blocking=True))
+
+        def copies(name, b):
+            if name == "per_leaf":
+                return [lambda x=x: torch.from_numpy(x).to(DEV)
+                        for x in leaves(b)]
+            flat = pack(host_batch(b))
+            return [lambda: flat.to(DEV, non_blocking=True)]
+
+        batches = list(cache.batches(BATCH, max_batches=CRITEO_STEPS))
+        model = models.DCN(capacity=C_ROWS)
+        opt = train.GroupAdamOptimizer()
+        tx = functools.partial(torch.optim.Adam, lr=1e-3)
+        feeds = {"per_leaf": leaf_feed, "packed": packed_feed}
+        for fn in feeds.values():     # warm the page cache and allocators
+            for b in batches:
+                fn(b)
+        torch.cuda.synchronize()
+        for name, fn in feeds.items():
+            t0 = time.perf_counter()
+            for b in batches:
+                fn(b)
+            out[name] = {
+                "feed_host_ms_per_batch":
+                    (time.perf_counter() - t0) * 1e3 / len(batches),
+                "copy_device_us_per_batch": statistics.median(
+                    copy_device_us(torch, copies(name, b)) for b in batches),
+                "examples_per_s": []}
+        torch.cuda.synchronize()
+        ref = None
+        reset_launches()
+        # in turns: per-leaf, packed, packed, per-leaf, all from equal
+        # (empty) states; every run must give the first run's bits
+        for name in ("per_leaf", "packed", "packed", "per_leaf"):
+            fn = feeds[name]
+            state = models.init_state(model, opt, tx, seed=SEED + 91,
+                                      device=DEV)
+            step = models.make_train_step(model, opt, sparse_lr=1e-3)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses = []
+            for b in batches:
+                state, loss, _ = step(state, fn(b))
+                losses.append(loss)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            out[name]["examples_per_s"].append(len(batches) * BATCH / dt)
+            run = (torch.stack(losses).cpu(),
+                   {n: (t.header.clone(), t.payload[kv.occupied_mask(t)])
+                    for n, t in state.tables.items()})
+            if ref is None:
+                ref = run
+                out["loss_first_last"] = [float(losses[0]),
+                                          float(losses[-1])]
+                out["rows_per_table"] = int(run[1]["C1"][1].shape[0])
+            out.setdefault("losses_bit_identical", True)
+            out.setdefault("tables_bit_identical", True)
+            out["losses_bit_identical"] &= torch.equal(run[0], ref[0])
+            out["tables_bit_identical"] &= all(
+                torch.equal(x, y) for n in ref[1]
+                for x, y in zip(run[1][n], ref[1][n]))
+            print(f"DCN from Criteo, {name} feed: "
+                  f"{out[name]['examples_per_s'][-1]:.1f} examples/s",
+                  flush=True)
+            del state, step, losses, run
+            torch.cuda.empty_cache()
+    launches = read_launches()
+    out["row_kernel_launches"] = {k: launches[k] for k in
+                                  ("gather_rows", "scatter_rows")}
+    del ref
+    out["peak_gib"] = peak_memory(torch, "Criteo to DCN training")
+    print("Criteo to DCN:", json.dumps(out), flush=True)
+    check(out["losses_bit_identical"] and out["tables_bit_identical"],
+          f"Criteo: the two feeds trained differently: {out}")
+    check(launches["gather_rows"] > 0 and launches["scatter_rows"] > 0,
+          f"Criteo: the row kernels were not launched: {launches}")
+    return launches, out
+
+
+def multi_table_phase(torch, np, kv, models, train, convert, profile_dir):
+    """Phase 21: the multi-table step at the reference DCN's widths: card
+    against CPU and a rerun on 2^14-row groups; then groups of 2^23 (dim
+    64) and 2^22 (dim 128) rows, each logical table filled with 2^18 keys,
+    serving and training beside the per-table step on 2^19-row tables
+    holding the same keys and rows."""
+    model = models.DCN(capacity=PER_TABLE_ROWS)
+    opt = train.GroupAdamOptimizer()
+    tx = functools.partial(torch.optim.Adam, lr=1e-3)
+    rng = np.random.RandomState(SEED + 100)
+    out = {}
+    reset_launches()
+    universe = {n: rng.randint(0, 1 << 40, 4000, dtype=np.int64)
+                for n in model.table_specs}
+
+    def check_batch(b):
+        return dcn_batch(np, rng, universe,
+                         {n: np.arange(4000) for n in universe}, b,
+                         unseen=0.0)
+    init = models.init_state_multi(model, opt, tx, seed=SEED + 100,
+                                   capacity_per_group=CHECK_ROWS,
+                                   device="cpu")
+    c = card_against_cpu(torch, np, kv, models, convert, model, opt, 1e-3,
+                         1e-3, init, tx, [check_batch(CHECK_BATCH)
+                                          for _ in range(CHECK_STEPS)],
+                         multi=True)
+    batches = [check_batch(BATCH) for _ in range(CHECK_STEPS)]
+    reruns = [state_arrays(torch, run_steps(
+        models, model, opt, 1e-3,
+        copy_state(torch, convert, models, init, DEV, tx), batches,
+        multi=True)[0]) for _ in range(2)]
+    c["rerun_bit_identical"] = (
+        all(torch.equal(x, y) for n in reruns[0][0]
+            for x, y in zip(reruns[0][0][n], reruns[1][0][n]))
+        and all(torch.equal(reruns[0][1][k], reruns[1][1][k])
+                for k in reruns[0][1]))
+    del reruns, init
+    print("multi-table checks:", json.dumps(c), flush=True)
+    check(c["rerun_bit_identical"],
+          "multi-table: two runs of the same steps differ on the card")
+    out["checks"] = c
+
+    keys = {n: rng.permutation(np.unique(rng.randint(
+        0, 1 << 40, MULTI_FILL + MULTI_FILL // 8, dtype=np.int64)))[
+            :MULTI_FILL] for n in model.table_specs}
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 101)
+    rows_in = {n: torch.randn(MULTI_FILL, spec["dim"], device=DEV,
+                              generator=gen)
+               for n, spec in sorted(model.table_specs.items())}
+    groups = group_names(model)
+    t0 = time.perf_counter()
+    state = models.init_state_multi(model, opt, tx, seed=SEED + 101,
+                                    capacity_per_group=MULTI_ROWS[128],
+                                    device=DEV)
+    state.tables["__group_64"] = kv.grow(state.tables["__group_64"],
+                                         MULTI_ROWS[64])
+    resident = {}
+    for g, names in groups.items():
+        for j, n in enumerate(names):
+            q = kv.tag_ids(kv.encode_ids(keys[n], device=DEV), j)
+            kv.insert(state.tables[g], q, rows_in[n], day=1)
+            found = kv.find(state.tables[g], q).found.cpu().numpy()
+            check(found.mean() > 0.999, f"multi fill: {n} placed too few")
+            resident[n] = np.nonzero(found)[0]
+    torch.cuda.synchronize()
+    out["fill_s"] = time.perf_counter() - t0
+    out["payload_gb"] = sum(t.payload.numel() * t.payload.element_size()
+                            for t in state.tables.values()) / 1e9
+    out["group_rows"] = {g: t.capacity for g, t in state.tables.items()}
+    print(f"multi-table fill: {out['payload_gb']:.3f} GB of payload in "
+          f"{json.dumps(out['group_rows'])} rows, {MULTI_FILL} keys per "
+          f"logical table, in {out['fill_s']:.3f} s", flush=True)
+    requests = [dcn_batch(np, rng, keys, resident, BATCH)
+                for _ in range(MULTI_STEPS + 1)]
+    steps = [dcn_batch(np, rng, keys, resident, BATCH)
+             for _ in range(MULTI_STEPS + 2)]
+
+    def measure(name, state, serve, step):
+        res = {}
+        serve(state, requests[0])
+        torch.cuda.synchronize()
+        before = read_launches()
+        t0 = time.perf_counter()
+        preds = [serve(state, b)[2] for b in requests[1:]]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        after = read_launches()
+        res["serving"] = {
+            "examples_per_s": MULTI_STEPS * BATCH / dt,
+            "row_kernel_launches_per_request": {
+                k: (after[k] - before[k]) / MULTI_STEPS
+                for k in ("gather_rows", "scatter_rows")},
+            **profile_calls(torch, f"{name}_serving",
+                            [lambda b=b: serve(state, b)
+                             for b in requests[1:4]],
+                            dt / MULTI_STEPS, profile_dir)}
+        state, _, rate, per_step = train_path(
+            torch, name, step, state, steps, {"flash_fwd": 0}, None)
+        res["training"] = {
+            "examples_per_s": rate,
+            "row_kernel_launches_per_step": {
+                k: per_step[k] for k in ("gather_rows", "scatter_rows")},
+            **profile_calls(torch, f"{name}_train",
+                            [lambda b=b: step(state, b)
+                             for b in steps[2:5]],
+                            BATCH / rate, profile_dir)}
+        return res, preds[0]
+
+    serve = models.make_train_step_multi(model, train=False)
+    # the first request against a host-side map of what was inserted
+    b = requests[1]
+    embs = {}
+    for g, names in groups.items():
+        for j, n in enumerate(names):
+            order = resident[n][np.argsort(keys[n][resident[n]])]
+            ref = host_rows(torch, np, keys[n], order, rows_in[n],
+                            b["ids"][n])
+            got = kv.lookup_or_zeros(state.tables[g], kv.tag_ids(
+                kv.encode_ids(b["ids"][n], device=DEV), j))
+            check(torch.equal(got, ref),
+                  f"multi-table: {n} rows differ from the inserted rows")
+            embs[n] = ref.cpu().numpy()
+    _, loss, preds = serve(state, b)
+    ref_logits, _, ref_loss = dcn_reference(np, state.dense, embs,
+                                            b["features"], b["labels"])
+    out["preds_err_ratio"] = err_ratio(np, preds, ref_logits)
+    check(out["preds_err_ratio"] <= 1
+          and abs(float(loss) - float(ref_loss))
+          <= F32_RTOL * max(1.0, abs(float(ref_loss))),
+          f"multi-table: serving differs from the float64 reference: {out}")
+    out["multi"], multi_preds = measure(
+        "DCN_multi", state, serve,
+        models.make_train_step_multi(model, opt, sparse_lr=1e-3))
+    launches = read_launches()
+    # the groups' headers, to compare placement with the per-table fill
+    multi_tables = {g: dataclasses.replace(t, payload=t.payload[:1].clone())
+                    for g, t in state.tables.items()}
+    del state
+    peak_memory(torch, "multi-table step")
+
+    state = models.init_state(model, opt, tx, seed=SEED + 101, device=DEV)
+    both = np.ones(BATCH, bool)    # rows whose ids both fills placed alike
+    for g, names in groups.items():
+        for j, n in enumerate(names):
+            t = state.tables[n]
+            q = kv.encode_ids(keys[n], device=DEV)
+            kv.insert(t, q, rows_in[n], day=1)
+            check(kv.find(t, q).found.float().mean() > 0.999,
+                  f"per-table fill: {n} placed too few rows")
+            ids = kv.encode_ids(b["ids"][n], device=DEV)
+            both &= (kv.find(t, ids).found == kv.find(
+                multi_tables[g], kv.tag_ids(ids, j)).found).cpu().numpy()
+    del multi_tables
+    reset_launches()
+    out["per_table"], per_table_preds = measure(
+        "DCN_per_table", state, models.make_train_step(model, train=False),
+        models.make_train_step(model, opt, sparse_lr=1e-3))
+    per_table = read_launches()
+    launches = {k: launches[k] + per_table[k] for k in launches}
+    # the same rows and dense weights: the same predictions wherever both
+    # fills placed the request's ids alike (an insert may drop a key whose
+    # two buckets are full, a handful per table at these loads)
+    keep = torch.from_numpy(both).to(DEV)
+    out["serving_rows_compared"] = int(both.sum())
+    out["serving_preds_equal_per_table"] = torch.equal(
+        multi_preds[keep], per_table_preds[keep])
+    del state, rows_in
+    out["row_kernel_launches"] = {k: launches[k] for k in
+                                  ("gather_rows", "scatter_rows")}
+    out["peak_gib"] = peak_memory(torch, "per-table step beside it")
+    print("multi-table step:", json.dumps(out), flush=True)
+    check(out["serving_preds_equal_per_table"],
+          "multi-table: serving predictions differ from the per-table step's")
+    check(launches["gather_rows"] > 0 and launches["scatter_rows"] > 0,
+          f"multi-table: the row kernels were not launched: {launches}")
+    return launches, out
+
+
+def hybrid_tier_phase(torch, np, kv, train, storage):
+    """Phase 22: a dim-128 Adam table of 2^21 rows under a 2^19-row device
+    budget with its host tier, fed 64 batches of Zipf(1.05) ids from 2^22,
+    against a 2^23-row table that never spills."""
+    opt = train.AdamOptimizer()
+    rng = np.random.RandomState(SEED + 110)
+    perm = rng.permutation(HYBRID_UNIVERSE).astype(np.int64)
+    stream = [np.unique(perm[(rng.zipf(HYBRID_ZIPF, HYBRID_IDS) - 1)
+                             % HYBRID_UNIVERSE])
+              for _ in range(HYBRID_BATCHES)]
+
+    def table(rows):
+        return opt.init(kv.create(128, rows, seed=SEED + 111, device=DEV))
+
+    def train_step(t, ids, s):
+        res = kv.lookup_or_insert(t, kv.encode_ids(ids, device=DEV), day=1)
+        check(not bool(res.overflow),
+              f"hybrid: step {s}: {int((res.slot < 0).sum())} of "
+              f"{len(ids)} ids not placed in a table of {t.capacity} rows "
+              f"holding {int(kv.size(t))}")
+        opt.apply(t, res.slot, res.rows * 0.1, lr=0.01, step=s)
+
+    reset_launches()
+    ht = storage.HybridTable(table(HYBRID_ROWS), max_live=HYBRID_BUDGET)
+    row_bytes = ht.table.payload.shape[1] * 4
+    ms = {"step": 0.0, "prefetch": 0.0, "apply_prefetch": 0.0, "spill": 0.0}
+    moved = {"prefetch": [], "apply_prefetch": [], "spill": []}
+    most_live = 0
+
+    def lap(key, t0):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ms[key] += (t1 - t0) * 1e3
+        return t1
+
+    torch.cuda.synchronize()
+    t_all = time.perf_counter()
+    for s, ids in enumerate(stream, start=1):
+        t0 = time.perf_counter()
+        moved["prefetch"].append(ht.prefetch(ids))
+        t0 = lap("prefetch", t0)
+        train_step(ht.table, ids, s)
+        if s < len(stream):
+            ht.prefetch_async(stream[s])   # overlaps the step's device work
+        t0 = lap("step", t0)
+        moved["apply_prefetch"].append(ht.apply_prefetch())
+        t0 = lap("apply_prefetch", t0)
+        moved["spill"].append(ht.maybe_spill())
+        lap("spill", t0)
+        live = int(kv.size(ht.table))
+        most_live = max(most_live, live)
+        check(live <= HYBRID_BUDGET,
+              f"hybrid: {live} rows on the device after a spill")
+    hybrid_s = time.perf_counter() - t_all
+    seen = np.unique(np.concatenate(stream))
+    out = {"batches": len(stream),
+           "unique_ids_per_batch": float(np.mean([len(x) for x in stream])),
+           "distinct_ids": int(seen.size), "logical_size": ht.logical_size,
+           "most_device_rows_after_spill": most_live,
+           "device_capacity": ht.table.capacity,
+           "host_tier_rows": ht.tier.size,
+           "host_tier_bytes": ht.tier.nbytes,
+           "rows_moved_per_step": moved,
+           "hybrid_step_ms": hybrid_s * 1e3 / len(stream),
+           "ms_total": ms}
+    for key in ("prefetch", "apply_prefetch", "spill"):
+        n = sum(moved[key])
+        out[f"{key}_gb_per_s"] = (n * row_bytes / 1e9 / (ms[key] / 1e3)
+                                  if n else None)
+    check(out["logical_size"] == out["distinct_ids"],
+          f"hybrid: logical size is not the ids seen: {out}")
+    check(sum(moved["spill"]) > 0 and sum(moved["prefetch"]) > 0,
+          f"hybrid: the stream did not move rows both ways: {out}")
+    launches = read_launches()
+    out["row_kernel_launches"] = {k: launches[k] for k in
+                                  ("gather_rows", "scatter_rows")}
+
+    twin = table(HYBRID_TWIN_ROWS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s, ids in enumerate(stream, start=1):
+        train_step(twin, ids, s)
+    torch.cuda.synchronize()
+    out["resident_step_ms"] = (time.perf_counter() - t0) * 1e3 / len(stream)
+    slot = opt.slot_name
+    names = ("keys", "values", "freq_values", f"slot-{slot}")
+
+    def by_key(ex):
+        order = np.argsort(ex["keys"])
+        return {k: np.asarray(ex[k])[order] for k in names}
+    hyb = storage.export_hybrid_arrays(ht.table, ht.tier)
+    want = kv.export_arrays(twin)
+    fr = kv.find(twin, kv.encode_ids(want["keys"], device=DEV))
+    want[f"slot-{slot}"] = kv.get_slot(twin, slot)[fr.slot.long()].cpu(
+        ).numpy()
+    del twin, fr
+    got, want = by_key(hyb), by_key(want)
+    out["hybrid_equals_resident"] = all(
+        got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k])
+        for k in names)
+    del want
+    tier2 = storage.HostStorageTier(128, 128)
+    back = storage.restore_hybrid_split(
+        table(HYBRID_ROWS), tier2, hyb, max_live=HYBRID_BUDGET,
+        slots={slot: hyb[f"slot-{slot}"]})
+    again = by_key(storage.export_hybrid_arrays(back, tier2))
+    out["restore_split_equal"] = (
+        int(kv.size(back)) == min(seen.size, HYBRID_BUDGET)
+        and all(np.array_equal(again[k], got[k]) for k in names))
+    del ht, back, tier2, hyb, got, again
+    out["peak_gib"] = peak_memory(torch, "host-DRAM tier")
+    print("hybrid tier:", json.dumps(out), flush=True)
+    check(out["hybrid_equals_resident"],
+          "hybrid: the spilled table's rows differ from the resident twin's")
+    check(out["restore_split_equal"],
+          "hybrid: restore_hybrid_split changed rows")
+    check(launches["gather_rows"] > 0 and launches["scatter_rows"] > 0,
+          f"hybrid: the row kernels were not launched: {launches}")
+    return launches, out
+
+
 def kernel_entry(name, src, replaces, launches, errs, cases, main, keys):
     """A row kernel's entry at the main case, with the earlier kernel on the
     same inputs as the earlier one, and per case and key (``gather``;
@@ -2929,6 +3536,9 @@ def main() -> int:
         from tfplus_tpu_torch.ops import _build, compactor, rowops
         from tfplus_tpu_torch.ops import flash_attention as fa
         from tfplus_tpu_torch.utils import packing
+        from tfplus_tpu_torch.data import criteo, feed
+        from tfplus_tpu_torch.io import native
+        from tfplus_tpu_torch.kv import storage
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
               file=sys.stderr)
@@ -2981,6 +3591,11 @@ def main() -> int:
         torch, np, kv, quant, embedding, convert)
     ctr_launches, ctr = ctr_models_phase(torch, np, kv, embedding, models,
                                          train, convert)
+    crit_launches, crit = criteo_training_phase(torch, np, kv, models, train,
+                                                native, criteo, feed)
+    multi_launches, multi = multi_table_phase(torch, np, kv, models, train,
+                                              convert, args.profile)
+    hyb_launches, hyb = hybrid_tier_phase(torch, np, kv, train, storage)
 
     errs = {k: [c[f"{k}_err"] for c in cases.values()]
             for k in ("gather", "scatter_set", "scatter_add")}
@@ -2990,7 +3605,8 @@ def main() -> int:
              seq["fill_launches"], seq["BST"][0], seq["DIN"][0],
              grad_launches, dcn_train[0], bst_train[0], comp_launches,
              grow_launches, rep_launches, ref_launches, dlrm_launches,
-             int8_launches, ops_launches, ctr_launches]
+             int8_launches, ops_launches, ctr_launches, crit_launches,
+             multi_launches, hyb_launches]
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
     src = CSRC + "rowops.cu"
     main_case = f"float32_w128_n{N_IDS}"            # the serving-leg shape
@@ -3038,7 +3654,9 @@ def main() -> int:
         "bst_examples_per_s": seq["BST"][1],
         "bst_launches_per_request": seq["BST"][2],
         "din_examples_per_s": seq["DIN"][1],
-        "din_launches_per_request": seq["DIN"][2]}}))
+        "din_launches_per_request": seq["DIN"][2],
+        "dcn_multi_table": multi["multi"]["serving"],
+        "dcn_per_table_beside_it": multi["per_table"]["serving"]}}))
     print(json.dumps({"training": {
         "flash_grad_tflops": grad_tflops,
         "flash_grad_launches": grad_launches,
@@ -3048,7 +3666,15 @@ def main() -> int:
         "bst_examples_per_s": bst_train[1],
         "bst_launches_per_step": bst_train[2],
         "bst_peak_gib": bst_train[3],
-        "checks": checks}}))
+        "checks": checks,
+        "dcn_from_criteo": crit,
+        "dcn_multi_table": dict(multi["multi"]["training"],
+                                checks=multi["checks"],
+                                fill_s=multi["fill_s"],
+                                payload_gb=multi["payload_gb"],
+                                peak_gib=multi["peak_gib"]),
+        "dcn_per_table_beside_it": multi["per_table"]["training"],
+        "hybrid_tier": hyb}}))
     print(json.dumps({"growth": {
         "compactor": dict(comp_time, peak_gib=comp_peak),
         "growth_checkpoint_resume": grow, "repartition_4_to_6": rep,

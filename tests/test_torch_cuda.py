@@ -30,7 +30,11 @@ without segments, at Sq ≠ Skv and with dropout; a few DCN and BST training
 steps on the card match the same steps on the CPU. The compactor kernel
 matches its plain version bit for bit, and table growth, compaction,
 export and a checkpoint round trip on the card leave the same tables as on
-the CPU. Marked ``cuda``: every test skips without a card. On a machine
+the CPU. The packed feed's pinned buffer unpacks on the card into views
+holding the batch's bits; the multi-table step on the card matches the CPU
+and reruns bit for bit; the host tier's spill, prefetch, hybrid export and
+split restore on the card leave the CPU's tables and tiers bit for bit.
+Marked ``cuda``: every test skips without a card. On a machine
 with a card and without JAX, run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -1281,3 +1285,139 @@ def test_ctr_models_train_the_same_on_the_card(cuda, name):
 
     assert_within([tg[n][1] for n in tc], [tc[n][1] for n in tc], 0.05)
     assert_within(pg, pc, 1e-2)
+
+
+def test_packed_feed_on_the_card(cuda):
+    """``pack`` gives a pinned host buffer for a CUDA feed; one
+    non-blocking copy and ``unpack`` give views of the device buffer that
+    hold the batch's bits (uint32 as int32)."""
+    from tfplus_tpu_torch.data import feed
+    rng = np.random.RandomState(0)
+
+    def batch():
+        return {"ids": {"C1": rng.randint(-9, 9, (64, 2)).astype(np.int32)},
+                "features": rng.randn(64, 13).astype(np.float32),
+                "meta": rng.randint(0, 2**32, 64, dtype=np.int64).astype(
+                    np.uint32)}
+    pack, unpack = feed.make_packed_feed(batch(), device=cuda)
+    for _ in range(3):
+        b = batch()
+        flat = pack(b)
+        assert flat.is_pinned()
+        dev = flat.to(cuda, non_blocking=True)
+        got = unpack(dev)
+        assert got["features"].is_cuda
+        # leaves in JAX's order (sorted keys): features, ids, meta
+        assert got["features"].data_ptr() == dev.data_ptr()
+        assert got["ids"]["C1"].data_ptr() - dev.data_ptr() == 64 * 13 * 4
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(got["ids"]["C1"].cpu().numpy(),
+                                      b["ids"]["C1"])
+        np.testing.assert_array_equal(got["features"].cpu().numpy(),
+                                      b["features"])
+        np.testing.assert_array_equal(
+            got["meta"].cpu().numpy().view(np.uint32), b["meta"])
+
+
+def test_multi_table_step_on_the_card_matches_the_cpu(cuda):
+    """Three multi-table steps from one state on the card and on the CPU,
+    a serving request, and a second run on the card from the same state
+    bit for bit. Headers bit for bit, losses and predictions within 1e-5;
+    payloads as ``chip_smoke.py``'s training checks hold them: within atol
+    2e-5, rtol 1e-4 on all but 1e-3 of the elements (a GroupAdam slot
+    element whose gradient nearly cancels may round another way on the
+    card, ~1e-4 absolute after three steps) and within three learning
+    rates everywhere."""
+    import functools
+
+    from tfplus_tpu_torch import train
+    model = models.DCN(embedding_dims=(8, 16, 8, 16), num_numeric=4,
+                       dnn_hidden=(32, 16))
+    opt = train.GroupAdamOptimizer()
+    rng = np.random.RandomState(9)
+    batches = [{"ids": {f"C{i + 1}": rng.randint(0, 300, 64)
+                        for i in range(4)},
+                "features": rng.randn(64, 4).astype(np.float32),
+                "labels": rng.randint(0, 2, 64).astype(np.float32)}
+               for _ in range(4)]
+    out = []
+    for dev in ("cpu", cuda, cuda):
+        state = models.init_state_multi(
+            model, opt, functools.partial(torch.optim.Adam, lr=1e-2),
+            seed=2, capacity_per_group=1024, device=dev)
+        step = models.make_train_step_multi(model, opt, sparse_lr=0.05)
+        launches = rowops.gather_rows.launches
+        losses = [float(step(state, b)[1]) for b in batches[:3]]
+        if dev != "cpu":
+            assert rowops.gather_rows.launches > launches
+        _, loss, preds = models.make_train_step_multi(model, train=False)(
+            state, batches[3])
+        out.append((losses + [float(loss)], preds.cpu(),
+                    {n: (t.header.cpu(), t.payload.cpu())
+                     for n, t in state.tables.items()}))
+    (lc, pc, tc), (lg, pg, tg), (lg2, pg2, tg2) = out
+    np.testing.assert_allclose(lg, lc, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(pg.numpy(), pc.numpy(), atol=1e-5, rtol=1e-5)
+    assert lg == lg2 and torch.equal(pg, pg2)
+    for n in tc:
+        assert torch.equal(tc[n][0], tg[n][0])
+        got, want = tg[n][1].double(), tc[n][1].double()
+        d = (got - want).abs()
+        assert float((d > 2e-5 + 1e-4 * want.abs()).float().mean()) <= 1e-3
+        assert float(d.max()) <= 3 * 0.05
+        assert torch.equal(tg[n][0], tg2[n][0])
+        assert torch.equal(tg[n][1], tg2[n][1])
+
+
+def test_storage_tier_on_the_card_matches_the_cpu(cuda):
+    """Spill (budget, frequency), prefetch (one that grows the table), the
+    hybrid export and ``restore_hybrid_split`` on the card leave the same
+    tables and tiers as on the CPU, bit for bit (rows are written by
+    ``insert``, so no arithmetic differs)."""
+    from tfplus_tpu_torch.kv import storage
+    rng = np.random.RandomState(3)
+    batches = [rng.permutation(np.unique(rng.randint(0, 400, 300)))[:128]
+               .astype(np.int64) for _ in range(4)]
+    rows = [torch.from_numpy(rng.randn(128, 8).astype(np.float32))
+            for _ in batches]
+    extra = np.arange(1 << 45, (1 << 45) + 200, dtype=np.uint64)
+    extra_rows = rng.randn(200, 16).astype(np.float32)
+    out = {}
+    for dev in ("cpu", cuda):
+        t = kv.ensure_slots(kv.create(8, 512, seed=1, device=dev), {"m": 1})
+        tier = storage.HostStorageTier(8, t.payload.shape[1])
+        moved = []
+        for s, (ids, r) in enumerate(zip(batches, rows), start=1):
+            t, n = storage.prefetch(t, tier, ids)
+            moved.append(n)
+            q = kv.encode_ids(ids, device=dev)
+            kv.lookup_or_insert(t, q, day=s)
+            kv.insert(t, q, r.to(dev), day=s)
+            t, n = storage.spill(t, tier, **(dict(max_live=100) if s % 2
+                                               else dict(min_freq=2)))
+            moved.append(n)
+        tier.put(extra, extra_rows, np.full(200, 3, np.uint32))
+        every = tier.live_rows()[0]
+        t, n = storage.prefetch(t, tier, every)
+        moved.append((n, t.capacity))
+        ex = storage.export_hybrid_arrays(t, tier)
+        t, n = storage.spill(t, tier, max_live=60)
+        tier2 = storage.HostStorageTier(8, 8)
+        back = storage.restore_hybrid_split(
+            kv.ensure_slots(kv.create(8, 128, seed=1, device=dev), {"m": 1}),
+            tier2, ex, max_live=50, slots={"m": ex["slot-m"]})
+        out[str(dev)] = (moved, t.header.cpu(), t.payload.cpu(),
+                         tier.live_rows(), ex, back.header.cpu(),
+                         back.payload.cpu(), tier2.live_rows())
+    a, b = out["cpu"], out[str(cuda)]
+    assert a[0] == b[0] and a[0][-1][1] > 512
+    for x, y in zip(a[1:], b[1:]):
+        if isinstance(x, torch.Tensor):
+            assert torch.equal(x, y)
+        elif isinstance(x, dict):
+            for k in x:
+                if k != "table":
+                    np.testing.assert_array_equal(x[k], y[k], k)
+        else:
+            for u, v in zip(x, y):
+                np.testing.assert_array_equal(u, v)

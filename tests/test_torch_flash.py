@@ -603,3 +603,34 @@ def test_single_forward_block_shape_follows_the_shapes(b, h, sq, rows, heads):
     data): 128 rows for Sq of 65-128, else 64; a block takes up to 8 heads
     while the grid keeps at least eight blocks per SM."""
     assert tfa.single_fwd_config(b, h, sq) == (rows, heads)
+
+
+@pytest.mark.parametrize("p_dropout", [0.0, 0.4])
+def test_reference_softmax_matches_jax(p_dropout):
+    """``reference_attention(return_softmax=True)``: the output and the
+    post-dropout probabilities (0 where dropped and on padding rows) within
+    the f32 tolerance of the JAX reference's; the package exports it and
+    ``fmha`` as the JAX package's ``ops`` does."""
+    from tfplus_tpu_torch import ops as tops
+    assert tops.reference_attention is tfa.reference_attention
+    assert tops.fmha is tfa.flash_attention
+    q, k, v = _inputs(2, 2, 40, 48, 16, 11)
+    qs, ks = _segments(2, 40, seed=2), _segments(2, 48, seed=3)
+    kw = dict(sm_scale=0.3, p_dropout=p_dropout, dropout_seed=5)
+    jout, jp = jfa.reference_attention(*(jnp.asarray(x) for x in (q, k, v)),
+                                       q_segment_ids=jnp.asarray(qs),
+                                       kv_segment_ids=jnp.asarray(ks),
+                                       return_softmax=True, **kw)
+    tout, tp = tops.reference_attention(
+        *(torch.from_numpy(x) for x in (q, k, v)),
+        q_segment_ids=torch.from_numpy(qs), kv_segment_ids=torch.from_numpy(ks),
+        return_softmax=True, **kw)
+    assert tp.shape == (2, 2, 40, 48)
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), **F32_TOL)
+    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), **F32_TOL)
+    np.testing.assert_array_equal(tp.numpy() == 0, np.asarray(jp) == 0)
+    plain = tops.reference_attention(
+        *(torch.from_numpy(x) for x in (q, k, v)),
+        q_segment_ids=torch.from_numpy(qs), kv_segment_ids=torch.from_numpy(ks),
+        **kw)
+    np.testing.assert_array_equal(plain.numpy(), tout.numpy())

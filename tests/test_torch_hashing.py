@@ -134,3 +134,19 @@ def test_packing(seed):
                  "FLAG_TOUCH_BOTH", "FREQ_MASK", "DAY_MASK", "FLAGS_MASK"):
         assert int(getattr(jp, name)) == getattr(tp, name), name
     assert abs(jp.current_day() - tp.current_day()) <= 1
+
+
+@pytest.mark.parametrize("capacity", [64, 1 << 20, 1 << 31, 1 << 32])
+def test_probe_positions(capacity):
+    """Double-hashing probe start, step and positions, int32 bit for bit
+    (capacities up to 2**32, where the uint32 sum wraps and the int32
+    results take the sign bit)."""
+    jk, tk = _pair(7, 1024)
+    np.testing.assert_array_equal(np.asarray(jh.probe_start(jk, capacity)),
+                                  th.probe_start(tk, capacity).numpy())
+    np.testing.assert_array_equal(np.asarray(jh.probe_step(jk, capacity)),
+                                  th.probe_step(tk, capacity).numpy())
+    got = th.probe_positions(tk, capacity, 32)
+    assert got.dtype == torch.int32 and got.shape == (1024, 32)
+    np.testing.assert_array_equal(
+        np.asarray(jh.probe_positions(jk, capacity, 32)), got.numpy())

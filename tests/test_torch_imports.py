@@ -1,8 +1,9 @@
 """The port stands alone: importing tfplus_tpu_torch, every submodule
 (the optimizer suite, the training step, the checkpoint package, the
 filesystems, the progress bar, the compactor, the serving API, the int8
-tables, the variable store, the config and the CTR models too) and
-chip_smoke.py
+tables, the variable store, the config, the CTR models, the data feed and
+readers, the native helper's bindings, the multi-table step, the storage
+tier and the module adapter too) and chip_smoke.py
 loads neither JAX nor the JAX package, and needs no nvcc."""
 import os
 import subprocess
@@ -34,7 +35,12 @@ new = {"tfplus_tpu_torch.ops.rowops", "tfplus_tpu_torch.ops.flash_attention",
        "tfplus_tpu_torch.ops.compactor", "tfplus_tpu_torch.config",
        "tfplus_tpu_torch.kv.quant", "tfplus_tpu_torch.variables",
        "tfplus_tpu_torch.serving", "tfplus_tpu_torch.models.dlrm",
-       "tfplus_tpu_torch.models.deepfm", "tfplus_tpu_torch.models.ncf"}
+       "tfplus_tpu_torch.models.deepfm", "tfplus_tpu_torch.models.ncf",
+       "tfplus_tpu_torch.data", "tfplus_tpu_torch.data.feed",
+       "tfplus_tpu_torch.data.criteo", "tfplus_tpu_torch.data.synthetic",
+       "tfplus_tpu_torch.data.movielens", "tfplus_tpu_torch.io.native",
+       "tfplus_tpu_torch.kv.multi", "tfplus_tpu_torch.kv.storage",
+       "tfplus_tpu_torch.models.module_adapter"}
 assert new <= set(names), sorted(new - set(names))
 from tfplus_tpu_torch.models import BST, DIN
 from tfplus_tpu_torch.nn import flash_attention_layer
@@ -59,6 +65,26 @@ from tfplus_tpu_torch.kv.quant import QuantKvTable, lookup_or_zeros
 from tfplus_tpu_torch.embedding import (combine, safe_embedding_lookup_sparse,
                                         grads_to_unique)
 from tfplus_tpu_torch.models import DLRM, DeepFM, WideDeep, NCF
+from tfplus_tpu_torch.data import make_packed_feed
+from tfplus_tpu_torch.data.criteo import (BinaryCriteoCache, batches,
+                                          build_binary_cache, python_batches)
+from tfplus_tpu_torch.data.synthetic import (BehaviorSequence, CriteoLike,
+                                             dlrm_batches, movielens_like)
+from tfplus_tpu_torch.data.movielens import available, load_or_synthetic
+from tfplus_tpu_torch.io.native import (CriteoLoader, crc32, fingerprint64,
+                                        fingerprint64_batch,
+                                        parse_criteo_batch,
+                                        parse_criteo_batch_py)
+from tfplus_tpu_torch.kv import (MultiTable, tag_ids, untag_ids_np,
+                                 HostStorageTier, HybridTable,
+                                 AsyncPrefetcher, spill, prefetch,
+                                 export_hybrid_arrays, restore_hybrid_split)
+from tfplus_tpu_torch.kv.hashing import (probe_positions, probe_start,
+                                         probe_step)
+from tfplus_tpu_torch.models import (ModuleSparseModel, init_state_multi,
+                                     make_train_step_multi)
+from tfplus_tpu_torch.ops import fmha, reference_attention
+from tfplus_tpu_torch.convert import state_from_numpy
 print(len(names))
 """
 

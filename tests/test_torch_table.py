@@ -318,3 +318,35 @@ def test_delete_with_timestamp_and_counts_match_jax():
     # 2's rows (age 3, not above 3) stay
     assert int(tkv.size(tt)) == BATCH
     assert int(tt.deleted_count) == 80
+
+
+def test_lookup_without_delta_marks_matches_jax():
+    """``lookup_or_insert(mark_delta=False)`` sets no touch bits on rows that
+    existed (new rows are still marked): after a delta export has cleared
+    the bits, a second lookup of old and new keys, then another delta
+    export, gives the same keys and meta words in both packages."""
+    rng = np.random.RandomState(21)
+    ids = rng.permutation(np.unique(rng.randint(0, 1 << 40, 3 * BATCH)))
+    jt = jkv.create(8, 256, seed=3)
+    tt = to_port(jt)
+    q0 = ids[:BATCH]
+    jt = jkv.lookup_or_insert(jt, jkv.encode_ids_np_to_device(q0), day=7).table
+    tkv.lookup_or_insert(tt, tkv.encode_ids_np_to_device(q0, "cpu"), day=7)
+    jt = jkv.export_arrays(jt, delta=True)["table"]
+    tkv.export_arrays(tt, delta=True)
+    q1 = np.concatenate([ids[BATCH // 2:BATCH], ids[BATCH:BATCH * 3 // 2]])
+    for mark in (False, True):
+        jr = jkv.lookup_or_insert(jt, jkv.encode_ids_np_to_device(q1),
+                                  day=9, mark_delta=mark)
+        tr = tkv.lookup_or_insert(tt, tkv.encode_ids_np_to_device(q1, "cpu"),
+                                  day=9, mark_delta=mark)
+        jt = jr.table
+        assert_same(jr.meta_rows, tr.meta_rows, f"meta_rows, mark={mark}")
+        assert_same_table(jt, tt)
+        jex = jkv.export_arrays(jt, delta=True, as_of_unix_day=20000)
+        tex = tkv.export_arrays(tt, delta=True, as_of_unix_day=20000)
+        jt = jex["table"]
+        for k in ("keys", "meta", "freq_values"):
+            np.testing.assert_array_equal(jex[k], tex[k], k)
+        # without the marks only the new half is in the delta
+        assert len(tex["keys"]) == (BATCH // 2 if not mark else BATCH)

@@ -1,7 +1,8 @@
-"""Carry tables and dense weights from the JAX package into the port.
+"""Carry tables, dense weights and whole training states from the JAX
+package into the port.
 
-Both functions take plain numpy data (what ``jax.device_get`` returns), so
-the port never sees a JAX object.
+The functions take plain numpy data (what ``jax.device_get`` returns), so
+the port never sees a JAX array.
 """
 from __future__ import annotations
 
@@ -13,6 +14,9 @@ from torch import nn
 
 from .kv.table import KvConfig, KvTable
 from .utils import device as _dev
+
+_TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                 "float16": torch.float16}
 
 TABLE_FIELDS = ("header", "payload", "init_pool", "deleted_keys",
                 "deleted_count", "deleted_overflow", "deleted_seen_train",
@@ -73,3 +77,38 @@ def dense_from_numpy(model: nn.Module, params) -> nn.Module:
     model.load_state_dict({k: _tensor(v, state[k].device).to(state[k].dtype)
                            for k, v in flat.items()})
     return model
+
+
+def config_from_numpy(cfg) -> KvConfig:
+    """The port's :class:`KvConfig` for a JAX table's config (any object
+    with its fields; ``value_dtype`` a numpy or ml_dtypes dtype)."""
+    return KvConfig(dim=cfg.dim, enter_threshold=cfg.enter_threshold,
+                    max_probes=cfg.max_probes,
+                    value_dtype=_TORCH_DTYPES[np.dtype(cfg.value_dtype).name],
+                    name=cfg.name, slot_layout=tuple(cfg.slot_layout),
+                    support_prediction_delta=cfg.support_prediction_delta)
+
+
+def state_from_numpy(state, model, dense_tx=None, device="cuda"):
+    """The port's ``TrainState`` from a JAX ``TrainState`` fetched to the
+    host (``jax.device_get(state)``), per-table or multi-table alike: every
+    table through :func:`table_from_numpy` under its own name (a
+    multi-table state's ``__group_<dim>`` tables included), the dense
+    weights loaded into ``model.init_dense(...)`` by
+    :func:`dense_from_numpy`, the step count carried over. The dense
+    optimizer is new: ``dense_tx(params)`` (as in ``models.init_state``),
+    or None."""
+    from .models.common import TrainState
+    dev = _dev.resolve(device)
+    tables = {}
+    for name, t in state.tables.items():
+        arrays = {f: np.asarray(getattr(t, f)) for f in TABLE_FIELDS}
+        tables[name] = table_from_numpy(arrays, config_from_numpy(t.config),
+                                        dev)
+    dense = model.init_dense(torch.Generator().manual_seed(0), dev)
+    dense_from_numpy(dense, state.dense)
+    return TrainState(tables=tables, dense=dense,
+                      opt_state=(None if dense_tx is None
+                                 else dense_tx(dense.parameters())),
+                      step=torch.tensor(int(np.asarray(state.step)),
+                                        dtype=torch.int32, device=dev))

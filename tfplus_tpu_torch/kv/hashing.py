@@ -146,6 +146,34 @@ def hash_words(keys: torch.Tensor, seed: int) -> torch.Tensor:
                    ^ ((seed * 0x01000193) & _M32))
 
 
+def _i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 holding a uint32 value → the int32 with the same bits."""
+    return (((x + (1 << 31)) & _M32) - (1 << 31)).to(torch.int32)
+
+
+def probe_start(keys: torch.Tensor, capacity: int) -> torch.Tensor:
+    """First probe position, int32; ``capacity`` must be a power of two."""
+    return _i32(hash_words(keys, 0x2545F491) & (capacity - 1))
+
+
+def probe_step(keys: torch.Tensor, capacity: int) -> torch.Tensor:
+    """Double-hashing step, int32: odd, so it generates Z/capacity
+    (capacity = 2**k)."""
+    return _i32((hash_words(keys, 0x6A09E667) | 1) & (capacity - 1))
+
+
+def probe_positions(keys: torch.Tensor, capacity: int,
+                    max_probes: int) -> torch.Tensor:
+    """All candidate slots ``int32[..., max_probes]`` for each key: the
+    uint32 sum ``start + j * step`` masked to the capacity (int64 holds it
+    unwrapped; the mask by ``capacity - 1 < 2**32`` wraps it as uint32
+    arithmetic would)."""
+    h0 = hash_words(keys, 0x2545F491) & (capacity - 1)
+    st = (hash_words(keys, 0x6A09E667) | 1) & (capacity - 1)
+    j = torch.arange(max_probes, dtype=torch.int64, device=keys.device)
+    return _i32((h0[..., None] + j * st[..., None]) & (capacity - 1))
+
+
 def bucket_choices(keys: torch.Tensor,
                    capacity: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Two-choice bucket hashing: each key may live in one of two contiguous

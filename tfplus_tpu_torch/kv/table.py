@@ -423,11 +423,15 @@ def lookup_or_insert(table: KvTable,
                      *,
                      valid: Optional[torch.Tensor] = None,
                      day=0,
+                     mark_delta: bool = True,
                      defer_meta: bool = False) -> LookupResult:
     """Training-path gather: find each key, insert misses with init-pool rows
     (header and payload updated in place). Dedup ``q`` first for exact
     frequency accounting; placement itself is duplicate-safe. ``counts`` is
     the per-key multiplicity.
+
+    ``mark_delta=False`` sets no delta-touch bits on rows that already
+    existed (new rows are always marked for both streams).
 
     ``defer_meta=True`` (without a frequency filter) leaves the meta update
     to the optimizer's meta write over the same slots: the freq/day/touch
@@ -459,8 +463,9 @@ def lookup_or_insert(table: KvTable,
 
     # metadata: freq count, day stamp, delta-touch bits, preserved blacklist
     # bit. The old meta came with the probe's bucket read (0 for new rows).
-    upd_meta = packing.saturating_add_freq(fr.meta, counts, day) \
-        | FLAG_TOUCH_BOTH
+    touch = (FLAG_TOUCH_BOTH if mark_delta
+             else torch.where(newly, FLAG_TOUCH_BOTH, 0))
+    upd_meta = packing.saturating_add_freq(fr.meta, counts, day) | touch
     if not (defer_meta and table.config.enter_threshold == 0):
         _set_meta_at(header, torch.where(ok, placed, table.capacity), upd_meta)
 

@@ -200,10 +200,14 @@ def _attention_mask(sq, skv, q_seg, kv_seg, causal, device="cpu"):
 
 def reference_attention(q, k, v, *, causal=False, sm_scale=None,
                         q_segment_ids=None, kv_segment_ids=None,
-                        p_dropout: float = 0.0, dropout_seed=0):
+                        p_dropout: float = 0.0, dropout_seed=0,
+                        return_softmax: bool = False):
     """Exact attention (einsum, softmax, einsum), with the same keep-mask as
     the kernels; fully masked rows output 0. Computes in float32, or in
-    float64 for float64 inputs (an autograd oracle for the kernels)."""
+    float64 for float64 inputs (an autograd oracle for the kernels).
+    ``return_softmax=True`` also returns the post-dropout probabilities
+    ``[B, H, Sq, Skv]`` (0 on fully masked rows), as the JAX package's
+    reference does."""
     b, h = q.shape[0], q.shape[1]
     if sm_scale is None:
         sm_scale = 1.0 / float(np.sqrt(q.shape[-1]))
@@ -219,7 +223,10 @@ def reference_attention(q, k, v, *, causal=False, sm_scale=None,
         p = torch.where(keep, p, 0.0) * (1.0 / (1.0 - p_dropout))
     any_valid = mask.any(dim=-1)[:, None, :, None]
     out = torch.einsum("bhqk,bhkd->bhqd", p, v.to(acc))
-    return torch.where(any_valid, out, 0.0).to(q.dtype)
+    out = torch.where(any_valid, out, 0.0).to(q.dtype)
+    if return_softmax:
+        return out, torch.where(any_valid, p, 0.0)
+    return out
 
 
 def make_segment_ids_from_lengths(lengths, seq_len: int,
