@@ -177,20 +177,54 @@ failed check:
    table's that never spilled, per key bit for bit, and
    ``restore_hybrid_split`` gives the same rows again. Step ms with and
    without the tier, spill and prefetch ms and GB/s, host-tier bytes.
+23. The distributed tier in a world of 1 over NCCL (this process; a gloo
+   subgroup for the CPU): phase 17's DLRM over sharded tables
+   (``parallel.sharded_lookup(defer_meta=True)``, the loss, the dense
+   gradients all-reduced, ``sharded_apply_grads``; GroupAdam 1e-3, dense
+   Adam 1e-3). At 2^14-row shards, three steps on the card against the
+   same sharded steps on the CPU as in phase 10, two runs bit for bit and
+   a loss that falls over ten steps on one batch; then 26 shards of 2^20
+   rows holding 2^18 keys, 10 timed batch-2048 steps (5 % unseen ids, no
+   overflow flag set) in examples/s, launches and ``aten::nonzero`` per
+   step (torch.profiler) and the bytes of the tensors handed to the
+   collectives per step (in a world of 1 none crosses a link), beside
+   phase 21's per-table step; 10 f32 and 10 int8 requests through
+   ``sharded_serving_lookup``, whose rows equal the table's per key (int8
+   bit for bit against ``quant.lookup_or_zeros``, within max|row|/254).
+   Its launches are read after the steps and requests, before the checks.
+24. Two ranks on the one card over gloo, this script started twice with
+   ``--rank-worker`` and a 480 s limit, each leg with the launch counts
+   reset before it and its references, checks and set-up taken off them
+   (``not_path``): ring flash attention at the bench's shape (causal bf16
+   B4 H8 S2048 D128, S 1024 per rank; tensor-core kernels) and non-causal
+   f32 B2 H4 S256 D32 (128-key blocks on the single-pass kernels), forward
+   and backward against one ``flash_attention`` over the whole sequence
+   (bf16 output within ATTN_TOL plus the p-rounding allowance of
+   ``ring_allowance``, gradients within BWD_F64_TOL of scale); DLRM at
+   its widths on 2^11-row shards through collective growth, with a full
+   and a delta ``save_multihost`` restored equal per key; route-overflow
+   recovery from a 4-deep bucket; ``ShardedHybridTable`` under a 48-row
+   budget against an uncapped run, per key bit for bit; sharded serving
+   load (f32, int8) and delta refresh; 2D at 1 x 2 with GroupAdam's l21
+   norm across the column ranks against one full-width table.
 
 Each path (the serving and training paths, the flash entry points, the
 compactor entry point, the growth, checkpoint and repartition paths, and
 the serving-API, int8, table-op and CTR-model paths, the Criteo-fed DCN, the
-multi-table and per-table steps and the hybrid tier) runs
+multi-table and per-table steps, the hybrid tier, the sharded DLRM and
+the two ranks' legs) runs
 with the kernels' launch counts set to 0 just before it and read just after
 it. Each phase frees its tables before the next and prints the peak device
 memory it reached. The line before the last is the ``{"kernels": [...]}``
 JSON, after the ``{"serving": ...}``, ``{"training": ...}``,
-``{"growth": ...}`` and ``{"serving_api": ...}`` lines; the last line is ``{"ok": true, "device":
+``{"growth": ...}``, ``{"parallel": ...}`` and ``{"serving_api": ...}``
+lines; each kernel's entry adds ``launches_phases_23_24``, its launches
+on phases 23-24's paths. The last line is ``{"ok": true, "device":
 {...}}``. Without a card, or without the port beside it, the script exits
 non-zero and prints no result.
 """
 import argparse
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -500,6 +534,45 @@ def read_launches():
             for route in ROUTES:
                 out[f"{name}.{route}"] = getattr(fn, f"{route}_launches")
     return out
+
+
+@contextlib.contextmanager
+def not_path(tally):
+    """Add the launches made inside the block to ``tally``: a leg's
+    references, checks and their set-up, which :func:`leg` takes off the
+    leg's count."""
+    before = read_launches()
+    try:
+        yield
+    finally:
+        after = read_launches()
+        for k in after:
+            tally[k] = tally.get(k, 0) + after[k] - before[k]
+
+
+@contextlib.contextmanager
+def collective_bytes(tally):
+    """Add to ``tally['bytes']`` the size of every tensor this process hands
+    to ``all_to_all_single``, ``all_reduce`` and ``all_gather`` inside the
+    block (the tensor it sends; in a world of 1 no byte crosses a link)."""
+    import torch.distributed as dist
+    sent = {"all_to_all_single": 1, "all_reduce": 0, "all_gather": 1}
+    saved = {n: getattr(dist, n) for n in sent}
+
+    def counted(name):
+        def call(*args, **kw):
+            x = args[sent[name]]
+            tally["bytes"] = tally.get("bytes", 0) + x.numel() \
+                * x.element_size()
+            return saved[name](*args, **kw)
+        return call
+    for n in sent:
+        setattr(dist, n, counted(n))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(dist, n, fn)
 
 
 def route_of(fn, call):
@@ -1863,17 +1936,18 @@ def group_names(model):
 
 
 def card_against_cpu(torch, np, kv, models, convert, model, opt, lr,
-                     dense_lr, init, tx, batches, multi=False):
+                     dense_lr, init, tx, batches, multi=False, runner=None):
     """``batches`` of training steps from ``init`` (a CPU state) on the CPU
     and on the card (the multi-table step with ``multi``): headers and the
     batches' slots bit for bit, losses and step 1's dense gradients within
     ``TRAIN_TOL``, the placed rows and the dense parameters within its
     tight limits on all but a share of elements and within a step's
-    learning rate per step everywhere. Returns the comparison and raises if
-    it fails."""
+    learning rate per step everywhere. ``runner`` takes ``run_steps``'s
+    place (the sharded step's). Returns the comparison and raises if it
+    fails."""
     states, losses, grads = {}, {}, {}
     for dev in ("cpu", DEV):
-        states[dev], losses[dev], grads[dev] = run_steps(
+        states[dev], losses[dev], grads[dev] = (runner or run_steps)(
             models, model, opt, lr,
             copy_state(torch, convert, models, init, dev, tx), batches,
             multi)
@@ -3420,6 +3494,739 @@ def hybrid_tier_phase(torch, np, kv, train, storage):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# the distributed tier (parallel/): phase 23 in this process over NCCL,
+# phase 24 in two spawned ranks on the one card over gloo
+# ---------------------------------------------------------------------------
+
+SHARD_STEPS = 10                 # timed sharded steps and requests
+PAR_TIMEOUT = 480                # seconds for phase 24's two ranks
+PAR_ROWS = 1 << 11               # phase 24's DLRM shards, grown past
+PAR_BATCH = 256                  # ids per rank and step in phase 24
+PAR_STEPS = 10
+RING_SHAPE = (4, 8, 2048, 128)   # the bench's flash shape: S 1024 per rank
+RING_F32_SHAPE = (2, 4, 256, 32)  # 128-key f32 blocks: single-pass kernels
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def sharded_dlrm_step(torch, kv, par, model, opt, lr, state, batch, group):
+    """One data-parallel DLRM step over sharded tables: per table (sorted)
+    ``sharded_lookup(defer_meta=True)``, the loss, one backward, the dense
+    gradients all-reduced (their mean over the group) into the dense
+    optimizer's step, then ``sharded_apply_grads`` with the 1-indexed step.
+    Returns ``(state, loss, preds, flags)``: flags sums every table's
+    route and table overflow flags."""
+    import torch.distributed as dist
+    dev = state.step.device
+    rows, looks = {}, {}
+    for name in sorted(state.tables):
+        r, st, state.tables[name] = par.sharded_lookup(
+            state.tables[name], kv.encode_ids(batch["ids"][name], device=dev),
+            group=group, defer_meta=True, day=1)
+        rows[name] = r.requires_grad_()
+        looks[name] = st
+    preds = model.apply(state.dense, rows,
+                        torch.as_tensor(batch["features"], device=dev))
+    loss = model.loss(preds, torch.as_tensor(batch["labels"], device=dev))
+    params = list(state.dense.parameters())
+    names = sorted(rows)
+    grads = torch.autograd.grad(loss, params + [rows[n] for n in names],
+                                allow_unused=True)
+    world = dist.get_world_size(group)
+    for p, g in zip(params, grads):
+        g = torch.zeros_like(p) if g is None else g
+        dist.all_reduce(g, group=group)
+        p.grad = g / world
+    state.opt_state.step()
+    step = state.step + 1
+    flags = torch.zeros((), dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        for n, g in zip(names, grads[len(params):]):
+            st = looks[n]
+            par.sharded_apply_grads(opt, state.tables[n], st, g, group=group,
+                                    lr=lr, step=step)
+            flags = flags + st.route_overflow.int() + st.table_overflow.int()
+    return state._replace(step=step), loss.detach(), preds.detach(), flags
+
+
+def sharded_runner(torch, kv, par, groups):
+    """``run_steps``' counterpart for :func:`card_against_cpu`: the sharded
+    step over ``groups[device type]``; checks that no id was dropped."""
+    def run(models, model, opt, lr, state, batches, multi=False):
+        group = groups[state.step.device.type]
+        losses, first = [], None
+        for b in batches:
+            state, loss, _, flags = sharded_dlrm_step(
+                torch, kv, par, model, opt, lr, state, b, group)
+            check(int(flags) == 0, "sharded step: an overflow flag is set")
+            losses.append(float(loss))
+            if first is None:
+                first = [p.grad.detach().cpu().clone()
+                         for p in state.dense.parameters()]
+        return state, losses, first
+    return run
+
+
+def sharded_state(torch, models, par, model, opt, tx, rows, seed, group,
+                  device):
+    """A DLRM state whose tables are this rank's shards
+    (``par.create_sharded`` with the optimizer's slots)."""
+    tables = {n: par.init_optimizer_sharded(opt, par.create_sharded(
+        spec["dim"], rows, group, device=device, seed=seed + i))
+        for i, (n, spec) in enumerate(sorted(model.table_specs.items()))}
+    dense = model.init_dense(torch.Generator().manual_seed(seed), "cpu")
+    dense = dense.to(device)
+    return models.TrainState(tables=tables, dense=dense,
+                             opt_state=tx(dense.parameters()),
+                             step=torch.zeros((), dtype=torch.int32,
+                                              device=device))
+
+
+def sharded_dlrm_phase(torch, np, kv, quant, models, train, convert,
+                       per_table, profile_dir):
+    """Phase 23: DLRM at the Criteo Kaggle widths over sharded tables in a
+    world of 1 over NCCL (this process): the checks at 2^14-row shards
+    (card against the same sharded steps on the CPU in a gloo subgroup,
+    reruns, a falling loss), then 26 shards of 2^20 rows holding 2^18 keys
+    each, 10 timed steps and 10 f32 and int8 requests through
+    ``sharded_serving_lookup``."""
+    import torch.distributed as dist
+    from tfplus_tpu_torch import parallel as par
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    out = {}
+    try:
+        nccl = dist.group.WORLD
+        gloo = dist.new_group(backend="gloo")
+        out["backend"] = dist.get_backend(nccl)
+        out["check_backend"] = dist.get_backend(gloo)
+        check(out["backend"] == "nccl", "phase 23 must run over NCCL")
+        model = models.DLRM(**DLRM_CONFIG, capacity=CHECK_ROWS)
+        opt = train.GroupAdamOptimizer()
+        tx = functools.partial(torch.optim.Adam, lr=1e-3)
+        rng = np.random.RandomState(SEED + 230)
+        universe = {n: rng.randint(0, 1 << 40, 4000, dtype=np.int64)
+                    for n in model.table_specs}
+
+        def check_batch(b):
+            return dcn_batch(np, rng, universe,
+                             {n: np.arange(4000) for n in universe}, b,
+                             unseen=0.0)
+        run = sharded_runner(torch, kv, par, {"cpu": gloo, "cuda": nccl})
+        init = sharded_state(torch, models, par, model, opt, tx, CHECK_ROWS,
+                             SEED + 230, gloo, "cpu")
+        c = card_against_cpu(torch, np, kv, models, convert, model, opt,
+                             1e-3, 1e-3, init, tx,
+                             [check_batch(CHECK_BATCH)
+                              for _ in range(CHECK_STEPS)], runner=run)
+        batches = [check_batch(BATCH) for _ in range(CHECK_STEPS)]
+        reruns = [state_arrays(torch, run(
+            models, model, opt, 1e-3,
+            copy_state(torch, convert, models, init, DEV, tx),
+            batches)[0]) for _ in range(2)]
+        c["rerun_bit_identical"] = (
+            all(torch.equal(x, y) for n in reruns[0][0]
+                for x, y in zip(reruns[0][0][n], reruns[1][0][n]))
+            and all(torch.equal(reruns[0][1][k], reruns[1][1][k])
+                    for k in reruns[0][1]))
+        one = check_batch(BATCH)
+        c["loss_on_one_batch"] = run(
+            models, model, opt, 1e-3,
+            copy_state(torch, convert, models, init, DEV, tx),
+            [one] * 10)[1]
+        del reruns, init
+        print("sharded DLRM checks:", json.dumps(c), flush=True)
+        check(c["rerun_bit_identical"],
+              "sharded DLRM: two runs of the same steps differ on the card")
+        check(c["loss_on_one_batch"][-1] < c["loss_on_one_batch"][0],
+              f"sharded DLRM: the loss does not fall: {c}")
+        out["checks"] = c
+
+        # full width: 26 shards of 2^20 rows, 2^18 keys each
+        model = models.DLRM(**DLRM_CONFIG, capacity=DLRM_ROWS)
+        keys = {n: rng.permutation(np.unique(rng.randint(
+            0, 1 << 40, DLRM_FILL + DLRM_FILL // 8, dtype=np.int64)))[
+                :DLRM_FILL] for n in model.table_specs}
+        gen = torch.Generator(device=DEV).manual_seed(SEED + 231)
+        t0 = time.perf_counter()
+        state = sharded_state(torch, models, par, model, opt, tx, DLRM_ROWS,
+                              SEED + 231, nccl, DEV)
+        resident = fill_tables(torch, np, kv, state, keys, gen)
+        torch.cuda.synchronize()
+        out["fill_s"] = time.perf_counter() - t0
+        steps = [dcn_batch(np, rng, keys, resident, BATCH)
+                 for _ in range(SHARD_STEPS + 2)]
+        reset_launches()
+        flags, losses = 0, []
+        for b in steps[:2]:
+            state, loss, _, f = sharded_dlrm_step(
+                torch, kv, par, model, opt, 1e-3, state, b, nccl)
+            flags += int(f)
+        torch.cuda.synchronize()
+        before = read_launches()
+        sent = {}
+        t0 = time.perf_counter()
+        with collective_bytes(sent):
+            for b in steps[2:]:
+                state, loss, _, f = sharded_dlrm_step(
+                    torch, kv, par, model, opt, 1e-3, state, b, nccl)
+                flags = flags + f
+                losses.append(loss)
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        after = read_launches()
+        out["flags"] = int(flags)
+        check(out["flags"] == 0,
+              "sharded DLRM: a route or table overflow flag is set")
+        check(all(bool(torch.isfinite(x)) for x in losses),
+              "sharded DLRM: non-finite loss")
+        train_out = {
+            "examples_per_s": SHARD_STEPS * BATCH / dt,
+            "row_kernel_launches_per_step": {
+                k: (after[k] - before[k]) / SHARD_STEPS
+                for k in ("gather_rows", "scatter_rows")},
+            "collective_bytes_sent_per_step": sent["bytes"] / SHARD_STEPS,
+            **profile_calls(torch, "DLRM_sharded_train",
+                            [lambda b=b: sharded_dlrm_step(
+                                torch, kv, par, model, opt, 1e-3, state, b,
+                                nccl) for b in steps[2:5]],
+                            dt / SHARD_STEPS, profile_dir)}
+
+        # serving: the trained shards, f32 and int8
+        def request(tables, b):
+            with torch.no_grad():
+                embs = {}
+                for n in sorted(tables):
+                    embs[n], ovf, _ = par.serving.sharded_serving_lookup(
+                        tables[n], kv.encode_ids(b["ids"][n], device=DEV),
+                        group=nccl)
+                    check(not bool(ovf), "sharded serving: a bucket overflow")
+                return model.apply(state.dense, embs, torch.as_tensor(
+                    b["features"], device=DEV))
+
+        requests = [dcn_batch(np, rng, keys, resident, BATCH)
+                    for _ in range(SHARD_STEPS + 1)]
+        qtables = {n: quant.quantize_table(t)
+                   for n, t in state.tables.items()}
+        serve_out = {}
+        for tag, tables in (("f32", state.tables), ("int8", qtables)):
+            request(tables, requests[0])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            preds = [request(tables, b) for b in requests[1:]]
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            check(all(bool(torch.isfinite(p).all()) for p in preds),
+                  f"sharded serving ({tag}): non-finite predictions")
+            serve_out[tag] = {"examples_per_s": SHARD_STEPS * BATCH / dt}
+        # the path's launches: the timed and profiled steps and the
+        # requests, read before the checks below launch row kernels
+        out["launches"] = read_launches()
+        # served rows equal the trained rows per key
+        b = requests[1]
+        worst = 0.0
+        for n, t in state.tables.items():
+            q = kv.encode_ids(b["ids"][n], device=DEV)
+            got, _, _ = par.serving.sharded_serving_lookup(t, q, group=nccl)
+            check(torch.equal(got, kv.lookup_or_zeros(t, q)),
+                  f"sharded serving: {n}'s f32 rows differ from the table's")
+            gq, _, _ = par.serving.sharded_serving_lookup(qtables[n], q,
+                                                          group=nccl)
+            check(torch.equal(gq, quant.lookup_or_zeros(qtables[n], q)),
+                  f"sharded serving: {n}'s int8 rows differ from the "
+                  "int8 table's")
+            full = kv.lookup_or_zeros(t, q)
+            err = (gq - full).abs()
+            check(bool((err <= quant_bound(torch, full)).all()),
+                  f"sharded serving: {n}'s int8 rows past max|row|/254")
+            worst = max(worst, float((err / quant_bound(torch, full)
+                                      .clamp(min=1e-30)).max()))
+        serve_out["int8_err_over_bound"] = worst
+        out["training"] = train_out
+        out["serving"] = serve_out
+        out["per_table_dcn_phase_21_beside_it"] = {
+            k: per_table["training"][k]
+            for k in ("examples_per_s", "launches", "nonzero_syncs")}
+        del state, qtables
+    finally:
+        dist.destroy_process_group()
+    out["peak_gib"] = peak_memory(torch, "sharded DLRM")
+    print(f"sharded DLRM (NCCL, world 1): {json.dumps(out)}", flush=True)
+    check(out["launches"]["gather_rows"] > 0
+          and out["launches"]["scatter_rows"] > 0,
+          f"sharded DLRM: the row kernels were not launched: "
+          f"{out['launches']}")
+    return out["launches"], out
+
+
+def two_rank_phase(torch):
+    """Phase 24: two ranks on the one card over gloo, spawned from this
+    script (``--rank-worker``) with a time limit; each runs
+    :func:`rank_worker`'s legs and writes its results, which this process
+    checks and sums. Two ranks sharing one card time nothing that users
+    of several cards see: the legs are checked, and timed only for the
+    record."""
+    import shutil
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    port = free_port()
+    env = dict(os.environ, LOCAL_RANK="0", OMP_NUM_THREADS="4")
+    logs = [os.path.join(workdir, f"rank{r}.log") for r in range(2)]
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for r in range(2):
+            with open(logs[r], "wb") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--rank-worker", str(r), "--world", "2", "--dir",
+                     workdir, "--port", str(port)],
+                    env=env, stdout=f, stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + PAR_TIMEOUT
+        for p in procs:
+            try:
+                p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+            except subprocess.TimeoutExpired:
+                break
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, path in enumerate(logs):
+        with open(path, errors="replace") as f:
+            text = f.read()
+        print(f"--- phase 24 rank {r} (rc {procs[r].returncode}) ---\n"
+              + text[-6000:], flush=True)
+    check(all(p.returncode == 0 for p in procs),
+          f"two ranks over gloo: rc {[p.returncode for p in procs]} "
+          f"(limit {PAR_TIMEOUT} s)")
+    res = []
+    for r in range(2):
+        with open(os.path.join(workdir, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    shutil.rmtree(workdir, ignore_errors=True)
+    launches = {k: sum(x["launches"][k] for x in res)
+                for k in res[0]["launches"]}
+    out = {"seconds": time.perf_counter() - t0, "ranks": res,
+           "launches": launches}
+    print(f"two ranks over gloo: {json.dumps(out)}", flush=True)
+    return launches, out
+
+
+def leg(res, name, fn, *args):
+    """Run one leg of :func:`rank_worker` with the launch counts set to 0
+    before it and read after it (summed into ``res['launches']``); a leg
+    returns its results and the launches that were not its path (its
+    references, checks and their set-up, tallied by :func:`not_path`),
+    which are taken off."""
+    reset_launches()
+    t0 = time.perf_counter()
+    out, checks = fn(*args)
+    after = read_launches()
+    res["launches"] = {k: res["launches"].get(k, 0) + after[k]
+                       - checks.get(k, 0) for k in after}
+    out["seconds"] = time.perf_counter() - t0
+    res[name] = out
+    print(f"rank leg {name}: {json.dumps(out)}", flush=True)
+
+
+def ring_allowance(torch, fa, q, k, v, rank, world, sm_scale, causal):
+    """How far bf16 roundings may move the ring's output (this rank's rows)
+    from one flash_attention over the whole sequence. Both round every p
+    to bf16 before its product with v, each at its own running max: half a
+    bf16 ulp (2^-8) of p on each side, so 2^-7·Σ p|v|/l between them
+    (``reference_attention`` over |v| gives that sum). The ring also rounds
+    every block's output to bf16 before the combine: 2^-8 of |out_i|,
+    weighted by the block's share l_i·exp(m_i - m)/l of the row. Launches
+    made here are checks."""
+    n = k.shape[2] // world
+    sl = slice(rank * n, (rank + 1) * n)
+    pv = fa.reference_attention(q.float(), k.float(), v.float().abs(),
+                                causal=causal, sm_scale=sm_scale)[:, :, sl]
+    qr = q[:, :, sl].contiguous()
+    blocks = []
+    for j in range(world):
+        if causal and j > rank:
+            continue
+        kj, vj = (x[:, :, j * n:(j + 1) * n].contiguous() for x in (k, v))
+        o, l, m = fa._fwd_dispatch(qr, kj, vj, None, None, 0,
+                                   causal and j == rank, sm_scale, 0.0, True)
+        blocks.append((o.float().abs(), l, m))
+    m_g = torch.stack([m for _, _, m in blocks]).amax(dim=0)
+    w = [l * torch.exp(m - m_g) for _, l, m in blocks]
+    l_g = sum(w)
+    return 2.0 ** -7 * pv + 2.0 ** -8 * sum(
+        a * (wi / l_g)[..., None] for (a, _, _), wi in zip(blocks, w))
+
+
+def ring_leg(torch, np, fa, rank, world):
+    """ring_flash_attention at the bench's shape (causal bf16 B4 H8 S2048
+    D128, S 1024 per rank) and non-causal f32 B2 H4 S256 D32 (128-key
+    blocks: the single-pass kernels), forward and backward, against one
+    flash_attention over the whole sequence on this card."""
+    from tfplus_tpu_torch.parallel import ring_attention as ra
+    out, checks = {}, {}
+    for name, shape, dtype, causal in (
+            ("bench_causal_bf16", RING_SHAPE, torch.bfloat16, True),
+            ("noncausal_f32", RING_F32_SHAPE, torch.float32, False)):
+        b, h, s, d = shape
+        gen = torch.Generator(device=DEV).manual_seed(SEED + 240)
+        q, k, v, do = (torch.randn(b, h, s, d, device=DEV, generator=gen)
+                       .to(dtype) for _ in range(4))
+        n = s // world
+        sl = slice(rank * n, (rank + 1) * n)
+        mine = [x[:, :, sl].contiguous().requires_grad_()
+                for x in (q, k, v)]
+        before = read_launches()
+        o = ra.ring_flash_attention(*mine, causal=causal)
+        o.backward(do[:, :, sl].contiguous())
+        torch.cuda.synchronize()
+        after = read_launches()
+        path = {kk: after[kk] - before[kk] for kk in after}
+        # timed (for the record only: two ranks share one card)
+        times = []
+        for _ in range(3):
+            xs = [x.detach().requires_grad_() for x in mine]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ra.ring_flash_attention(*xs, causal=causal).backward(
+                do[:, :, sl].contiguous())
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        with not_path(checks):
+            full = [x.clone().requires_grad_() for x in (q, k, v)]
+            of = fa.flash_attention(*full, causal=causal)
+            of.backward(do)
+            key = _dtype_name(dtype)
+            atol, rtol = ATTN_TOL[key]
+            ref = of.detach()[:, :, sl].float()
+            allow = 0.0
+            if dtype == torch.bfloat16:
+                allow = ring_allowance(torch, fa, q, k, v, rank, world,
+                                       1.0 / float(np.sqrt(d)), causal)
+        err = (o.detach().float() - ref).abs()
+        ratio = float((err / (atol + rtol * ref.abs() + allow)).max())
+        grads = {}
+        for t, mine_t, full_t in zip("qkv", mine, full):
+            g_ref = full_t.grad[:, :, sl].float()
+            grads[f"d{t}"] = float((mine_t.grad.float() - g_ref).abs().max()
+                                   / g_ref.abs().max()) / BWD_F64_TOL[key]
+        out[name] = {"out_err_ratio": ratio, "grad_err_ratio": grads,
+                     "ms_fwd_bwd": times, "launches": path,
+                     "strict_ratio": float((err / (atol + rtol * ref.abs()))
+                                           .max())}
+        check(ratio <= 1 and max(grads.values()) <= 1,
+              f"ring flash attention {name} differs from flash_attention: "
+              f"{out[name]}")
+    routes = out["bench_causal_bf16"]["launches"]
+    check(routes["flash_fwd.tc"] > 0 and routes["flash_bwd_dkv.tc"] > 0
+          and routes["flash_bwd_dq.tc"] > 0,
+          f"ring bench shape: not on the tensor-core route: {routes}")
+    single = out["noncausal_f32"]["launches"]
+    check(single["flash_fwd_single"] > 0 and single["flash_bwd_single"] > 0,
+          f"ring f32 blocks: not on the single-pass kernels: {single}")
+    return out, checks
+
+
+def growth_checkpoint_leg(torch, np, kv, models, train, checkpoint, rank,
+                          world, workdir):
+    """The reference DLRM's widths on 2^11-row shards: 10 steps of mostly
+    fresh ids (PAR_BATCH per rank) with ``grow_sharded_if_needed`` before
+    each; a full ``save_multihost`` at step 5 and a delta at step 10; both
+    restored into fresh shards and compared per key with the live ones
+    (the restore and the comparison are checks)."""
+    from tfplus_tpu_torch import parallel as par
+    import torch.distributed as dist
+    model = models.DLRM(**DLRM_CONFIG, capacity=PAR_ROWS)
+    opt = train.GroupAdamOptimizer()
+    tx = functools.partial(torch.optim.Adam, lr=1e-3)
+    state = sharded_state(torch, models, par, model, opt, tx, PAR_ROWS,
+                          SEED + 241, None, DEV)
+    rng = np.random.RandomState(SEED + 241)
+    feats = rng.randn(PAR_BATCH, 13).astype(np.float32)
+    labels = rng.randint(0, 2, PAR_BATCH).astype(np.float32)
+    grew, caps = [], []
+    full = os.path.join(workdir, "full")
+    delta = os.path.join(workdir, "delta")
+    for s in range(1, PAR_STEPS + 1):
+        base = (s * world + rank) * PAR_BATCH
+        ids = np.arange(base, base + PAR_BATCH, dtype=np.int64)
+        ids[:16] = np.arange(16)                  # a few revisits
+        batch = {"ids": {n: ids * 7 + i for i, n in
+                         enumerate(sorted(model.table_specs))},
+                 "features": feats, "labels": labels}
+        tables, g = par.grow_sharded_if_needed(
+            state.tables, incoming_per_shard=2 * PAR_BATCH)
+        state = state._replace(tables=tables)
+        if g:
+            grew.append(s)
+        state, loss, _, flags = sharded_dlrm_step(
+            torch, kv, par, model, opt, 1e-3, state, batch, None)
+        check(int(flags) == 0, "growth leg: an overflow flag is set")
+        caps.append(next(iter(state.tables.values())).capacity)
+        if s in (5, PAR_STEPS):
+            state = state._replace(tables=checkpoint.save_multihost(
+                full if s == 5 else delta, state.tables, state.dense,
+                process_id=rank, num_processes=world, delta=s != 5))
+    check(grew and caps[-1] > PAR_ROWS, f"growth leg never grew: {caps}")
+    dist.barrier()
+    checks, compared = {}, 0
+    with not_path(checks):
+        # restore: every rank reads the union of both ranks' bundles
+        tmpl = {n: [kv.create(16, PAR_ROWS, device=DEV)
+                    for _ in range(world)] for n in state.tables}
+        restored, _ = checkpoint.restore_multihost(full, tmpl)
+        restored, _ = checkpoint.restore_multihost(delta, restored,
+                                                   delta=True)
+        for n, t in state.tables.items():
+            k, want = per_key(np, kv, t)
+            got = kv.lookup_or_zeros(restored[n][rank], k)
+            check(torch.equal(got.cpu(), torch.from_numpy(want)),
+                  f"growth leg: {n} restored rows differ from the live "
+                  "shard")
+            compared += k.shape[0]
+    return {"grew_at": grew, "capacities": caps, "rows_compared": compared,
+            "loss": float(loss)}, checks
+
+
+def route_leg(torch, np, kv, train, rank, world):
+    """A hot batch (16 ids per rank, every one owned by shard 0) trips a
+    4-deep bucket; one retry at ``needed_bucket_capacity`` of exactly the
+    dropped positions leaves every id inserted with freq 1."""
+    from tfplus_tpu_torch import parallel as par
+    opt = train.GroupAdamOptimizer()
+    t = par.init_optimizer_sharded(opt, par.create_sharded(
+        16, 1024, device=DEV, seed=3))
+    hot = np.concatenate([(np.arange(1, 17, dtype=np.int64) + d * 100)
+                          * world for d in range(world)])
+    ids = kv.encode_ids(hot[rank * 16:(rank + 1) * 16], device=DEV)
+    valid = torch.ones((16,), dtype=torch.bool, device=DEV)
+    stats = []
+    cap = 4
+    for _ in range(2):
+        rows, st, t = par.sharded_lookup(t, ids, valid=valid,
+                                         defer_meta=True, bucket_capacity=cap)
+        t = par.sharded_apply_grads(opt, t, st, rows * 0.1, lr=0.05, step=1)
+        stats.append(par.route_stats(st))
+        valid = par.dropped_positions(st)
+        cap = stats[-1]["needed_bucket_capacity"]
+    check(stats[0]["route_dropped"] > 0 and stats[1]["route_dropped"] == 0
+          and not bool(valid.any()), f"route leg: not recovered: {stats}")
+    mine = hot[hot % world == rank]
+    checks = {}
+    with not_path(checks):
+        counts = kv.get_count(t, kv.encode_ids(mine, device=DEV)).cpu() \
+            .numpy()
+    check(mine.size == 0 or (counts == 1).all(),
+          f"route leg: ids lost or counted twice: {counts}")
+    return {"stats": stats, "owned": int(mine.size)}, checks
+
+
+def hybrid_leg(torch, np, kv, train, rank, world):
+    """``ShardedHybridTable`` under a 48-row budget per shard against an
+    uncapped run of the same steps: the same rows and counts per key, bit
+    for bit."""
+    from tfplus_tpu_torch import parallel as par
+    opt = train.AdagradOptimizer()
+
+    def build(rows):
+        return par.init_optimizer_sharded(opt, par.create_sharded(
+            16, rows, device=DEV, seed=5))
+    rng = np.random.RandomState(SEED + 242)
+    work = np.arange(1, 801, dtype=np.int64) * 7 + 1
+    batches = [rng.choice(work, 64 * world, replace=False)
+               for _ in range(6)]
+    batches[4][:16] = batches[0][:16]
+    checks = {}
+    hyb = par.ShardedHybridTable(build(256), max_live_per_shard=48)
+    with not_path(checks):
+        big = build(2048)
+    spilled = 0
+
+    def step(t, b, s):
+        ids = kv.encode_ids(b[rank * 64:(rank + 1) * 64], device=DEV)
+        y = torch.as_tensor((b[rank * 64:(rank + 1) * 64] % 5)
+                            .astype(np.float32), device=DEV)
+        rows, st, t = par.sharded_lookup(t, ids, defer_meta=True)
+        r = rows.clone().requires_grad_()
+        torch.mean((r.sum(-1) - y) ** 2).backward()
+        t = par.sharded_apply_grads(opt, t, st, r.grad, lr=0.05, step=s)
+        check(not bool(st.overflow), "hybrid leg: an id was dropped")
+        return t
+    for s, b in enumerate(batches, start=1):
+        hyb.prefetch(b)
+        hyb.table = step(hyb.table, b, s)
+        spilled += hyb.maybe_spill()
+        with not_path(checks):
+            big = step(big, b, s)
+    st = hyb.stats()
+    check(spilled > 0 and st["device_rows_per_shard"][0] <= 48,
+          f"hybrid leg: the budget never forced a spill: {st}")
+    touched = np.unique(np.concatenate(batches))
+    with not_path(checks):
+        hyb.prefetch(touched)
+        mine = kv.encode_ids(touched[touched % world == rank], device=DEV)
+        same = (torch.equal(kv.lookup_or_zeros(hyb.table, mine),
+                            kv.lookup_or_zeros(big, mine))
+                and torch.equal(kv.get_count(hyb.table, mine),
+                                kv.get_count(big, mine)))
+    check(same, "hybrid leg: rows or counts differ from the uncapped run")
+    return {"spilled": spilled, "stats": st,
+            "tier_bytes": hyb.tier.nbytes}, checks
+
+
+def serving_leg(torch, np, kv, quant, serving, checkpoint, rank, world,
+                workdir):
+    """Rank 0 exports a dim-16 table of 4,000 keys and writes a 2-shard
+    delta that rewrites half of them and adds 500; every rank loads its
+    shard (f32 and int8), serves, refreshes from the delta and serves
+    again: f32 rows bit for bit, int8 within max|row|/254."""
+    import torch.distributed as dist
+    from tfplus_tpu_torch import parallel as par
+    rng = np.random.RandomState(SEED + 243)
+    keys = rng.permutation(np.unique(rng.randint(0, 1 << 40, 4500,
+                                                 dtype=np.int64)))[:4000]
+    new = rng.randint(1 << 41, 1 << 42, 500, dtype=np.int64)
+    rows = torch.from_numpy(rng.randn(4000, 16).astype(np.float32))
+    upd = torch.from_numpy(rng.randn(2500, 16).astype(np.float32))
+    checks = {}
+    # the reference table, rank 0's export and delta: set-up and checks
+    with not_path(checks):
+        ref = kv.create(16, 1 << 14, device=DEV)
+        kv.insert(ref, kv.encode_ids(keys, device=DEV), rows.to(DEV))
+        export = os.path.join(workdir, "export")
+        delta = os.path.join(workdir, "serve_delta")
+        if rank == 0:
+            md = serving.RankingMetadata()
+            md.add_embedding_column(column_name="emb", var_name="emb",
+                                    embedding_dim=16)
+            serving.export_for_serving(export, {"emb": ref}, md)
+            dk = np.concatenate([keys[:2000], new])
+            parts = []
+            for i in range(world):
+                m = dk % world == i
+                p = kv.create(16, 1 << 13, device=DEV)
+                kv.insert(p, kv.encode_ids(dk[m], device=DEV),
+                          upd[torch.from_numpy(m)].to(DEV))
+                parts.append(p)
+            checkpoint.save(delta, {"emb": parts},
+                            first_n=checkpoint.FIRST_N_INFERENCE)
+        dist.barrier()
+        kv.insert(ref, kv.encode_ids(np.concatenate([keys[:2000], new]),
+                                     device=DEV), upd.to(DEV))
+        probe = np.concatenate([keys[rank::world][:300],
+                                new[rank::world][:100],
+                                rng.randint(1 << 43, 1 << 44, 50,
+                                            dtype=np.int64)])
+        q = kv.encode_ids(probe, device=DEV)
+        want = kv.lookup_or_zeros(ref, q)
+    out = {}
+    for quantize in (False, True):
+        tag = "int8" if quantize else "f32"
+        tables, _ = par.serving.load_for_serving_sharded(
+            export, quantize=quantize, device=DEV)
+        tables = par.serving.refresh_sharded_from_delta(
+            tables, delta, quantize=quantize)
+        got = par.serving.make_serving_lookup(tables["emb"])(q)
+        if quantize:
+            ok = bool(((got - want).abs() <= quant_bound(torch, want)).all())
+        else:
+            ok = torch.equal(got, want)
+        check(ok, f"serving leg ({tag}): refreshed rows differ")
+        out[tag] = {"capacity": tables["emb"].capacity}
+    return out, checks
+
+
+def leg_2d(torch, np, kv, train, rank, world):
+    """2D at 1 x 2 (one row shard, the 16 columns over the two ranks) with
+    GroupAdam's l21 norm all-reduced across the column ranks: 3 steps, then
+    ``combine_col_shards`` against a single full-width table trained on
+    the same global batches (header bit for bit, rows within 1e-5)."""
+    from tfplus_tpu_torch import embedding as emb
+    from tfplus_tpu_torch.parallel import sharded2d as s2
+    mesh = s2.make_mesh_2d(1, world, device_type=torch.device(DEV).type)
+    # l21 5e-4 blacklists about half the rows after 3 steps: the decisions
+    # read the norm across both column ranks
+    gopt = train.GroupAdamOptimizer(l21_regularization_strength=5e-4)
+    opt = s2.for_col_axis(gopt, mesh)
+    pool = torch.from_numpy(np.random.RandomState(3).rand(10000, 16)
+                            .astype(np.float32) - 0.5) * 0.1
+    t = s2.init_optimizer_sharded_2d(opt, s2.create_sharded_2d(
+        16, 1024, mesh, initializer=pool, device=DEV))
+    checks = {}
+    with not_path(checks):
+        ref = gopt.init(kv.create(16, 1024, initializer=pool, device=DEV))
+    rng = np.random.RandomState(SEED + 244)
+    for s in range(1, 4):
+        ids = rng.randint(0, 300, 64 * world).astype(np.int64)
+        mine = kv.encode_ids(ids[rank * 64:(rank + 1) * 64], device=DEV)
+        rows, st, t = s2.sharded_lookup_2d(t, mine, mesh=mesh,
+                                           defer_meta=True)
+        t = s2.sharded_apply_grads_2d(opt, t, st, rows * 0.5 + 0.01,
+                                      mesh=mesh, lr=0.1, step=s)
+        with not_path(checks):
+            u = kv.unique_with_counts(kv.encode_ids(ids, device=DEV))
+            res = kv.lookup_or_insert(ref, u.unique_keys, counts=u.counts,
+                                      defer_meta=True)
+            g = (res.rows[u.inverse.long()] * 0.5 + 0.01)
+            ug = emb._segment_sum(g, u.inverse.long(), ids.shape[0])
+            gopt.apply(ref, res.slot, ug, lr=0.1, step=s,
+                       payload_rows=res.payload_rows,
+                       meta_rows=res.meta_rows)
+    full = s2.combine_col_shards(t, mesh)
+    with not_path(checks):
+        occ = kv.occupied_mask(ref)
+        err = float((full.payload[occ] - ref.payload[occ]).abs().max())
+        black = int(((ref.meta & kv.FLAG_BLACKLIST) != 0).sum())
+    check(torch.equal(full.header, ref.header) and err <= 1e-5
+          and 0 < black < int(occ.sum()),
+          f"2D leg: the combined columns differ from one table (max err "
+          f"{err})")
+    return {"max_abs_err": err, "blacklisted": black,
+            "rows": int(occ.sum())}, checks
+
+
+def rank_worker(args) -> int:
+    """One rank of phase 24 (``--rank-worker``): join the gloo group on
+    cuda:0, run the legs, write ``rank<r>.json``."""
+    from datetime import timedelta
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from tfplus_tpu_torch import (checkpoint, kv, models, serving, train)
+    from tfplus_tpu_torch.kv import quant
+    from tfplus_tpu_torch.ops import flash_attention as fa
+    torch.cuda.set_device(0)
+    rank, world = args.rank_worker, args.world
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:"
+                            f"{args.port}", world_size=world, rank=rank,
+                            timeout=timedelta(seconds=120))
+    res = {"rank": rank, "launches": {}}
+    try:
+        leg(res, "ring", ring_leg, torch, np, fa, rank, world)
+        leg(res, "growth_checkpoint", growth_checkpoint_leg, torch, np, kv,
+            models, train, checkpoint, rank, world, args.dir)
+        leg(res, "route_recovery", route_leg, torch, np, kv, train, rank,
+            world)
+        leg(res, "hybrid", hybrid_leg, torch, np, kv, train, rank, world)
+        leg(res, "serving", serving_leg, torch, np, kv, quant, serving,
+            checkpoint, rank, world, args.dir)
+        leg(res, "2d_1x2", leg_2d, torch, np, kv, train, rank, world)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(args.dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
 def kernel_entry(name, src, replaces, launches, errs, cases, main, keys):
     """A row kernel's entry at the main case, with the earlier kernel on the
     same inputs as the earlier one, and per case and key (``gather``;
@@ -3520,6 +4327,10 @@ def main() -> int:
     ap.add_argument("--profile", metavar="DIR",
                     help="write torch.profiler tables of the serving and "
                     "training paths here")
+    # phase 24 starts this script again as its two ranks
+    for flag in ("--rank-worker", "--world", "--port"):
+        ap.add_argument(flag, type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--dir", help=argparse.SUPPRESS)
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -3539,10 +4350,13 @@ def main() -> int:
         from tfplus_tpu_torch.data import criteo, feed
         from tfplus_tpu_torch.io import native
         from tfplus_tpu_torch.kv import storage
+        from tfplus_tpu_torch import parallel  # noqa: F401
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
               file=sys.stderr)
         return 1
+    if args.rank_worker is not None:
+        return rank_worker(args)
     smi = smi_line()
     print(smi, flush=True)
     print("torch", torch.__version__, "cuda", torch.version.cuda, flush=True)
@@ -3596,6 +4410,10 @@ def main() -> int:
     multi_launches, multi = multi_table_phase(torch, np, kv, models, train,
                                               convert, args.profile)
     hyb_launches, hyb = hybrid_tier_phase(torch, np, kv, train, storage)
+    shard_launches, sharded = sharded_dlrm_phase(
+        torch, np, kv, quant, models, train, convert, multi["per_table"],
+        args.profile)
+    rank_launches, ranks = two_rank_phase(torch)
 
     errs = {k: [c[f"{k}_err"] for c in cases.values()]
             for k in ("gather", "scatter_set", "scatter_add")}
@@ -3606,7 +4424,7 @@ def main() -> int:
              grad_launches, dcn_train[0], bst_train[0], comp_launches,
              grow_launches, rep_launches, ref_launches, dlrm_launches,
              int8_launches, ops_launches, ctr_launches, crit_launches,
-             multi_launches, hyb_launches]
+             multi_launches, hyb_launches, shard_launches, rank_launches]
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
     src = CSRC + "rowops.cu"
     main_case = f"float32_w128_n{N_IDS}"            # the serving-leg shape
@@ -3646,6 +4464,15 @@ def main() -> int:
     ]
     check(all(e["launches"] > 0 for e in kernels),
           f"a kernel was not launched on its path: {kernels}")
+    # the distributed tier's paths (phases 23-24) launch rows 1-6
+    slice_launches = {k: shard_launches[k] + rank_launches[k]
+                      for k in shard_launches}
+    check(all(slice_launches[e["name"]] > 0 for e in kernels
+              if e["name"] != "compact"),
+          f"phases 23-24 did not launch every kernel of their paths: "
+          f"{slice_launches}")
+    for e in kernels:
+        e["launches_phases_23_24"] = slice_launches[e["name"]]
     print(json.dumps({"serving": {
         "embedding_ids_per_s": emb_rate, "embedding_launches": emb_launches,
         "dcn_examples_per_s": dcn_rate, "dcn_launches": dcn_launches,
@@ -3679,6 +4506,11 @@ def main() -> int:
         "compactor": dict(comp_time, peak_gib=comp_peak),
         "growth_checkpoint_resume": grow, "repartition_4_to_6": rep,
         "reference_size_growth": ref}}))
+    print(json.dumps({"parallel": {
+        "sharded_dlrm_nccl": sharded, "two_ranks_gloo": {
+            k: v for k, v in ranks.items() if k != "ranks"},
+        "two_ranks_legs": [{k: v for k, v in r.items() if k != "launches"}
+                           for r in ranks["ranks"]]}}))
     print(json.dumps({"serving_api": {
         "dlrm": dlrm, "int8_leg_and_table_ops": int8_ops,
         "ctr_models": ctr}}))

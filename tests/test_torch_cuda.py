@@ -33,8 +33,11 @@ export and a checkpoint round trip on the card leave the same tables as on
 the CPU. The packed feed's pinned buffer unpacks on the card into views
 holding the batch's bits; the multi-table step on the card matches the CPU
 and reruns bit for bit; the host tier's spill, prefetch, hybrid export and
-split restore on the card leave the CPU's tables and tiers bit for bit.
-Marked ``cuda``: every test skips without a card. On a machine
+split restore on the card leave the CPU's tables and tiers bit for bit
+(a bfloat16 table's too, its tier holding 16-bit rows); the distributed
+tier in a world of 1 over NCCL (the sharded lookup and apply, sharded
+serving and a ring of one block) matches the CPU over gloo and
+flash_attention. Marked ``cuda``: every test skips without a card. On a machine
 with a card and without JAX, run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -1421,3 +1424,111 @@ def test_storage_tier_on_the_card_matches_the_cpu(cuda):
         else:
             for u, v in zip(x, y):
                 np.testing.assert_array_equal(u, v)
+
+
+@pytest.fixture
+def nccl_world(cuda, tmp_path):
+    """A world of 1 over NCCL on the card, with a gloo subgroup for the same
+    steps on the CPU."""
+    import torch.distributed as dist
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        yield dist.group.WORLD, dist.new_group(backend="gloo")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_steps_over_nccl_match_the_cpu(nccl_world):
+    """The sharded lookup and apply (GroupAdam, deferred meta, a bf16 wire
+    on the last step) in a world of 1 over NCCL on the card leave the
+    same header and exchange state as over gloo on the CPU, and rows as
+    the multi-table card test holds them (all but 1e-3 of the elements
+    within 2e-5 / 1e-4, all within a learning rate per step: Adam-type
+    steps turn the two devices' roundings of a near-zero gradient into
+    steps of up to lr); served rows equal the table's per key."""
+    from tfplus_tpu_torch import parallel as par, train
+    nccl, gloo = nccl_world
+    opt = train.GroupAdamOptimizer()
+    rng = np.random.RandomState(5)
+    batches = [rng.randint(0, 3000, 512).astype(np.int64) for _ in range(3)]
+    out = {}
+    for dev, group in (("cpu", gloo), ("cuda", nccl)):
+        t = par.init_optimizer_sharded(opt, par.create_sharded(
+            8, 1024, group, device=dev, seed=2))
+        states = []
+        for s, ids in enumerate(batches, start=1):
+            wire = torch.bfloat16 if s == 3 else None
+            rows, st, t = par.sharded_lookup(
+                t, kv.encode_ids(ids, device=dev), group=group,
+                defer_meta=True, exchange_dtype=wire)
+            t = par.sharded_apply_grads(opt, t, st, rows * 0.5 + 0.01,
+                                        group=group, lr=0.05, step=s,
+                                        exchange_dtype=wire)
+            states.append([x.cpu() for x in (st.dest, st.own_slot,
+                                             st.own_counts, st.overflow)])
+        q = kv.encode_ids(batches[0], device=dev)
+        served, ovf, _ = par.serving.sharded_serving_lookup(t, q,
+                                                            group=group)
+        assert not bool(ovf)
+        assert torch.equal(served, kv.lookup_or_zeros(t, q))
+        out[dev] = (t.header.cpu(), t.payload.cpu(), states)
+    (hc, pc, sc), (hg, pg, sg) = out["cpu"], out["cuda"]
+    assert torch.equal(hc, hg)
+    for a, b in zip(sc, sg):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+    d = (pg - pc).abs()
+    assert float((d > 2e-5 + 1e-4 * pc.abs()).float().mean()) <= 1e-3
+    assert float(d.max()) <= 3 * 0.05
+
+
+@pytest.mark.parametrize("causal,dtype", [(True, torch.bfloat16),
+                                          (False, torch.float32)])
+def test_ring_flash_in_a_world_of_one(nccl_world, causal, dtype):
+    """A ring of one block is flash_attention itself, forward and
+    backward (the ring un-normalises and re-normalises the block: f32
+    within 1e-6, bf16 within a bf16 ulp)."""
+    from tfplus_tpu_torch.parallel import ring_attention as ra
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, do = (torch.randn(2, 4, 128, 32, device="cuda",
+                               generator=g).to(dtype) for _ in range(4))
+    a = [x.clone().requires_grad_() for x in (q, k, v)]
+    b = [x.clone().requires_grad_() for x in (q, k, v)]
+    o1 = ra.ring_flash_attention(*a, causal=causal)
+    o2 = fa.flash_attention(*b, causal=causal)
+    o1.backward(do)
+    o2.backward(do)
+    tol = (dict(atol=1e-6, rtol=1e-6) if dtype == torch.float32
+           else dict(atol=1e-5, rtol=2.0 ** -7))
+    torch.testing.assert_close(o1, o2, **tol)
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x.grad, y.grad, **tol)
+
+
+def test_bf16_host_tier_on_the_card_matches_the_cpu(cuda):
+    """A bfloat16 table's spill and prefetch on the card keep 16-bit rows
+    in the tier and leave the CPU's table and tier bit for bit."""
+    from tfplus_tpu_torch.kv import storage
+    rng = np.random.RandomState(7)
+    keys = np.unique(rng.randint(0, 1 << 40, 300))[:256].astype(np.int64)
+    rows = torch.from_numpy(rng.randn(256, 8).astype(np.float32))
+    out = {}
+    for dev in ("cpu", cuda):
+        t = kv.create(8, 1024, seed=1, value_dtype=torch.bfloat16,
+                      device=dev)
+        kv.insert(t, kv.encode_ids(keys, device=dev),
+                  rows.to(device=dev, dtype=torch.bfloat16))
+        tier = storage.HostStorageTier(8, 8, torch.bfloat16)
+        t, n = storage.spill(t, tier, max_live=100)
+        spilled = (n, tier.nbytes, tier.live_rows())
+        t, m = storage.prefetch(t, tier, keys)
+        out[str(dev)] = (spilled, m, t.header.cpu(),
+                         t.payload.view(torch.int16).cpu())
+    a, b = out["cpu"], out[str(cuda)]
+    assert a[0][0] == b[0][0] == 156 and a[0][1] == b[0][1]
+    assert a[0][2][1].dtype == np.uint16
+    for x, y in zip(a[0][2], b[0][2]):
+        np.testing.assert_array_equal(x, y)
+    assert a[1] == b[1] == 156
+    assert torch.equal(a[2], b[2]) and torch.equal(a[3], b[3])

@@ -3,7 +3,9 @@
 filesystems, the progress bar, the compactor, the serving API, the int8
 tables, the variable store, the config, the CTR models, the data feed and
 readers, the native helper's bindings, the multi-table step, the storage
-tier and the module adapter too) and chip_smoke.py
+tier, the module adapter and the distributed tier with every public name of
+the JAX package's ``parallel`` but its three placement helpers too) and
+chip_smoke.py
 loads neither JAX nor the JAX package, and needs no nvcc."""
 import os
 import subprocess
@@ -40,7 +42,12 @@ new = {"tfplus_tpu_torch.ops.rowops", "tfplus_tpu_torch.ops.flash_attention",
        "tfplus_tpu_torch.data.criteo", "tfplus_tpu_torch.data.synthetic",
        "tfplus_tpu_torch.data.movielens", "tfplus_tpu_torch.io.native",
        "tfplus_tpu_torch.kv.multi", "tfplus_tpu_torch.kv.storage",
-       "tfplus_tpu_torch.models.module_adapter"}
+       "tfplus_tpu_torch.models.module_adapter",
+       "tfplus_tpu_torch.parallel", "tfplus_tpu_torch.parallel.mesh",
+       "tfplus_tpu_torch.parallel.sharded_table",
+       "tfplus_tpu_torch.parallel.serving", "tfplus_tpu_torch.parallel.hybrid",
+       "tfplus_tpu_torch.parallel.sharded2d",
+       "tfplus_tpu_torch.parallel.ring_attention"}
 assert new <= set(names), sorted(new - set(names))
 from tfplus_tpu_torch.models import BST, DIN
 from tfplus_tpu_torch.nn import flash_attention_layer
@@ -84,7 +91,34 @@ from tfplus_tpu_torch.kv.hashing import (probe_positions, probe_start,
 from tfplus_tpu_torch.models import (ModuleSparseModel, init_state_multi,
                                      make_train_step_multi)
 from tfplus_tpu_torch.ops import fmha, reference_attention
-from tfplus_tpu_torch.convert import state_from_numpy
+from tfplus_tpu_torch.convert import (state_from_numpy, sharded_from_numpy,
+                                      sharded_2d_from_numpy)
+import tfplus_tpu_torch.parallel as par
+from tfplus_tpu_torch.parallel import (ShardedHybridTable, ring_attention,
+                                       hybrid, mesh, serving, sharded2d,
+                                       sharded_table)
+from tfplus_tpu_torch.parallel.ring_attention import (
+    context_parallel_attention, ring_flash_attention)
+from tfplus_tpu_torch.parallel.serving import (
+    load_for_serving_sharded, make_serving_lookup, refresh_sharded_from_delta,
+    sharded_serving_lookup, stack_shards)
+from tfplus_tpu_torch.parallel.mesh import initialize_multihost
+public = {"ExchangeState", "create_sharded", "dropped_positions",
+          "grow_sharded_if_needed", "init_optimizer_sharded", "local_shard",
+          "route_stats", "shard_sizes", "sharded_apply_grads",
+          "sharded_embedding_lookup_sparse", "sharded_grow",
+          "sharded_lookup", "sharded_needs_grow", "COL_AXIS", "ROW_AXIS",
+          "combine_col_shards", "create_sharded_2d", "for_col_axis",
+          "grow_sharded_2d_if_needed", "init_optimizer_sharded_2d",
+          "local_shard_2d", "make_mesh_2d", "shard_sizes_2d",
+          "sharded_apply_grads_2d", "sharded_grow_2d", "sharded_lookup_2d",
+          "sharded_needs_grow_2d", "TABLE_AXIS", "make_mesh",
+          "ShardedHybridTable", "ring_attention", "hybrid", "mesh",
+          "serving", "sharded2d", "sharded_table"}
+assert public <= set(dir(par)), sorted(public - set(dir(par)))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "tfplus_tpu"))
+assert not bad, bad
 print(len(names))
 """
 

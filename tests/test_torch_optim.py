@@ -90,9 +90,30 @@ def test_rule_matches_jax(name, kw, lr):
             np.testing.assert_array_equal(tblack.numpy(), np.asarray(jblack))
 
 
-def test_norm_axis_is_a_later_slice():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        tr.GroupAdam(norm_axis="col")
+def test_norm_axis_is_a_later_slice(tmp_path):
+    """``norm_axis`` came with the parallel slice: it takes the process
+    group of the column shards and all-reduces the squared group norm over
+    it (tests/test_torch_sharded2d.py holds it against JAX on a 2 x 2
+    mesh). In a group of one rank the update and the blacklist equal the
+    unsharded rule's bit for bit."""
+    import torch.distributed as dist
+    rng = np.random.RandomState(3)
+    var, grad = (torch.from_numpy(rng.randn(N, D).astype(np.float32))
+                 for _ in range(2))
+    state = torch.from_numpy(rng.rand(N, 3 * D).astype(np.float32))
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        group = dist.new_group([0])
+        kw = dict(lr=0.01, step=2)
+        want = tr.GroupAdam(l21=50.0).update(var, state, grad, **kw)
+        got = tr.GroupAdam(l21=50.0, norm_axis=group).update(var, state,
+                                                            grad, **kw)
+    finally:
+        dist.destroy_process_group()
+    assert bool(want[2].any()) and not bool(want[2].all())
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
 
 
 @pytest.mark.parametrize("fn", ["adadqh_hg", "group_adadqh_hp"])

@@ -255,3 +255,39 @@ def test_async_prefetch_drain_returns_rows():
     pf.submit(ids[:10].astype(np.uint64))
     table, n = pf.apply(ht.table)
     assert n == 10 and int(tkv.size(table)) == 10 and ht.tier.size == N - 10
+
+
+def test_bf16_tier_holds_jax_bytes_and_rows_bit_for_bit():
+    """A bfloat16 table's host tier keeps each spilled row as its 16-bit
+    pattern: its bytes equal the JAX tier's (ml_dtypes bfloat16), and the
+    spilled rows, the tables after a spill and after the prefetch, and
+    the hybrid export match JAX bit for bit."""
+    rng = np.random.RandomState(4)
+    jt = joptim.SparseOptimizer(joptim.rules.Adagrad()).init(
+        jkv.create(DIM, 256, seed=1, value_dtype=jnp.bfloat16))
+    keys = rng.permutation(np.unique(rng.randint(0, 1 << 40, 80)))[
+        :64].astype(np.int64)
+    w = jt.payload.shape[1]
+    jt = jkv.insert(jt, jkv.encode_ids_np_to_device(keys), jnp.asarray(
+        rng.randn(64, DIM).astype(np.float32)).astype(jnp.bfloat16))
+    tt = to_port(jt)
+    jtier = jstorage.HostStorageTier(DIM, w, np.dtype(jt.config.value_dtype))
+    ttier = tstorage.HostStorageTier(DIM, w, torch.bfloat16)
+    jt, jn = jstorage.spill(jt, jtier, max_live=24)
+    tt, tn = tstorage.spill(tt, ttier, max_live=24)
+    assert jn == tn == 40
+    assert ttier._payload.dtype == np.uint16
+    assert ttier.nbytes == jtier.nbytes
+    assert ttier.nbytes < jtier._keys.nbytes + jtier._meta.nbytes \
+        + jtier._payload.size * 4
+    np.testing.assert_array_equal(ttier._payload,
+                                  jtier._payload.view(np.uint16))
+    assert_same_table(jt, tt)
+    je = jstorage.export_hybrid_arrays(jt, jtier)
+    te = tstorage.export_hybrid_arrays(tt, ttier)
+    for k in ("keys", "values", "meta", "slot-opt_state"):
+        np.testing.assert_array_equal(te[k], np.asarray(je[k]), k)
+    jt, jp = jstorage.prefetch(jt, jtier, keys)
+    tt, tp = tstorage.prefetch(tt, ttier, keys)
+    assert jp == tp == 40 and ttier.size == jtier.size == 0
+    assert_same_table(jt, tt)

@@ -7,7 +7,7 @@ first use. Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``. This package imports neither JAX nor ``tfplus_tpu``.
 """
 from . import (checkpoint, config, convert, data, embedding, io, kv, models,
-               nn, ops, optim, serving, train, utils, variables)
+               nn, ops, optim, parallel, serving, train, utils, variables)
 from .variables import (get_kv_variable, get_kv_feature_size,
                         fixed_size_partitioner,
                         set_tfplus_saver_mode, tfplus_saver_mode,

@@ -46,6 +46,24 @@ def table_from_numpy(arrays: Dict[str, np.ndarray], config: KvConfig,
     return KvTable(config=config, **fields)
 
 
+def sharded_from_numpy(stacked_arrays: Dict[str, np.ndarray],
+                       config: KvConfig, rank: int, device="cuda") -> KvTable:
+    """Rank ``rank``'s shard of a JAX sharded table (the JAX package's
+    stacked layout, every field with a leading shard axis, as numpy
+    arrays): the port table of shard ``rank`` through
+    :func:`table_from_numpy`, so that every rank starts from JAX's state."""
+    return table_from_numpy({k: np.asarray(stacked_arrays[k])[rank]
+                             for k in TABLE_FIELDS}, config, device)
+
+
+def sharded_2d_from_numpy(stacked_arrays: Dict[str, np.ndarray],
+                          config: KvConfig, r: int, c: int,
+                          device="cuda") -> KvTable:
+    """Shard (r, c) of a JAX 2D-sharded table (leading [R, C] axes)."""
+    return table_from_numpy({k: np.asarray(stacked_arrays[k])[r, c]
+                             for k in TABLE_FIELDS}, config, device)
+
+
 def _flatten(tree, prefix=""):
     if isinstance(tree, dict):
         items = tree.items()

@@ -28,8 +28,10 @@ gather of the victims' payload rows and the export's gather of slot rows
 are ``ops.rowops.gather_rows`` (one launch each), a promotion's writes
 ``kv.table.insert_raw`` (one ``scatter_rows`` each). ``spill`` reads the
 whole key and meta planes back to the host on every call, as the JAX
-package does. A bfloat16 table's spilled rows are held as float32 on the
-host (numpy has no bfloat16; the conversion is exact both ways).
+package does. A bfloat16 table's spilled rows are held as their 16-bit
+patterns (numpy ``uint16``; numpy has no bfloat16), the JAX tier's bytes,
+and turn back into bfloat16 tensors, or exact float32 for an export, where
+they leave the tier.
 """
 from __future__ import annotations
 
@@ -45,9 +47,30 @@ from ..ops import rowops
 from ..utils import packing
 
 _B = hashing.BUCKET_SIZE
-# the host tier's numpy dtype for a table's payload dtype
+# the host tier's numpy dtype for a table's payload dtype: bfloat16 rows are
+# kept as their bit patterns
 _HOST_DTYPES = {torch.float32: np.float32, torch.float16: np.float16,
-                torch.bfloat16: np.float32}
+                torch.bfloat16: np.uint16}
+
+
+def _to_host(rows: torch.Tensor) -> np.ndarray:
+    """Payload rows as the tier holds them (bfloat16 as uint16 bits)."""
+    if rows.dtype == torch.bfloat16:
+        return rows.view(torch.int16).cpu().numpy().view(np.uint16)
+    return rows.cpu().numpy()
+
+
+def _from_host(payload: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    """Tier rows as a CPU tensor of the table's ``dtype``, bit for bit."""
+    a = np.ascontiguousarray(payload)
+    if dtype == torch.bfloat16:
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a).to(dtype)
+
+
+def _host_f32(payload: np.ndarray, dtype: torch.dtype) -> np.ndarray:
+    """Tier rows as float32 (exact for every payload dtype)."""
+    return _from_host(payload, dtype).float().numpy()
 
 
 class _NpIndex:
@@ -188,10 +211,14 @@ class HostStorageTier:
     """
 
     def __init__(self, dim: int, payload_width: Optional[int] = None,
-                 value_dtype=np.float32, capacity: int = 0):
+                 value_dtype: torch.dtype = torch.float32,
+                 capacity: int = 0):
+        """``value_dtype``: the table's payload dtype; ``put`` takes rows in
+        the tier's format (``torch.bfloat16`` as uint16 bit patterns)."""
         self.dim = dim
         self.width = payload_width or dim
-        self.value_dtype = np.dtype(value_dtype)
+        self.torch_dtype = value_dtype
+        self.value_dtype = np.dtype(_HOST_DTYPES[value_dtype])
         self.capacity = capacity
         self._index = _NpIndex()
         cap0 = 1024
@@ -379,8 +406,7 @@ def _promote(table: kvt.KvTable, u64: np.ndarray, payload: np.ndarray,
     dev = table.device
     q = hashing.encode_ids_np_to_device(u64, dev)
     return _promote_rows(
-        table, q, torch.from_numpy(np.ascontiguousarray(payload[:, :w])).to(
-            device=dev, dtype=table.payload.dtype),
+        table, q, _from_host(payload[:, :w], table.payload.dtype).to(dev),
         torch.from_numpy(meta.astype(np.int64)).to(dev))
 
 
@@ -440,9 +466,7 @@ def spill(table: kvt.KvTable, tier: HostStorageTier, *,
     dev = table.device
     rows = rowops.gather_rows(
         table.payload, torch.from_numpy(idx.astype(np.int32)).to(dev))
-    if rows.dtype == torch.bfloat16:
-        rows = rows.float()
-    tier.put(hashing.decode_ids_np(keys[idx]), rows.cpu().numpy(), meta[idx])
+    tier.put(hashing.decode_ids_np(keys[idx]), _to_host(rows), meta[idx])
     return _drop_rows(table, torch.from_numpy(victim).to(dev)), int(idx.size)
 
 
@@ -503,6 +527,7 @@ def export_hybrid_arrays(table: kvt.KvTable, tier: HostStorageTier, *,
         sel = (t_meta & np.uint32(bit)) != 0
         t_keys, t_payload, t_meta = t_keys[sel], t_payload[sel], t_meta[sel]
         tier.clear_touch_bits(np.uint32(bit))
+    t_payload = _host_f32(t_payload, tier.torch_dtype)
     t_black = (t_meta & np.uint32(packing.FLAG_BLACKLIST)) != 0
     if enable_cutoff and t_keys.size:
         keep = np.abs(t_payload[:, :dim]).max(axis=1) >= cutoff_value
@@ -584,7 +609,7 @@ def restore_hybrid_split(template: kvt.KvTable, tier: HostStorageTier,
     if cold.any():
         tier.ensure_width(table.payload.shape[1])
         w = tier.width
-        payload = np.zeros((int(cold.sum()), w), tier.value_dtype)
+        payload = np.zeros((int(cold.sum()), w), np.float32)
         payload[:, :template.dim] = values[cold]
         if slots:
             for sname, rows in slots.items():
@@ -595,7 +620,9 @@ def restore_hybrid_split(template: kvt.KvTable, tier: HostStorageTier,
                          np.uint32(0))
         meta_int = (((days[cold] & np.uint32(packing.DAY_MASK)) << 16)
                     | (freq[cold] & np.uint32(packing.FREQ_MASK)) | flags)
-        tier.put(keys[cold], payload, meta_int.astype(np.uint32))
+        tier.put(keys[cold],
+                 _to_host(torch.from_numpy(payload).to(tier.torch_dtype)),
+                 meta_int.astype(np.uint32))
     return table
 
 
@@ -678,8 +705,7 @@ class HybridTable:
                  tier_capacity: int = 0):
         self.table = table
         self.tier = HostStorageTier(
-            table.dim, table.payload.shape[1],
-            np.dtype(_HOST_DTYPES[table.config.value_dtype]),
+            table.dim, table.payload.shape[1], table.config.value_dtype,
             capacity=tier_capacity)
         self.max_live = max_live
         self.min_freq = min_freq

@@ -16,9 +16,11 @@ What is kept exactly as in the JAX package:
 Scalars (betas, lr) combine with float32 tensors as JAX's weakly typed
 Python scalars do: rounded to float32, then one float32 operation.
 
-The group rules' ``norm_axis`` (the group norm reduced over column shards
-of 2D table sharding) needs the port's sharded tables: a rule built with a
-non-None ``norm_axis`` raises ``NotImplementedError``.
+The group rules' ``norm_axis`` is the process group of the column shards
+of 2D table sharding (``parallel.sharded2d.for_col_axis`` sets it): the
+squared group norm is all-reduced over it and the l21 threshold uses the
+global dim, so that every column shard makes the same keep/blacklist
+decision, as the JAX package's ``psum`` over the column axis does.
 """
 from __future__ import annotations
 
@@ -27,15 +29,19 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 Arr = torch.Tensor
 _TINY = 1e-30
-_SHARDING = ("norm_axis (2D column-sharded tables) is not ported yet; it "
-             "comes with the port's parallel slice (ROADMAP Queue 1 item 13)")
 
 
-def _norm(x: Arr) -> Arr:
-    return torch.sqrt(torch.sum(x * x, dim=-1))
+def _norm(x: Arr, group=None) -> Arr:
+    s = torch.sum(x * x, dim=-1)
+    if group is not None:
+        # dim-sharded rows (2D table sharding): the group norm spans every
+        # column shard, so the squared partials are summed over the group
+        dist.all_reduce(s, group=group)
+    return torch.sqrt(s)
 
 
 def _f32(x, like: Arr) -> Arr:
@@ -43,15 +49,20 @@ def _f32(x, like: Arr) -> Arr:
     return torch.tensor(x, dtype=like.dtype, device=like.device)
 
 
-def _group_lasso_solve(linear: Arr, y: Arr, l1, l2, l21,
-                       dim: int) -> Tuple[Arr, Arr]:
+def _group_lasso_solve(linear: Arr, y: Arr, l1, l2, l21, dim: int,
+                       norm_axis=None) -> Tuple[Arr, Arr]:
     """Closed-form group-lasso solve (training_ops.cc:1301-1317).
 
     ``y`` is the per-element curvature denominator WITHOUT the ``2*l2``
-    term. Returns ``(var, blacklist_mask)``; blacklisted rows are zero."""
+    term. Returns ``(var, blacklist_mask)``; blacklisted rows are zero.
+    ``norm_axis``: the process group holding the column shards of the row
+    (2D sharding); the threshold then uses the GLOBAL dim and the
+    all-reduced norm."""
+    if norm_axis is not None:
+        dim = dim * dist.get_world_size(norm_axis)
     adj = torch.clamp(linear, -l1, l1)
     l1_linear = adj - linear
-    nrm = _norm(l1_linear)
+    nrm = _norm(l1_linear, norm_axis)
     l21n = l21 * torch.sqrt(_f32(float(dim), linear))
     keep = nrm > l21n
     scale = 1.0 - l21n / torch.clamp(nrm, min=_TINY)
@@ -98,10 +109,6 @@ class Rule:
     has_blacklist: bool = False
     #: rules that need an extra per-row input (e.g. AdaHessian's hessian)
     needs_extra: bool = False
-
-    def __post_init__(self):
-        if getattr(self, "norm_axis", None) is not None:
-            raise NotImplementedError(_SHARDING)
 
     def update(self, var: Arr, state: Arr, grad: Arr, *, lr, step,
                extra: Optional[Arr] = None) -> Tuple[Arr, Arr, Optional[Arr]]:
@@ -158,7 +165,7 @@ class GroupAdam(Rule):
     l1: float = 0.0
     l2: float = 0.0
     l21: float = 0.0
-    norm_axis: Optional[str] = None
+    norm_axis: Optional[dist.ProcessGroup] = None
     slot_width = 3
     has_blacklist = True
 
@@ -179,7 +186,8 @@ class GroupAdam(Rule):
         linear = linear + alpha * m - sigma * var
         y = nvs + self.epsilon
         new_var, black = _group_lasso_solve(linear, y, l1, l2, l21,
-                                            var.shape[-1])
+                                            var.shape[-1],
+                                            norm_axis=self.norm_axis)
         return new_var, torch.cat([m, new_v, linear], dim=-1), black
 
 
@@ -195,7 +203,7 @@ class GroupAdamV1(Rule):
     l2: float = 0.0
     l21: float = 0.0
     initial_accumulator_value: float = 0.0
-    norm_axis: Optional[str] = None
+    norm_axis: Optional[dist.ProcessGroup] = None
     slot_width = 4
     has_blacklist = True
 
@@ -212,7 +220,8 @@ class GroupAdamV1(Rule):
         linear = linear + m / (1.0 - b1p) - delta / lr * var
         y = (torch.sqrt(new_accum) + eps_adj) / lr
         new_var, black = _group_lasso_solve(linear, y, self.l1, self.l2,
-                                            self.l21, var.shape[-1])
+                                            self.l21, var.shape[-1],
+                                            norm_axis=self.norm_axis)
         state = torch.cat(
             [m, v, new_accum - self.initial_accumulator_value, linear],
             dim=-1)
@@ -227,7 +236,7 @@ class GroupFtrl(Rule):
     l1: float = 0.0
     l2: float = 0.0
     l21: float = 0.0
-    norm_axis: Optional[str] = None
+    norm_axis: Optional[dist.ProcessGroup] = None
     l2_shrinkage: float = 0.0
     initial_accumulator_value: float = 0.1
     slot_width = 2
@@ -254,7 +263,8 @@ class GroupFtrl(Rule):
         linear = linear + g - (pw_new - pw_old) / lr * var
         y = pw_new / lr
         new_var, black = _group_lasso_solve(linear, y, self.l1, self.l2,
-                                            self.l21, var.shape[-1])
+                                            self.l21, var.shape[-1],
+                                            norm_axis=self.norm_axis)
         state = torch.cat(
             [new_accum - self.initial_accumulator_value, linear], dim=-1)
         return new_var, state, black
@@ -270,7 +280,7 @@ class GroupMomentum(Rule):
     l1: float = 0.0
     l2: float = 0.0
     l21: float = 0.0
-    norm_axis: Optional[str] = None
+    norm_axis: Optional[dist.ProcessGroup] = None
     slot_width = 3
     has_blacklist = True
 
@@ -281,7 +291,8 @@ class GroupMomentum(Rule):
         linear = linear + new_m - (1.0 - torch.sqrt(accum)) / lr * var
         y = 1.0 / lr
         new_var, black = _group_lasso_solve(linear, y, self.l1, self.l2,
-                                            self.l21, var.shape[-1])
+                                            self.l21, var.shape[-1],
+                                            norm_axis=self.norm_axis)
         state = torch.cat([m, torch.ones_like(accum), linear], dim=-1)
         return new_var, state, black
 
@@ -295,7 +306,7 @@ class GroupAdadelta(Rule):
     l1: float = 0.0
     l2: float = 0.0
     l21: float = 0.0
-    norm_axis: Optional[str] = None
+    norm_axis: Optional[dist.ProcessGroup] = None
     slot_width = 3
     has_blacklist = True
 
@@ -307,7 +318,8 @@ class GroupAdadelta(Rule):
                   - (torch.sqrt(new_accum) - torch.sqrt(accum)) / lr * var)
         y = torch.sqrt(new_accum + self.epsilon) / lr
         new_var, black = _group_lasso_solve(linear, y, self.l1, self.l2,
-                                            self.l21, var.shape[-1])
+                                            self.l21, var.shape[-1],
+                                            norm_axis=self.norm_axis)
         accum_update = (accum_update * self.rho +
                         (1.0 - self.rho) * m * m / (new_accum + self.epsilon))
         state = torch.cat([new_accum, accum_update, linear], dim=-1)
@@ -324,7 +336,7 @@ class GroupAMSGrad(Rule):
     l1: float = 0.0
     l2: float = 0.0
     l21: float = 0.0
-    norm_axis: Optional[str] = None
+    norm_axis: Optional[dist.ProcessGroup] = None
     slot_width = 4
     has_blacklist = True
 
@@ -338,7 +350,8 @@ class GroupAMSGrad(Rule):
                   - (torch.sqrt(new_vhat) - torch.sqrt(vhat)) / lr * var)
         y = (torch.sqrt(new_vhat) + self.epsilon) / lr
         new_var, black = _group_lasso_solve(linear, y, self.l1, self.l2,
-                                            self.l21, var.shape[-1])
+                                            self.l21, var.shape[-1],
+                                            norm_axis=self.norm_axis)
         state = torch.cat([m, v, new_vhat, linear], dim=-1)
         return new_var, state, black
 
@@ -353,7 +366,7 @@ class GroupAdaBelief(Rule):
     l1: float = 0.0
     l2: float = 0.0
     l21: float = 0.0
-    norm_axis: Optional[str] = None
+    norm_axis: Optional[dist.ProcessGroup] = None
     slot_width = 4
     has_blacklist = True
 
@@ -367,7 +380,8 @@ class GroupAdaBelief(Rule):
                   - (torch.sqrt(new_accum) - torch.sqrt(accum)) / lr * var)
         y = (torch.sqrt(new_accum) + self.epsilon) / lr
         new_var, black = _group_lasso_solve(linear, y, self.l1, self.l2,
-                                            self.l21, var.shape[-1])
+                                            self.l21, var.shape[-1],
+                                            norm_axis=self.norm_axis)
         state = torch.cat([m, v, new_accum, linear], dim=-1)
         return new_var, state, black
 
@@ -382,7 +396,7 @@ class GroupAdaHessian(Rule):
     l1: float = 0.0
     l2: float = 0.0
     l21: float = 0.0
-    norm_axis: Optional[str] = None
+    norm_axis: Optional[dist.ProcessGroup] = None
     slot_width = 4
     has_blacklist = True
     needs_extra = True
@@ -398,7 +412,8 @@ class GroupAdaHessian(Rule):
                   - (torch.sqrt(new_accum) - torch.sqrt(accum)) / lr * var)
         y = (torch.sqrt(new_accum) + self.epsilon) / lr
         new_var, black = _group_lasso_solve(linear, y, self.l1, self.l2,
-                                            self.l21, var.shape[-1])
+                                            self.l21, var.shape[-1],
+                                            norm_axis=self.norm_axis)
         state = torch.cat([m, v, new_accum, linear], dim=-1)
         return new_var, state, black
 
@@ -420,7 +435,7 @@ class GroupLamb(Rule):
     l1: float = 0.0
     l2: float = 0.0
     l21: float = 0.0
-    norm_axis: Optional[str] = None
+    norm_axis: Optional[dist.ProcessGroup] = None
     slot_width = 4
     has_blacklist = True
 
@@ -437,7 +452,8 @@ class GroupLamb(Rule):
                   - (torch.sqrt(new_accum) - torch.sqrt(accum)) / lr * var)
         y = (torch.sqrt(new_accum) + self.epsilon) / lr
         new_var, black = _group_lasso_solve(linear, y, self.l1, self.l2,
-                                            self.l21, var.shape[-1])
+                                            self.l21, var.shape[-1],
+                                            norm_axis=self.norm_axis)
         state = torch.cat([m, v, new_accum, linear], dim=-1)
         return new_var, state, black
 
@@ -453,7 +469,7 @@ class GroupLambHessian(Rule):
     l1: float = 0.0
     l2: float = 0.0
     l21: float = 0.0
-    norm_axis: Optional[str] = None
+    norm_axis: Optional[dist.ProcessGroup] = None
     slot_width = 4
     has_blacklist = True
     needs_extra = True
@@ -472,7 +488,8 @@ class GroupLambHessian(Rule):
                   - (torch.sqrt(new_accum) - torch.sqrt(accum)) / lr * var)
         y = (torch.sqrt(new_accum) + self.epsilon) / lr
         new_var, black = _group_lasso_solve(linear, y, self.l1, self.l2,
-                                            self.l21, var.shape[-1])
+                                            self.l21, var.shape[-1],
+                                            norm_axis=self.norm_axis)
         state = torch.cat([m, v, new_accum, linear], dim=-1)
         return new_var, state, black
 
@@ -537,7 +554,7 @@ class GroupAdaDQH(Rule):
     l1: float = 0.0
     l2: float = 0.0
     l21: float = 0.0
-    norm_axis: Optional[str] = None
+    norm_axis: Optional[dist.ProcessGroup] = None
     slot_width = 3
     has_blacklist = True
 
@@ -560,7 +577,8 @@ class GroupAdaDQH(Rule):
         linear = linear + m_new * alpha - (accum_new - accum_old) * var
         new_var, black = _group_lasso_solve(linear, accum_new, self.l1 * lr,
                                             self.l2 * lr, self.l21 * lr,
-                                            var.shape[-1])
+                                            var.shape[-1],
+                                            norm_axis=self.norm_axis)
         state = torch.cat([m_new, v_new, linear], dim=-1)
         return new_var, state, black
 
@@ -577,7 +595,7 @@ class GroupAdaDQHV1(Rule):
     l1: float = 0.0
     l2: float = 0.0
     l21: float = 0.0
-    norm_axis: Optional[str] = None
+    norm_axis: Optional[dist.ProcessGroup] = None
     slot_width = 3
     has_blacklist = True
 
@@ -599,7 +617,8 @@ class GroupAdaDQHV1(Rule):
                      - torch.maximum(torch.sqrt(v), gamma)) / lr * var)
         y = torch.maximum(torch.sqrt(v_new), eps_adj) / lr
         new_var, black = _group_lasso_solve(linear, y, self.l1, self.l2,
-                                            self.l21, var.shape[-1])
+                                            self.l21, var.shape[-1],
+                                            norm_axis=self.norm_axis)
         state = torch.cat([m_new, v_new, linear], dim=-1)
         return new_var, state, black
 

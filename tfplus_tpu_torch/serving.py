@@ -160,30 +160,32 @@ def refresh_from_delta(tables, delta_prefix: str, *, quantize: bool = False):
     for name, t in tables.items():
         shards = list(t) if isinstance(t, (list, tuple)) else [t]
         n = len(shards)
-        new = []
-        for i, s in enumerate(shards):
-            if isinstance(s, quant.QuantKvTable) != quantize:
-                raise ValueError(
-                    f"refresh_from_delta(quantize={quantize}) but table "
-                    f"'{name}' is {type(s).__name__} — pass quantize="
-                    f"{isinstance(s, quant.QuantKvTable)}")
-            base = name if n == 1 else f"{name}/part_{i}"
-            if base + "-keys" not in reader:
-                new.append(s)
-                continue
-            if not quantize:
-                new.append(saver.restore_table(reader, base, s, delta=True,
-                                               load_slots=False))
-                continue
-            full = kvt.KvTable(
-                header=s.header,
-                payload=s.payload.float() * s.scale[:, None],
-                init_pool=s.payload[:1].float(), config=s.config,
-                **kvt._empty_deletion_log(s.device))
-            full = saver.restore_table(reader, base, full, delta=True,
-                                       load_slots=False)
-            qt = quant.quantize_table(full)
-            s.header, s.payload, s.config = qt.header, qt.payload, qt.config
-            new.append(s)
+        new = [refresh_shard(reader, saver.shard_name(name, i, n), s,
+                             quantize=quantize, name=name)
+               for i, s in enumerate(shards)]
         out[name] = new if isinstance(t, (list, tuple)) else new[0]
     return out
+
+
+def refresh_shard(reader, base: str, s, *, quantize: bool, name: str):
+    """One shard of :func:`refresh_from_delta`: the delta's part ``base``
+    upserted into ``s`` (``s`` itself when the delta has no such part)."""
+    if isinstance(s, quant.QuantKvTable) != quantize:
+        raise ValueError(
+            f"refresh_from_delta(quantize={quantize}) but table "
+            f"'{name}' is {type(s).__name__} — pass quantize="
+            f"{isinstance(s, quant.QuantKvTable)}")
+    if base + "-keys" not in reader:
+        return s
+    if not quantize:
+        return saver.restore_table(reader, base, s, delta=True,
+                                   load_slots=False)
+    full = kvt.KvTable(
+        header=s.header, payload=s.payload.float() * s.scale[:, None],
+        init_pool=s.payload[:1].float(), config=s.config,
+        **kvt._empty_deletion_log(s.device))
+    full = saver.restore_table(reader, base, full, delta=True,
+                               load_slots=False)
+    qt = quant.quantize_table(full)
+    s.header, s.payload, s.config = qt.header, qt.payload, qt.config
+    return s
