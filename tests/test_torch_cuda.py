@@ -30,7 +30,8 @@ without segments, at Sq ≠ Skv and with dropout; a few DCN and BST training
 steps on the card match the same steps on the CPU. The compactor kernel
 matches its plain version bit for bit, and table growth, compaction,
 export and a checkpoint round trip on the card leave the same tables as on
-the CPU. The packed feed's pinned buffer unpacks on the card into views
+the CPU; a full and a delta checkpoint through ``oss://`` (multipart
+uploads) restore on the card per key bit for bit. The packed feed's pinned buffer unpacks on the card into views
 holding the batch's bits; the multi-table step on the card matches the CPU
 and reruns bit for bit; the host tier's spill, prefetch, hybrid export and
 split restore on the card leave the CPU's tables and tiers bit for bit
@@ -1068,6 +1069,45 @@ def test_growth_and_checkpoint_on_the_card_match_the_cpu(cuda, tmp_path):
                       for k in ("keys", "values", "meta")]
     for a, b in zip(out["cpu"], out[cuda]):
         assert torch.equal(a, b.cpu())
+
+
+def test_oss_checkpoint_round_trip_on_the_card(cuda, monkeypatch):
+    """A full and a delta checkpoint of a slotted table on the card through
+    ``oss://`` (the in-process emulator, a PUT cap that forces multipart)
+    restore on the card to the rows a local-disk lineage restores, per
+    key bit for bit, and launch the row kernels."""
+    from tfplus_tpu_torch import io, train
+    from tfplus_tpu_torch.io import object_store
+    from tfplus_tpu_torch.io.oss_emulator import OSSEmulator
+    monkeypatch.setattr(object_store, "_MULTIPART_THRESHOLD", 64_000)
+    monkeypatch.setattr(object_store, "_PART_SIZE", 48_000)
+    rng = np.random.RandomState(8)
+    opt = train.GroupAdamOptimizer(learning_rate=0.05)
+    ids = np.unique(rng.randint(0, 1 << 40, 2100).astype(np.int64))[:2000]
+    t = opt.init(kv.create(32, 4096, seed=5, device=cuda))
+    kv.insert(t, kv.encode_ids(ids, device=cuda),
+              torch.from_numpy(rng.randn(2000, 32).astype(np.float32)).to(
+                  cuda), day=3)
+    rowops.gather_rows.launches = rowops.scatter_rows.launches = 0
+    with OSSEmulator({"id": "key"}, max_put_size=64_000) as host:
+        io.register_oss()
+        root = f"oss://bkt\x01id=id\x02key=key\x02host={host}/ck"
+        mgr = checkpoint.CheckpointManager(root)
+        t = mgr.save({"t": t}, step=1, full=True)["t"]
+        kv.lookup_or_insert(t, kv.encode_ids(ids[:500] + 7, device=cuda),
+                            day=4)
+        mgr.save({"t": t}, step=2, full=False)
+        restored, _, step = checkpoint.CheckpointManager(root).restore(
+            {"t": opt.init(kv.create(32, 256, seed=1, device=cuda))})
+    assert step == 2
+    assert rowops.gather_rows.launches > 0
+    assert rowops.scatter_rows.launches > 0
+    keys = kv.export_arrays(t)["keys"]
+    q = kv.encode_ids(keys, device=cuda)
+    fr, fo = kv.find(t, q), kv.find(restored["t"], q)
+    assert bool(fr.found.all()) and bool(fo.found.all())
+    assert torch.equal(t.payload[fr.slot.long()],
+                       restored["t"].payload[fo.slot.long()])
 
 
 # ---------------------------------------------------------------------------

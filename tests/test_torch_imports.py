@@ -4,8 +4,9 @@ filesystems, the progress bar, the compactor, the serving API, the int8
 tables, the variable store, the config, the CTR models, the data feed and
 readers, the native helper's bindings, the multi-table step, the storage
 tier, the module adapter and the distributed tier with every public name of
-the JAX package's ``parallel`` but its three placement helpers too) and
-chip_smoke.py
+the JAX package's ``parallel`` but its three placement helpers too, the
+remote-storage clients and emulators, the profiling helpers and the
+examples' twins) and chip_smoke.py
 loads neither JAX nor the JAX package, and needs no nvcc."""
 import os
 import subprocess
@@ -47,7 +48,20 @@ new = {"tfplus_tpu_torch.ops.rowops", "tfplus_tpu_torch.ops.flash_attention",
        "tfplus_tpu_torch.parallel.sharded_table",
        "tfplus_tpu_torch.parallel.serving", "tfplus_tpu_torch.parallel.hybrid",
        "tfplus_tpu_torch.parallel.sharded2d",
-       "tfplus_tpu_torch.parallel.ring_attention"}
+       "tfplus_tpu_torch.parallel.ring_attention",
+       "tfplus_tpu_torch.io.retry", "tfplus_tpu_torch.io.object_store",
+       "tfplus_tpu_torch.io.oss_emulator", "tfplus_tpu_torch.io.s3",
+       "tfplus_tpu_torch.io.s3_emulator", "tfplus_tpu_torch.io.dfs",
+       "tfplus_tpu_torch.io.dfs_emulator",
+       "tfplus_tpu_torch.utils.profiling", "tfplus_tpu_torch.examples",
+       "tfplus_tpu_torch.examples._common",
+       "tfplus_tpu_torch.examples.train_dcn",
+       "tfplus_tpu_torch.examples.train_deepfm",
+       "tfplus_tpu_torch.examples.train_din",
+       "tfplus_tpu_torch.examples.train_ncf",
+       "tfplus_tpu_torch.examples.serving_demo",
+       "tfplus_tpu_torch.examples.checkpoint_resume",
+       "tfplus_tpu_torch.examples.train_dlrm_sharded"}
 assert new <= set(names), sorted(new - set(names))
 from tfplus_tpu_torch.models import BST, DIN
 from tfplus_tpu_torch.nn import flash_attention_layer
@@ -103,6 +117,21 @@ from tfplus_tpu_torch.parallel.serving import (
     load_for_serving_sharded, make_serving_lookup, refresh_sharded_from_delta,
     sharded_serving_lookup, stack_shards)
 from tfplus_tpu_torch.parallel.mesh import initialize_multihost
+from tfplus_tpu_torch.io import (DfsClient, DfsFileSystem, ObjectStoreClient,
+                                 OSSFileSystem, S3Client, S3FileSystem,
+                                 parse_s3_uri, register_dfs, register_oss,
+                                 register_s3)
+from tfplus_tpu_torch.io.oss_emulator import OSSEmulator
+from tfplus_tpu_torch.io.s3_emulator import S3Emulator
+from tfplus_tpu_torch.io.dfs_emulator import DfsEmulator
+from tfplus_tpu_torch.io.retry import retry_transient
+from tfplus_tpu_torch.utils.profiling import StepMeter, annotate, trace
+import tfplus_tpu_torch.utils as tutils
+assert tutils.profiling.StepMeter is StepMeter
+for twin in ("train_dcn", "train_deepfm", "train_din", "train_ncf",
+             "serving_demo", "checkpoint_resume", "train_dlrm_sharded"):
+    assert callable(importlib.import_module(
+        "tfplus_tpu_torch.examples." + twin).main), twin
 public = {"ExchangeState", "create_sharded", "dropped_positions",
           "grow_sharded_if_needed", "init_optimizer_sharded", "local_shard",
           "route_stats", "shard_sizes", "sharded_apply_grads",

@@ -3,9 +3,13 @@
 A copy of ``tfplus_tpu/io/filesystem.py`` (the port imports nothing of the
 JAX package): a scheme registry that the checkpoint bundles resolve paths
 through, the local filesystem as the default, an in-memory filesystem
-(``ram://``) for tests, and the reference's OSS URI credential parser. The
-object-store clients (``oss://``, ``dfs://``) are not ported yet; register
-one with :func:`register_filesystem`.
+(``ram://``) for tests, and the reference's OSS URI credential parser.
+The remote backends register themselves here: ``oss://``
+(:func:`.object_store.register_oss`, signed OSS REST), ``s3://``
+(:func:`.s3.register_s3`, SigV4) and ``dfs://`` (:func:`.dfs.register_dfs`,
+WebHDFS REST, also registrable as ``pangu://``). This registry is the
+port's own: a client registered with the JAX package's ``register_*`` is
+not seen here.
 """
 from __future__ import annotations
 

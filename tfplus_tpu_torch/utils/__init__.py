@@ -1,2 +1,3 @@
-"""Host-side helpers: meta-word packing, device resolution, progress."""
-from . import device, packing, progress
+"""Host-side helpers: meta-word packing, device resolution, progress,
+profiling."""
+from . import device, packing, profiling, progress
