@@ -238,24 +238,42 @@ failed check:
    ``train_deepfm`` (DeepFM and Wide&Deep, 10 batches), ``train_din`` (DIN and
    BST; BST must launch the single-pass flash kernels), ``train_ncf`` (the
    loss must fall), ``serving_demo`` (f32 and ``--quantize``; its
-   self-test), ``checkpoint_resume`` and ``train_dlrm_sharded`` under
-   ``torchrun --nproc-per-node 1`` (NCCL); each must exit 0 and pass its
-   checks, and prints its examples/s (twins sharing the card: a record).
+   self-test), ``checkpoint_resume``, ``migrate_from_tfplus`` (a TFPlus
+   checkpoint written by the port's own TensorBundle writer, imported 2
+   shards into 3, three GroupAdam steps, a native save and an export back
+   to TFPlus format) and ``train_dlrm_sharded`` under ``torchrun
+   --nproc-per-node 1`` (NCCL); each must exit 0 and pass its checks, and
+   prints its examples/s (twins sharing the card: a record).
+28. The TFPlus bridge: phase 17's DLRM after three Adam steps, 64 keys per
+   table then blacklisted. (a) ``tf_export.export_checkpoint`` with uint16
+   frequencies and with ``freq_use_uint32``, each twice: the same bytes.
+   (b) ``tf_import.import_checkpoint`` into fresh templates on the card:
+   per key the rows, the frequency, day (uint32) and blacklist bits of the
+   meta words, and the init pools equal the source's bit for bit; ten
+   batch-2048 requests give the source's predictions. (c) one table into 4
+   shards on the card: each key in shard ``key % 4``, the union the
+   source's. (d) one table's Adam ``m`` written by ``write_bundle`` as a
+   slot KvVariable and ``attach_slot_rows``: the source's slot rows. (e)
+   ``export_for_serving(format="tfplus")`` then ``import_checkpoint``: the
+   native export's ``load_for_serving`` predictions. (f) GB/s of the bundle
+   files each way beside ``checkpoint.save`` / ``restore`` of the same
+   tables on the same disk, and the CRC32C helper's GB/s.
 
 Each path (the serving and training paths, the flash entry points, the
 compactor entry point, the growth, checkpoint and repartition paths, and
 the serving-API, int8, table-op and CTR-model paths, the Criteo-fed DCN, the
 multi-table and per-table steps, the hybrid tier, the sharded DLRM, the
-two ranks' legs, the remote-storage legs, the traced window and the twins)
-runs
+two ranks' legs, the remote-storage legs, the traced window, the twins and
+the TFPlus bridge's legs) runs
 with the kernels' launch counts set to 0 just before it and read just after
 it. Each phase frees its tables before the next and prints the peak device
 memory it reached. The line before the last is the ``{"kernels": [...]}``
 JSON, after the ``{"serving": ...}``, ``{"training": ...}``,
 ``{"growth": ...}``, ``{"parallel": ...}``, ``{"serving_api": ...}`` and
-``{"remote_storage": ..., "profiling": ..., "twins": ...}`` lines; each
-kernel's entry adds ``launches_phases_23_24`` and
-``launches_phases_25_27``, its launches on those phases' paths. The last
+``{"remote_storage": ..., "profiling": ..., "twins": ...}`` and
+``{"tf_bridge": ...}`` lines; each kernel's entry adds
+``launches_phases_23_24``, ``launches_phases_25_27`` and
+``launches_phase_28``, its launches on those phases' paths. The last
 line is ``{"ok": true, "device":
 {...}}``. Without a card, or without the port beside it, the script exits
 non-zero and prints no result.
@@ -4295,6 +4313,7 @@ TWIN_RUNS = (
     ("checkpoint_resume", []),
     ("serving_demo", ["--port", "PORT", "--quantize"]),
     ("serving_demo", ["--port", "PORT"]),
+    ("migrate_from_tfplus", []),
 )
 
 
@@ -4891,6 +4910,10 @@ def twin_check(res):
     elif name == "train_dlrm_sharded":
         check(np_finite(m["losses"]) and all(
             v > 0 for v in m["rows_per_table"].values()), f"{name}: {m}")
+    elif name == "migrate_from_tfplus":
+        check(m["discovered_shards"] == {"user_emb": 2}
+              and m["imported_rows"] == 2000
+              and len(m["exported_tensors"]) == 19, f"{name}: {m}")
 
 
 def np_finite(xs):
@@ -4973,6 +4996,361 @@ def twins_phase(torch):
               flush=True)
     print(f"twins: {json.dumps(out)}", flush=True)
     return launches, out
+
+
+# ---------------------------------------------------------------------------
+# phase 28: the TFPlus bridge (TensorFlow TensorBundles) on the card
+# ---------------------------------------------------------------------------
+
+TF_AS_OF_DAY = 20100             # the exports' as_of_unix_day
+TF_BLACKLISTED = 64              # keys per table re-inserted blacklisted
+TF_REQUESTS = 10                 # batch-2048 requests per prediction check
+TF_SHARDS = 4                    # leg (c): one table into this many shards
+
+
+def file_bytes(prefix):
+    """The bytes of a TensorBundle's or a native bundle's files."""
+    import glob
+    return {os.path.basename(p): os.path.getsize(p)
+            for p in sorted(glob.glob(glob.escape(prefix) + ".*"))}
+
+
+def same_files(a, b):
+    """Two bundles' files (index and data) hold the same bytes."""
+    for pa, pb in ((a + ".index", b + ".index"),
+                   (a + ".data-00000-of-00001", b + ".data-00000-of-00001")):
+        with open(pa, "rb") as fa, open(pb, "rb") as fb:
+            if fa.read() != fb.read():
+                return False
+    return True
+
+
+def key_state(torch, kv, t, q):
+    """Per key of ``q`` (all in ``t``): the embedding columns' bits and
+    the meta words."""
+    fr = kv.find(t, q)
+    check(bool(fr.found.all()), f"{t.config.name}: a key is missing")
+    rows = t.payload[fr.slot.long(), :t.dim].contiguous()
+    return rows.view(torch.int32), fr.meta
+
+
+def tf_bridge_phase(torch, np, kv, models, train, serving, checkpoint,
+                    packing):
+    """Phase 28: the TFPlus bridge on phase 17's DLRM (26 tables of 2^20
+    rows holding 2^18 keys, dim 16), after three Adam steps so that
+    frequencies and slots exist, then 64 keys per table blacklisted. (a)
+    ``tf_export.export_checkpoint`` (first_n 6) with uint16 frequencies and
+    with ``freq_use_uint32``, each written twice: the two writes' files are
+    the same bytes. (b) ``tf_import.import_checkpoint`` of the uint32
+    export into fresh templates on the card: per key the rows, the meta
+    words' frequency, day and blacklist bit, and each init pool equal the
+    source's bit for bit (the uint16 export's import too, frequency and
+    blacklist: it carries no day); ten requests give the source's
+    predictions. (c) one table into 4 shards on the card: each key in shard
+    ``key % 4``, the union the source's per key. (d) one table's Adam ``m``
+    written as a slot KvVariable (k=1) by ``tf_bundle.write_bundle`` and
+    ``attach_slot_rows`` into the table of (b): the slot rows equal the
+    source's. (e) ``export_for_serving(format="tfplus")`` then
+    ``import_checkpoint`` of its prefix: ten requests give the predictions
+    of the native export's ``load_for_serving``. (f) GB/s of the bundle
+    files each way beside ``checkpoint.save`` / ``restore`` of the same
+    tables on the same disk, and the CRC32C helper's GB/s. Each leg runs
+    with the launch counts set to 0 before it and read after it; its
+    checks and references are taken off (:func:`not_path`)."""
+    import shutil
+    from tfplus_tpu_torch.checkpoint import (crc32c, saver, tf_bundle,
+                                             tf_export, tf_import)
+    t_phase = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_tf_bridge_")
+    out = {"legs": {}}
+    total = {}
+
+    def run_leg(name, fn):
+        checks = {}
+        reset_launches()
+        t0 = time.perf_counter()
+        res = fn(checks)
+        after = read_launches()
+        path = {k: after[k] - checks.get(k, 0) for k in after}
+        res["launches"] = {k: v for k, v in path.items() if v}
+        res["seconds"] = time.perf_counter() - t0
+        for k, v in path.items():
+            total[k] = total.get(k, 0) + v
+        out["legs"][name] = res
+        print(f"tf bridge ({name}): {json.dumps(res)}", flush=True)
+        return res
+
+    try:
+        model = models.DLRM(**DLRM_CONFIG, capacity=DLRM_ROWS)
+        gen = torch.Generator(device=DEV).manual_seed(SEED + 280)
+        rng = np.random.RandomState(SEED + 280)
+        keys = {n: rng.permutation(np.unique(rng.randint(
+            0, 1 << 40, DLRM_FILL + DLRM_FILL // 8,
+            dtype=np.int64)))[:DLRM_FILL] for n in model.table_specs}
+        state = models.init_state(model, seed=SEED, device=DEV)
+        resident = {}
+        for name in sorted(state.tables):
+            t = state.tables[name]
+            q = kv.encode_ids(keys[name], device=DEV)
+            rows = torch.randn(DLRM_FILL, 16, device=DEV, generator=gen)
+            kv.insert(t, q, rows, day=1)
+            resident[name] = np.nonzero(kv.find(t, q).found.cpu().numpy())[0]
+        opt = train.AdamOptimizer()
+        state = models.TrainState(
+            tables={n: opt.init(t) for n, t in state.tables.items()},
+            dense=state.dense, step=state.step,
+            opt_state=torch.optim.Adam(state.dense.parameters(), lr=0.01))
+        tstep = models.make_train_step(model, opt, sparse_lr=0.01)
+        for _ in range(3):
+            state, loss, _ = tstep(state, dcn_batch(np, rng, keys, resident,
+                                                    BATCH))
+        check(bool(torch.isfinite(loss)), "TF bridge: non-finite loss")
+        # blacklist keys after training (a step that touches a blacklisted
+        # key clears its bit): each table's row, frequency and day kept
+        for name, t in state.tables.items():
+            q = kv.encode_ids(keys[name][resident[name][:TF_BLACKLISTED]],
+                              device=DEV)
+            fr = kv.find(t, q)
+            kv.insert(t, q, t.payload[fr.slot.long(), :16],
+                      blacklist=torch.ones(q.shape[0], dtype=torch.bool,
+                                           device=DEV))
+        serve = models.make_train_step(model, train=False)
+        requests = [dcn_batch(np, rng, keys, resident, BATCH)
+                    for _ in range(TF_REQUESTS)]
+        want_preds = [serve(state, b)[2] for b in requests]
+        source = {}          # per table: (uint64 keys, on the card, rows, meta)
+        for name, t in state.tables.items():
+            u64 = np.sort(np.asarray(kv.export_arrays(t)["keys"], np.uint64))
+            q = kv.encode_ids_np_to_device(u64, device=DEV)
+            source[name] = (u64, q) + key_state(torch, kv, t, q)
+        check(all(int((s[3] & packing.FLAG_BLACKLIST).ne(0).sum())
+                  == TF_BLACKLISTED for s in source.values()),
+              "TF bridge: the blacklisted keys are not set")
+        torch.cuda.synchronize()
+        out["setup_s"] = time.perf_counter() - t_phase
+        prefixes = {}
+
+        def leg_a(checks):
+            res = {}
+            for kind, u32 in (("uint16", False), ("uint32", True)):
+                p = [os.path.join(workdir, f"a_{kind}_{i}", "model.ckpt-3")
+                     for i in range(2)]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tf_export.export_checkpoint(p[0], state.tables,
+                                            freq_use_uint32=u32,
+                                            as_of_unix_day=TF_AS_OF_DAY)
+                res[f"{kind}_export_s"] = time.perf_counter() - t0
+                tf_export.export_checkpoint(p[1], state.tables,
+                                            freq_use_uint32=u32,
+                                            as_of_unix_day=TF_AS_OF_DAY)
+                check(same_files(p[0], p[1]),
+                      f"TF export ({kind}): two writes differ")
+                res[f"{kind}_bytes"] = sum(file_bytes(p[0]).values())
+                prefixes[kind] = p[0]
+            reader = tf_bundle.TFBundleReader(prefixes["uint32"])
+            res["tensors"] = len(reader.get_variable_to_shape_map())
+            check(res["tensors"] == 6 * len(state.tables),
+                  f"TF export: {res['tensors']} tensors")
+            return res
+
+        def compare(name, got, kind, checks):
+            """``got`` (a table or shards) holds the source's keys: rows bit
+            for bit, meta in the fields the export carries."""
+            u64, q, rows, meta = source[name]
+            mask = packing.FREQ_MASK | packing.FLAG_BLACKLIST
+            if kind == "uint32":
+                mask |= packing.DAY_MASK << 16
+            with not_path(checks):
+                shards = got if isinstance(got, list) else [got]
+                n = sum(int(kv.size(s)) for s in shards)
+                check(n == q.shape[0], f"{name} ({kind}): {n} rows, "
+                      f"the source {q.shape[0]}")
+                if len(shards) == 1:
+                    g_rows, g_meta = key_state(torch, kv, shards[0], q)
+                else:
+                    home = torch.from_numpy(
+                        (u64 % np.uint64(len(shards))).astype(np.int64)
+                    ).to(DEV)
+                    g_rows = torch.empty_like(rows)
+                    g_meta = torch.empty_like(meta)
+                    for i, s in enumerate(shards):
+                        sel = home == i
+                        r, m = key_state(torch, kv, s, q[sel])
+                        g_rows[sel], g_meta[sel] = r, m
+                check(torch.equal(g_rows, rows),
+                      f"{name} ({kind}): rows differ from the source's")
+                check(torch.equal(g_meta & mask, meta & mask),
+                      f"{name} ({kind}): meta words differ from the "
+                      "source's")
+                src = state.tables[name]
+                check(all(torch.equal(s.init_pool, src.init_pool)
+                          for s in shards),
+                      f"{name} ({kind}): init pool differs")
+
+        def fresh():
+            return {n: kv.create(16, DLRM_ROWS, name=n, device=DEV)
+                    for n in state.tables}
+
+        imported = {}
+
+        def leg_b(checks):
+            res = {}
+            for kind in ("uint16", "uint32"):
+                with not_path(checks):
+                    templates = fresh()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = tf_import.import_checkpoint(prefixes[kind], templates)
+                torch.cuda.synchronize()
+                res[f"{kind}_import_s"] = time.perf_counter() - t0
+                for name in state.tables:
+                    compare(name, got[name], kind, checks)
+                imported[kind] = got
+            del imported["uint16"]
+            with not_path(checks):
+                served = state._replace(tables=imported["uint32"])
+                check(all(torch.equal(serve(served, b)[2], p)
+                          for b, p in zip(requests, want_preds)),
+                      "TF import: predictions differ from the source's")
+            return res
+
+        elastic = "T1"
+
+        def leg_c(checks):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            shards = tf_import.import_kv_variable(
+                prefixes["uint32"], elastic, num_shards=TF_SHARDS,
+                capacity=DLRM_ROWS // 2, device=DEV)
+            torch.cuda.synchronize()
+            res = {"import_s": time.perf_counter() - t0,
+                   "rows_per_shard": [int(kv.size(s)) for s in shards]}
+            check(all(s.device.type == torch.device(DEV).type
+                      for s in shards),
+                  "elastic import: a shard is not on the card")
+            compare(elastic, shards, "uint32", checks)
+            return res
+
+        slot_table = "T0"
+
+        def leg_d(checks):
+            u64, q, _, _ = source[slot_table]
+            src = state.tables[slot_table]
+            with not_path(checks):
+                fr = kv.find(src, q)
+                m = kv.get_slot(src, opt.slot_name)[fr.slot.long(), :16] \
+                    .contiguous()
+                p = os.path.join(workdir, "d_slot", "model.ckpt-3")
+                tf_bundle.write_bundle(p, [f"{slot_table}/m-keys",
+                                           f"{slot_table}/m-values"],
+                                       [u64.view(np.int64), m])
+            t = imported["uint32"][slot_table]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t = tf_import.attach_slot_rows(t, p, f"{slot_table}/m", "m")
+            torch.cuda.synchronize()
+            res = {"attach_s": time.perf_counter() - t0,
+                   "slot_layout": [list(x) for x in t.config.slot_layout]}
+            with not_path(checks):
+                fr = kv.find(t, q)
+                got = kv.get_slot(t, "m")[fr.slot.long()]
+                check(bool(fr.found.all()) and torch.equal(
+                    got.view(torch.int32), m.view(torch.int32)),
+                      "attach_slot_rows: slot rows differ from the source's")
+            return res
+
+        def leg_e(checks):
+            md = serving.RankingMetadata()
+            for name in sorted(state.tables):
+                md.add_embedding_column(column_name=name, var_name=name,
+                                        embedding_dim=16)
+            d = os.path.join(workdir, "e_tfplus")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prefix = serving.export_for_serving(d, state.tables, md,
+                                                format="tfplus")
+            res = {"export_s": time.perf_counter() - t0}
+            with not_path(checks):
+                templates = fresh()
+            t0 = time.perf_counter()
+            got = tf_import.import_checkpoint(prefix, templates)
+            torch.cuda.synchronize()
+            res["import_s"] = time.perf_counter() - t0
+            res["bytes"] = sum(file_bytes(prefix).values())
+            with not_path(checks):
+                nd = os.path.join(workdir, "e_native")
+                serving.export_for_serving(nd, state.tables, md)
+                native, _ = serving.load_for_serving(nd, device=DEV)
+                a = state._replace(tables=got)
+                b = state._replace(tables=native)
+                check(all(torch.equal(serve(a, r)[2], serve(b, r)[2])
+                          for r in requests),
+                      "TF serving export: predictions differ from the "
+                      "native export's")
+            return res
+
+        run_leg("a", leg_a)
+        run_leg("b", leg_b)
+        run_leg("c", leg_c)
+        run_leg("d", leg_d)
+        del imported
+        run_leg("e", leg_e)
+
+        # (f) rates beside the native bundle, and the CRC32C helper
+        f = {}
+        for kind in ("uint16", "uint32"):
+            f[f"tf_export_{kind}_gb_per_s"] = rate(
+                out["legs"]["a"][f"{kind}_bytes"],
+                out["legs"]["a"][f"{kind}_export_s"])
+            f[f"tf_import_{kind}_gb_per_s"] = rate(
+                out["legs"]["a"][f"{kind}_bytes"],
+                out["legs"]["b"][f"{kind}_import_s"])
+        native = os.path.join(workdir, "f_native", "model.ckpt-3")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.save(native, state.tables)
+        f["native_save_s"] = time.perf_counter() - t0
+        f["native_bytes"] = sum(file_bytes(native).values())
+        templates = {n: opt.init(kv.create(16, DLRM_ROWS, name=n,
+                                           device=DEV))
+                     for n in state.tables}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.restore(native, templates)
+        torch.cuda.synchronize()
+        f["native_restore_s"] = time.perf_counter() - t0
+        del templates
+        f["native_save_gb_per_s"] = rate(f["native_bytes"],
+                                         f["native_save_s"])
+        f["native_restore_gb_per_s"] = rate(f["native_bytes"],
+                                            f["native_restore_s"])
+        data = np.fromfile(prefixes["uint32"] + ".data-00000-of-00001",
+                           dtype=np.uint8)
+        f["crc32c_hardware"] = crc32c.hardware()
+        crc32c.value(data[:1 << 20])
+        t0 = time.perf_counter()
+        c = crc32c.value(data)
+        f["crc32c_gb_per_s"] = rate(data.nbytes, time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        check(crc32c.extend_table_loop(0, data) == c,
+              "CRC32C: the table loop and the helper differ")
+        f["crc32c_table_loop_gb_per_s"] = rate(data.nbytes,
+                                               time.perf_counter() - t0)
+        f["crc32c_bytes"] = int(data.nbytes)
+        del data
+        out["rates"] = f
+        print(f"tf bridge (f): {json.dumps(f)}", flush=True)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    out["launches"] = total
+    check(total["gather_rows"] > 0 and total["scatter_rows"] > 0,
+          f"TF bridge: the row kernels were not launched: {total}")
+    out["seconds"] = time.perf_counter() - t_phase
+    del state, source
+    out["peak_gib"] = peak_memory(torch, "TF bridge")
+    print(f"tf bridge: {json.dumps(out)}", flush=True)
+    return total, out
 
 
 def kernel_entry(name, src, replaces, launches, errs, cases, main, keys):
@@ -5173,6 +5551,8 @@ def main() -> int:
     prof_launches, prof = profiling_phase(torch, np, kv, embedding, models,
                                           train)
     twin_launches, twins = twins_phase(torch)
+    tf_launches, tf_bridge = tf_bridge_phase(torch, np, kv, models, train,
+                                             serving, checkpoint, packing)
 
     errs = {k: [c[f"{k}_err"] for c in cases.values()]
             for k in ("gather", "scatter_set", "scatter_add")}
@@ -5184,7 +5564,7 @@ def main() -> int:
              grow_launches, rep_launches, ref_launches, dlrm_launches,
              int8_launches, ops_launches, ctr_launches, crit_launches,
              multi_launches, hyb_launches, shard_launches, rank_launches,
-             remote_launches, prof_launches, twin_launches]
+             remote_launches, prof_launches, twin_launches, tf_launches]
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
     src = CSRC + "rowops.cu"
     main_case = f"float32_w128_n{N_IDS}"            # the serving-leg shape
@@ -5244,6 +5624,11 @@ def main() -> int:
           f"{slice_launches}")
     for e in kernels:
         e["launches_phases_25_27"] = slice_launches[e["name"]]
+    # the TFPlus bridge (phase 28): the row kernels of export and import
+    check(tf_launches["gather_rows"] > 0 and tf_launches["scatter_rows"] > 0,
+          f"phase 28 did not launch the row kernels: {tf_launches}")
+    for e in kernels:
+        e["launches_phase_28"] = tf_launches[e["name"]]
     print(json.dumps({"serving": {
         "embedding_ids_per_s": emb_rate, "embedding_launches": emb_launches,
         "dcn_examples_per_s": dcn_rate, "dcn_launches": dcn_launches,
@@ -5287,6 +5672,7 @@ def main() -> int:
         "ctr_models": ctr}}))
     print(json.dumps({"remote_storage": remote, "profiling": prof,
                       "twins": twins}))
+    print(json.dumps({"tf_bridge": tf_bridge}))
     print(smi_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -38,7 +38,9 @@ split restore on the card leave the CPU's tables and tiers bit for bit
 (a bfloat16 table's too, its tier holding 16-bit rows); the distributed
 tier in a world of 1 over NCCL (the sharded lookup and apply, sharded
 serving and a ring of one block) matches the CPU over gloo and
-flash_attention. Marked ``cuda``: every test skips without a card. On a machine
+flash_attention. A TFPlus checkpoint imports onto the card (3 shards from
+2, slot rows attached) as onto the CPU, and exports back byte for byte the
+same. Marked ``cuda``: every test skips without a card. On a machine
 with a card and without JAX, run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -1572,3 +1574,53 @@ def test_bf16_host_tier_on_the_card_matches_the_cpu(cuda):
         np.testing.assert_array_equal(x, y)
     assert a[1] == b[1] == 156
     assert torch.equal(a[2], b[2]) and torch.equal(a[3], b[3])
+
+
+def test_tfplus_import_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """A TFPlus checkpoint (written by the port's TensorBundle writer:
+    2 shards, uint16 freqs, a blacklist, an init pool and a k=2 slot
+    variable) imported into 3 shards on the card and on the CPU: the same
+    headers and payloads, bit for bit; its export from the card is the
+    CPU's export byte for byte."""
+    from tfplus_tpu_torch.checkpoint import tf_bundle, tf_export, tf_import
+    rng = np.random.RandomState(11)
+    prefix = str(tmp_path / "ref" / "model.ckpt-7")
+    names, arrays = [], []
+    for part in range(2):
+        ids = np.arange(part, 900, 2, dtype=np.int64) * 7919
+        base = f"emb/part_{part}"
+        for suffix, arr in (
+                ("keys", ids),
+                ("values", rng.randn(len(ids), 16).astype(np.float32)),
+                ("init_table", rng.randn(40, 16).astype(np.float32)),
+                ("blacklist", ids[:5]),
+                ("freq_keys", ids),
+                ("freq_values", rng.randint(1, 900, len(ids))
+                 .astype(np.uint16))):
+            names.append(f"{base}-{suffix}")
+            arrays.append(arr)
+    names += ["emb/m-keys", "emb/m-values"]
+    arrays += [np.arange(0, 900, dtype=np.int64) * 7919,
+               rng.randn(900, 32).astype(np.float32)]
+    tf_bundle.write_bundle(prefix, names, arrays)
+    out = {}
+    for d in ("cpu", cuda):
+        shards = tf_import.import_kv_variable(prefix, "emb", num_shards=3,
+                                              capacity=256, device=d)
+        shards = [tf_import.attach_slot_rows(s, prefix, "emb/m", "m")
+                  for s in shards]
+        assert all(s.device.type == torch.device(d).type for s in shards)
+        back = str(tmp_path / f"back_{d}" / "ck")
+        tf_export.export_checkpoint(back, {"emb": shards},
+                                    freq_use_uint32=True,
+                                    as_of_unix_day=20100)
+        files = []
+        for suffix in (".index", ".data-00000-of-00001"):
+            with open(back + suffix, "rb") as f:
+                files.append(f.read())
+        out[str(d)] = ([(s.header.cpu(), s.payload.cpu(), s.init_pool.cpu())
+                        for s in shards], files)
+    for a, b in zip(out["cpu"][0], out[str(cuda)][0]):
+        for x, y in zip(a, b):
+            assert torch.equal(_bits(x), _bits(y))
+    assert out["cpu"][1] == out[str(cuda)][1]

@@ -6,7 +6,10 @@ from the original's initial state, and their row counts agree exactly and
 their losses within 1e-5 step by step (the tolerance of the training
 parity tests: float32 in another summation order). ``checkpoint_resume``
 prints its original's lines as the original printed them (that run takes
-about 3 minutes of JAX compiles on the CPU). ``train_dcn`` and
+about 3 minutes of JAX compiles on the CPU). ``migrate_from_tfplus``
+prints what its original prints, TensorFlow writing and reading the
+original's bundles and the port's own reader and writer the twin's.
+``train_dcn`` and
 ``train_deepfm`` hard-code 26 tables of 2^16 rows (with Adam's slots, over
 a GB on the host), so only their shared helpers run here; the card runs
 them whole."""
@@ -27,12 +30,13 @@ import torch
 
 from tfplus_tpu_torch import convert
 from tfplus_tpu_torch.examples import (_common, checkpoint_resume,
-                                       serving_demo, train_dcn, train_din,
-                                       train_ncf)
+                                       migrate_from_tfplus, serving_demo,
+                                       train_dcn, train_din, train_ncf)
 
 ROOT = Path(__file__).resolve().parents[1]
 TWINS = ["train_dcn", "train_deepfm", "train_din", "train_ncf",
-         "serving_demo", "checkpoint_resume", "train_dlrm_sharded"]
+         "serving_demo", "checkpoint_resume", "train_dlrm_sharded",
+         "migrate_from_tfplus"]
 LOSS_TOL = dict(atol=1e-5, rtol=1e-5)
 # DIN's eval logits (of order 0.1-0.4) after 50 Adam steps: the dense
 # weights and rows drift apart by float32 summation order as the training
@@ -321,6 +325,29 @@ def test_checkpoint_resume_twin(capsys):
     out = checkpoint_resume.main(["--cpu"])
     assert capsys.readouterr().out == CHECKPOINT_RESUME_OUT
     assert out == {"step": 30, "rows_before": 3933, "rows_after": 4179}
+
+
+def test_migration_twin_prints_the_originals_lines(monkeypatch, capsys):
+    """``examples/migrate_from_tfplus.py --cpu`` (TensorFlow writes and
+    reads its bundles) and the twin (the port's own bundle reader and
+    writer): the same discovered shards and rows, imported rows, dense
+    shape and exported tensor names, line for line (the first line names
+    each run's temporary directory)."""
+    pytest.importorskip("tensorflow")
+    _run_original(monkeypatch, "migrate_from_tfplus", ["--cpu"])
+    want = capsys.readouterr().out
+    out = migrate_from_tfplus.main(["--cpu"])
+    got = capsys.readouterr().out
+
+    def lines(text):
+        return [x for x in text.splitlines() if not x.startswith("[1]")]
+    assert lines(got) == lines(want)
+    assert len(lines(got)) == 5
+    assert out["discovered_shards"] == {"user_emb": 2}
+    assert out["imported_rows"] == 2000
+    # the training steps' ids are all in the checkpoint: no new rows
+    assert out["rows_per_shard"] == [667, 667, 666]
+    assert len(out["exported_tensors"]) == 19
 
 
 def test_dlrm_sharded_twin_on_two_gloo_ranks():

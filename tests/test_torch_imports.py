@@ -5,9 +5,9 @@ tables, the variable store, the config, the CTR models, the data feed and
 readers, the native helper's bindings, the multi-table step, the storage
 tier, the module adapter and the distributed tier with every public name of
 the JAX package's ``parallel`` but its three placement helpers too, the
-remote-storage clients and emulators, the profiling helpers and the
-examples' twins) and chip_smoke.py
-loads neither JAX nor the JAX package, and needs no nvcc."""
+remote-storage clients and emulators, the profiling helpers, the
+examples' twins and the TFPlus bridge) and chip_smoke.py loads neither
+JAX, the JAX package, TensorFlow nor protobuf, and needs no nvcc."""
 import os
 import subprocess
 import sys
@@ -24,7 +24,9 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "tfplus_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "tfplus_tpu",
+                                    "tensorflow")
+             or m.startswith("google.protobuf"))
 assert not bad, bad
 new = {"tfplus_tpu_torch.ops.rowops", "tfplus_tpu_torch.ops.flash_attention",
        "tfplus_tpu_torch.nn.attention", "tfplus_tpu_torch.models.bst",
@@ -61,7 +63,12 @@ new = {"tfplus_tpu_torch.ops.rowops", "tfplus_tpu_torch.ops.flash_attention",
        "tfplus_tpu_torch.examples.train_ncf",
        "tfplus_tpu_torch.examples.serving_demo",
        "tfplus_tpu_torch.examples.checkpoint_resume",
-       "tfplus_tpu_torch.examples.train_dlrm_sharded"}
+       "tfplus_tpu_torch.examples.train_dlrm_sharded",
+       "tfplus_tpu_torch.checkpoint.tf_bundle",
+       "tfplus_tpu_torch.checkpoint.tf_import",
+       "tfplus_tpu_torch.checkpoint.tf_export",
+       "tfplus_tpu_torch.checkpoint.crc32c",
+       "tfplus_tpu_torch.examples.migrate_from_tfplus"}
 assert new <= set(names), sorted(new - set(names))
 from tfplus_tpu_torch.models import BST, DIN
 from tfplus_tpu_torch.nn import flash_attention_layer
@@ -129,7 +136,8 @@ from tfplus_tpu_torch.utils.profiling import StepMeter, annotate, trace
 import tfplus_tpu_torch.utils as tutils
 assert tutils.profiling.StepMeter is StepMeter
 for twin in ("train_dcn", "train_deepfm", "train_din", "train_ncf",
-             "serving_demo", "checkpoint_resume", "train_dlrm_sharded"):
+             "serving_demo", "checkpoint_resume", "train_dlrm_sharded",
+             "migrate_from_tfplus"):
     assert callable(importlib.import_module(
         "tfplus_tpu_torch.examples." + twin).main), twin
 public = {"ExchangeState", "create_sharded", "dropped_positions",
@@ -145,8 +153,17 @@ public = {"ExchangeState", "create_sharded", "dropped_positions",
           "ShardedHybridTable", "ring_attention", "hybrid", "mesh",
           "serving", "sharded2d", "sharded_table"}
 assert public <= set(dir(par)), sorted(public - set(dir(par)))
+from tfplus_tpu_torch.checkpoint import (TFBundleReader, TFBundleWriter,
+                                         tf_bundle, tf_export, tf_import,
+                                         write_bundle)
+from tfplus_tpu_torch.checkpoint.tf_import import (
+    attach_slot_rows, import_checkpoint, import_kv_variable,
+    list_kv_variables, read_dense)
+from tfplus_tpu_torch.checkpoint.tf_export import export_checkpoint
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "tfplus_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "tfplus_tpu",
+                                    "tensorflow")
+             or m.startswith("google.protobuf"))
 assert not bad, bad
 print(len(names))
 """
@@ -158,6 +175,28 @@ def test_port_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip().splitlines()[-1]) >= 30
+
+
+BRIDGE = """
+import sys
+from tfplus_tpu_torch.checkpoint import tf_bundle, tf_export, tf_import
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "tfplus_tpu",
+                                    "tensorflow")
+             or m.startswith("google.protobuf"))
+assert not bad, bad
+print(sorted(m for m in sys.modules if "tf_" in m))
+"""
+
+
+def test_tf_bridge_imports_no_tensorflow_jax_or_protobuf():
+    """The TFPlus bridge reads and writes TensorBundles itself: importing
+    it loads neither TensorFlow, JAX, the JAX package nor protobuf."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", BRIDGE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "tfplus_tpu_torch.checkpoint.tf_bundle" in out.stdout
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

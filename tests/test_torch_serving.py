@@ -10,6 +10,7 @@ int8 payloads, scales, dequantized lookups and refreshed tables are compared
 bit for bit. Exports and deltas written by either package load and refresh
 in both, to the same tables."""
 import json
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -259,12 +260,23 @@ def test_refresh_flag_must_match_the_table_type(tmp_path):
 
 
 def test_tfplus_format_is_refused(tmp_path):
-    """The TensorFlow TensorBundle export needs TensorFlow: the port
-    refuses it, and writes nothing in its place."""
+    """``format="tfplus"`` writes a TensorFlow TensorBundle through the
+    port's own writer, to local directories only: a ``scheme://``
+    directory is refused, as the JAX package refuses it, before anything
+    is written. (The export itself is held against the JAX package's in
+    ``test_torch_tf_bridge.py``.)"""
+    from tfplus_tpu_torch.io import get_filesystem
     tt = _port_table(np.random.RandomState(4), 10)
-    d = tmp_path / "srv"
-    with pytest.raises(ValueError, match="TensorFlow"):
-        tserving.export_for_serving(str(d), {"user_emb": tt},
+    with pytest.raises(ValueError, match="local directory"):
+        tserving.export_for_serving("ram://srv_tfplus", {"user_emb": tt},
                                     _metadata(tserving, False),
                                     format="tfplus")
-    assert not d.exists()
+    fs, path = get_filesystem("ram://srv_tfplus")
+    assert not fs.exists(path)
+    assert not fs.exists(path + "/rank_service_embedding.json")
+    d = tmp_path / "srv"
+    prefix = tserving.export_for_serving(str(d), {"user_emb": tt},
+                                         _metadata(tserving, False),
+                                         format="tfplus")
+    assert os.path.exists(prefix + ".index")
+    assert not os.path.exists(prefix + ".index.json")

@@ -46,33 +46,36 @@ _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
 
 
-def _target() -> Path:
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(" ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"libtfplus_native-{h.hexdigest()[:16]}.so"
-
-
-def _build() -> Path:
-    """Compile the library unless this source's build is already there."""
-    if not SOURCE.exists():
-        raise RuntimeError(f"native source missing: {SOURCE}")
-    so = _target()
+def build_library(source: Path, build_dir: Path, flags, stem: str) -> Path:
+    """Compile ``source`` with g++ and ``flags`` into
+    ``build_dir/lib<stem>-<hash>.so`` unless that build is already there
+    (the hash covers the source and the flags); raises ``RuntimeError``
+    without g++ or on a failed build."""
+    if not source.exists():
+        raise RuntimeError(f"native source missing: {source}")
+    h = hashlib.sha256(source.read_bytes())
+    h.update(" ".join(flags).encode())
+    so = build_dir / f"lib{stem}-{h.hexdigest()[:16]}.so"
     if so.exists():
         return so
     cxx = shutil.which("g++")
     if cxx is None:
-        raise RuntimeError("g++ not found: the native helper library cannot "
-                           "be built")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        raise RuntimeError(f"g++ not found: {source.name} cannot be built")
+    build_dir.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
+    proc = subprocess.run([cxx, *flags, "-o", str(tmp), str(source)],
                           capture_output=True, text=True, timeout=300)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"g++ failed to build {SOURCE.name}:\n"
+        raise RuntimeError(f"g++ failed to build {source.name}:\n"
                            f"{proc.stderr}")
     os.replace(tmp, so)      # atomic: a reader never sees half a file
     return so
+
+
+def _build() -> Path:
+    """Compile the library unless this source's build is already there."""
+    return build_library(SOURCE, BUILD_DIR, CXX_FLAGS, "tfplus_native")
 
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:

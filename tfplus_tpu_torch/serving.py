@@ -7,9 +7,10 @@ that a ranking service can address a table's ``<var>-keys`` and
 ``<var>-values`` tensors without the model. Exports are the JAX package's
 bundles, readable by either package.
 
-Only the native bundle format is written: ``format="tfplus"`` (a TensorFlow
-TensorBundle for an existing TFPlus service) needs TensorFlow, which the
-port does not use, and raises ``ValueError``.
+``format="tfplus"`` writes the checkpoint as a TensorFlow TensorBundle
+(:mod:`.checkpoint.tf_export`, by the port's own writer: no TensorFlow is
+needed) that an existing TFPlus ranking service reads unchanged; it takes a
+local directory only.
 
 Tables update in place, as everywhere in the port: :func:`refresh_from_delta`
 upserts into the tables it is given (an int8 table gets its new header and
@@ -99,18 +100,35 @@ def export_for_serving(directory: str, tables, metadata: RankingMetadata, *,
     ``signature.json``. ``tables``: ``{var_name: KvTable or [shards]}``,
     named as the metadata's columns. Returns the checkpoint prefix.
 
-    A full export at ``first_n = 3`` resets the tables' prediction delta
-    stream, in place (as the saver does)."""
-    if format == "tfplus":
+    A native export at ``first_n = 3`` resets the tables' prediction delta
+    stream, in place (as the saver does).
+
+    ``format="tfplus"`` writes the checkpoint as a TensorFlow TensorBundle
+    (:func:`.checkpoint.tf_export.export_checkpoint`) so an existing
+    TFPlus-based ranking service consumes it unchanged; it needs a local
+    directory and leaves the tables as they are. ``"native"`` (the default)
+    writes this package's bundle, which :func:`load_for_serving` reads, on
+    any registered filesystem including ``oss://``."""
+    if format == "tfplus" and "://" in directory:
+        # the TensorBundle writer takes local paths only: fail before any
+        # side effect
         raise ValueError(
-            "format='tfplus' writes a TensorFlow TensorBundle and needs "
-            "TensorFlow (the JAX package's checkpoint/tf_export.py), which "
-            "tfplus_tpu_torch does not port; use format='native'")
+            "format='tfplus' requires a local directory (the TensorBundle "
+            f"writer cannot resolve {directory.split('://')[0]}:// URIs); "
+            "export locally and upload, or use format='native'")
     fs, d = get_filesystem(directory)
     fs.makedirs(d)
     prefix = _join(directory, "serving")
-    saver.save(prefix, tables, dense=extra, first_n=saver.FIRST_N_INFERENCE,
-               enable_cutoff=enable_cutoff, cutoff_value=cutoff_value)
+    if format == "tfplus":
+        from .checkpoint import tf_export
+        tf_export.export_checkpoint(
+            prefix, tables, first_n=saver.FIRST_N_INFERENCE,
+            enable_cutoff=enable_cutoff, cutoff_value=cutoff_value,
+            dense=extra)
+    else:
+        saver.save(prefix, tables, dense=extra,
+                   first_n=saver.FIRST_N_INFERENCE,
+                   enable_cutoff=enable_cutoff, cutoff_value=cutoff_value)
     metadata.save(_join(directory, "rank_service_embedding.json"))
     sig_fs, sig_p = get_filesystem(_join(directory, "signature.json"))
     with sig_fs.open(sig_p, "wb") as f:
