@@ -1,0 +1,6 @@
+"""`device_idle.serve`: see `benchlib.layers.device_idle`."""
+from benchlib import layers
+
+
+def read(view):
+    return layers.device_idle(view, "serve")

@@ -1,0 +1,6 @@
+"""`flash_roofline.serve`: see `benchlib.layers.flash_roofline`."""
+from benchlib import layers
+
+
+def read(view):
+    return layers.flash_roofline(view, "serve")
