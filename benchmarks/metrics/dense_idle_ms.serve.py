@@ -1,0 +1,7 @@
+"""`dense_idle_ms.serve`: device-idle time inside the dense layer's
+spans per request, in ms (see `benchlib.spans`)."""
+from benchlib import spans
+
+
+def read(view):
+    return spans.idle_ms(view, "serve", "dense")

@@ -1,0 +1,7 @@
+"""`dense_idle_ms.train`: device-idle time inside the dense layer's
+spans per step, in ms (see `benchlib.spans`)."""
+from benchlib import spans
+
+
+def read(view):
+    return spans.idle_ms(view, "train", "dense")

@@ -1,0 +1,7 @@
+"""`feed_idle_ms.serve`: device-idle time inside the feed layer's
+spans per request, in ms (see `benchlib.spans`)."""
+from benchlib import spans
+
+
+def read(view):
+    return spans.idle_ms(view, "serve", "feed")

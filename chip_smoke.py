@@ -4742,24 +4742,6 @@ def remote_storage_phase(torch, np, kv, quant, models, train, serving,
     return launches, out
 
 
-def in_range(fn, name, profiling):
-    """``fn`` run inside ``profiling.annotate(name)``."""
-    @functools.wraps(fn)
-    def call(*a, **kw):
-        with profiling.annotate(name):
-            return fn(*a, **kw)
-    return call
-
-
-def annotated(obj, method, name, profiling):
-    """A shallow copy of ``obj`` whose ``method`` runs inside
-    ``profiling.annotate(name)``."""
-    proxy = copy.copy(obj)
-    object.__setattr__(proxy, method,
-                       in_range(getattr(obj, method), name, profiling))
-    return proxy
-
-
 def trace_events(path):
     import glob
     files = glob.glob(os.path.join(path, "*.pt.trace.json"))
@@ -4768,16 +4750,15 @@ def trace_events(path):
         return json.load(f)["traceEvents"], files[0]
 
 
-def profiling_phase(torch, np, kv, embedding, models, train):
+def profiling_phase(torch, np, kv, models, train):
     """Phase 26: ``utils.profiling.trace`` over three DCN serving requests
     and three training steps at the reference DCN's widths (26 tables cut
-    to 2^16 rows holding 2^14 keys; GroupAdam, dense Adam), with
-    ``annotate`` ranges around each table's lookup
-    (``embedding.lookup_unique``), the towers (the model's ``apply``) and
-    each sparse apply; the trace must hold the three names and as many
-    ``rows_kernel`` CUDA events as the row wrappers counted in the traced
-    window. Then ``StepMeter`` over ten steps beside the CUDA events'
-    rate of the same steps."""
+    to 2^16 rows holding 2^14 keys; GroupAdam, dense Adam); the trace must
+    hold the program's own spans (``tfp::lookup`` a table and request or
+    step, ``tfp::forward`` a request or step, ``tfp::sparse_opt`` a table
+    and step) and as many ``rows_kernel`` CUDA events as the row wrappers
+    counted in the traced window. Then ``StepMeter`` over ten steps beside
+    the CUDA events' rate of the same steps."""
     import shutil
     from tfplus_tpu_torch.utils import profiling
     model = models.DCN(capacity=PROFILE_ROWS)
@@ -4792,14 +4773,10 @@ def profiling_phase(torch, np, kv, embedding, models, train):
     resident = fill_tables(torch, np, kv, state, keys, gen)
     batches = [dcn_batch(np, rng, keys, resident, BATCH)
                for _ in range(2 * PROFILE_STEPS + METER_STEPS + 2)]
-    traced_model = annotated(model, "apply", "towers", profiling)
-    traced_opt = annotated(opt, "apply", "apply", profiling)
-    serve = models.make_train_step(traced_model, train=False)
-    step = models.make_train_step(traced_model, traced_opt, sparse_lr=1e-3)
+    serve = models.make_train_step(model, train=False)
+    step = models.make_train_step(model, opt, sparse_lr=1e-3)
     serve(state, batches[0])                                  # warm-up
     state, _, _ = step(state, batches[1])
-    lookup = embedding.lookup_unique
-    embedding.lookup_unique = in_range(lookup, "lookup", profiling)
     out = {}
     log_dir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
     try:
@@ -4817,12 +4794,11 @@ def profiling_phase(torch, np, kv, embedding, models, train):
         events, path = trace_events(log_dir)
         out["trace_bytes"] = os.path.getsize(path)
     finally:
-        embedding.lookup_unique = lookup
         shutil.rmtree(log_dir, ignore_errors=True)
     names = {}
     for e in events:
-        if e.get("name") in ("lookup", "towers", "apply") \
-                and e.get("cat") == "user_annotation":
+        if e.get("cat") == "user_annotation" and e.get("name") in (
+                "tfp::lookup", "tfp::forward", "tfp::sparse_opt"):
             names[e["name"]] = names.get(e["name"], 0) + 1
     rows = sum(1 for e in events if e.get("cat") == "kernel"
                and "rows_kernel" in e.get("name", ""))
@@ -4832,10 +4808,10 @@ def profiling_phase(torch, np, kv, embedding, models, train):
                 "kernel_events": sum(1 for e in events
                                      if e.get("cat") == "kernel")})
     tables = len(model.table_specs)
-    check(names.get("lookup") == 2 * PROFILE_STEPS * tables
-          and names.get("towers") == 2 * PROFILE_STEPS
-          and names.get("apply") == PROFILE_STEPS * tables,
-          f"profiling: the trace lacks annotate ranges: {names}")
+    check(names.get("tfp::lookup") == 2 * PROFILE_STEPS * tables
+          and names.get("tfp::forward") == 2 * PROFILE_STEPS
+          and names.get("tfp::sparse_opt") == PROFILE_STEPS * tables,
+          f"profiling: the trace lacks the program's spans: {names}")
     check(rows == counted_rows and rows > 0,
           f"profiling: {rows} rows_kernel events in the trace against "
           f"{counted_rows} counted launches")
@@ -5548,8 +5524,7 @@ def main() -> int:
     remote_launches, remote = remote_storage_phase(
         torch, np, kv, quant, models, train, serving, checkpoint, tbundle,
         rowops)
-    prof_launches, prof = profiling_phase(torch, np, kv, embedding, models,
-                                          train)
+    prof_launches, prof = profiling_phase(torch, np, kv, models, train)
     twin_launches, twins = twins_phase(torch)
     tf_launches, tf_bridge = tf_bridge_phase(torch, np, kv, models, train,
                                              serving, checkpoint, packing)

@@ -22,16 +22,20 @@ import numpy as np
 import torch
 
 from .kv import hashing, table as kvt, unique as kvu
+from .utils import profiling
 
 
 def _canon_ids(ids, device) -> torch.Tensor:
     """rank-1 input = raw ids (encode); rank-2 ``[N, 2]`` int32 = already
     encoded (passthrough); host int64/uint64 arrays = raw (split words).
-    Host inputs and tensors on another device go to ``device``."""
-    if isinstance(ids, np.ndarray) and ids.dtype in (np.int64, np.uint64):
-        return hashing.encode_ids(ids, device)
-    arr = torch.as_tensor(ids, device=device) if not isinstance(
-        ids, torch.Tensor) else ids.to(device)
+    Host inputs and tensors on another device go to ``device`` (a
+    ``tfp::feed`` span)."""
+    with profiling.annotate("tfp::feed"):
+        if isinstance(ids, np.ndarray) and ids.dtype in (np.int64,
+                                                         np.uint64):
+            return hashing.encode_ids(ids, device)
+        arr = torch.as_tensor(ids, device=device) if not isinstance(
+            ids, torch.Tensor) else ids.to(device)
     if arr.ndim == 1:
         return hashing.encode_ids_raw(arr)
     if arr.ndim == 2 and arr.shape[-1] == 2 and arr.dtype == torch.int32:
@@ -56,26 +60,29 @@ def lookup_unique(table: kvt.KvTable, ids, *, train: bool = True,
                   valid: Optional[torch.Tensor] = None,
                   day=0,
                   defer_meta: bool = False):
-    """Dedup ids then gather (inserting on miss when training). Returns
-    ``(Lookup, table)``; eval mode never mutates, train mode updates the
-    table in place."""
-    q = _canon_ids(ids, table.device)
-    n = q.shape[0]
-    if valid is None:
-        valid = torch.ones((n,), dtype=torch.bool, device=q.device)
-    u = kvu.unique_with_counts(q, valid)
-    uvalid = ~hashing.is_empty(u.unique_keys)
-    if train:
-        res = kvt.lookup_or_insert(table, u.unique_keys, counts=u.counts,
-                                   valid=uvalid, day=day,
-                                   defer_meta=defer_meta)
-        rows, slot, table = res.rows, res.slot, res.table
-        prow, mrow = res.payload_rows, res.meta_rows
-    else:
-        fr = kvt.find(table, u.unique_keys, uvalid)
-        rows = kvt._gather_rows(table, fr.slot, fr.found, fr.meta)
-        slot = torch.where(fr.found, fr.slot, -1)
-        prow = mrow = None
+    """Dedup ids then gather (inserting on miss when training), in a
+    ``tfp::lookup`` span; counts one of ``lookups``. Returns ``(Lookup,
+    table)``; eval mode never mutates, train mode updates the table in
+    place."""
+    profiling.count(lookups=1)
+    with profiling.annotate("tfp::lookup"):
+        q = _canon_ids(ids, table.device)
+        n = q.shape[0]
+        if valid is None:
+            valid = torch.ones((n,), dtype=torch.bool, device=q.device)
+        u = kvu.unique_with_counts(q, valid)
+        uvalid = ~hashing.is_empty(u.unique_keys)
+        if train:
+            res = kvt.lookup_or_insert(table, u.unique_keys, counts=u.counts,
+                                       valid=uvalid, day=day,
+                                       defer_meta=defer_meta)
+            rows, slot, table = res.rows, res.slot, res.table
+            prow, mrow = res.payload_rows, res.meta_rows
+        else:
+            fr = kvt.find(table, u.unique_keys, uvalid)
+            rows = kvt._gather_rows(table, fr.slot, fr.found, fr.meta)
+            slot = torch.where(fr.found, fr.slot, -1)
+            prow = mrow = None
     return (Lookup(rows=rows, slot=slot, inverse=u.inverse, counts=u.counts,
                    valid=valid, num_unique=u.num_unique,
                    payload_rows=prow, meta_rows=mrow), table)

@@ -21,12 +21,17 @@ tensors must not be used for the new one.
 
 Device syncs: ``_claim_insert``'s rounds, ``lookup_or_insert``'s any-miss
 gate and the doubling's spill gate are Python control flow (the JAX
-package's ``lax.while_loop`` and ``lax.cond``), so each reads one boolean
-back from the device: one read before the rounds, one per round, one for
-each gate. Growth also reads the live count before and after each rebuild.
+package's ``lax.while_loop`` and ``lax.cond``), so each reads one value
+back from the device: the miss count before the rounds, whether any key is
+still unplaced before each round after the first, one boolean for each
+gate, and the unplaced count once more only when every round ran. Growth
+also reads the live count before and after each rebuild. The counts feed
+:func:`~tfplus_tpu_torch.utils.profiling.counters` (``misses``,
+``claim_rounds``, ``inserted``, ``unplaced``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, NamedTuple, Optional
 
@@ -36,7 +41,7 @@ import torch
 from . import hashing
 from ..ops import rowops
 from ..utils import device as _dev
-from ..utils import packing
+from ..utils import packing, profiling
 
 FLAG_BLACKLIST = packing.FLAG_BLACKLIST
 FLAG_TOUCH_TRAIN = packing.FLAG_TOUCH_TRAIN
@@ -318,43 +323,67 @@ def find(table: KvTable, q: torch.Tensor,
     ``want_pad`` also returns the found slots' pad-lane words, read from
     the same bucket rows. Reads only ``table.header``, so an int8
     ``QuantKvTable`` probes through it too."""
-    valid = _valid_keys(q, valid)
-    b1, b2 = hashing.bucket_choices(q, table.capacity)
-    mj1, fj1, meta1, pad1 = _bucket_scan(table.header[b1], q, valid, want_pad)
-    mj2, fj2, meta2, pad2 = _bucket_scan(table.header[b2], q, valid, want_pad)
-    f1 = mj1 < _B
-    f2 = mj2 < _B
-    found = f1 | f2
-    slot = torch.where(f1, b1 * _B + mj1,
-                       torch.where(f2, b2 * _B + mj2, -1))
-    meta = torch.where(f1, meta1, meta2)
-    pad = torch.where(f1, pad1, pad2) if want_pad else None
-    hf1 = fj1 < _B
-    has_free = (hf1 | (fj2 < _B)) & valid
-    ins = torch.where(has_free, torch.where(hf1, b1 * _B + fj1, b2 * _B + fj2),
-                      -1)
-    return FindResult(slot=slot.to(torch.int32), found=found,
-                      insert_slot=ins.to(torch.int32), meta=meta, pad=pad)
+    with profiling.annotate("tfp::probe"):
+        valid = _valid_keys(q, valid)
+        b1, b2 = hashing.bucket_choices(q, table.capacity)
+        mj1, fj1, meta1, pad1 = _bucket_scan(table.header[b1], q, valid,
+                                             want_pad)
+        mj2, fj2, meta2, pad2 = _bucket_scan(table.header[b2], q, valid,
+                                             want_pad)
+        f1 = mj1 < _B
+        f2 = mj2 < _B
+        found = f1 | f2
+        slot = torch.where(f1, b1 * _B + mj1,
+                           torch.where(f2, b2 * _B + mj2, -1))
+        meta = torch.where(f1, meta1, meta2)
+        pad = torch.where(f1, pad1, pad2) if want_pad else None
+        hf1 = fj1 < _B
+        has_free = (hf1 | (fj2 < _B)) & valid
+        ins = torch.where(has_free,
+                          torch.where(hf1, b1 * _B + fj1, b2 * _B + fj2), -1)
+        return FindResult(slot=slot.to(torch.int32), found=found,
+                          insert_slot=ins.to(torch.int32), meta=meta, pad=pad)
+
+
+def _miss_gate(need: torch.Tensor) -> int:
+    """How many entries of ``need`` are set (counted as ``misses``): one
+    read, which lets a batch without misses (the steady state) skip all
+    insert work."""
+    misses = int(need.sum())
+    profiling.count(misses=misses)
+    return misses
 
 
 def _claim_insert(header: torch.Tensor, q: torch.Tensor, need: torch.Tensor,
                   max_probes: int):
     """Deterministic parallel insert of **unique** keys, IN PLACE on
-    ``header``.
+    ``header``: :func:`_claim_rounds` behind the miss gate. Returns
+    ``(header, placed int32[N] (-1 = overflow))``."""
+    misses = _miss_gate(need)
+    if not misses:
+        return header, torch.full((q.shape[0],), -1, dtype=torch.int32,
+                                  device=header.device)
+    return header, _claim_rounds(header, q, need, misses, max_probes)
+
+
+def _claim_rounds(header: torch.Tensor, q: torch.Tensor, need: torch.Tensor,
+                  misses: int, max_probes: int) -> torch.Tensor:
+    """The claim rounds of :func:`_claim_insert` for the ``misses`` keys of
+    ``need``, IN PLACE on ``header``; returns ``placed`` int32[N] (-1 =
+    overflow).
 
     ``max_probes`` rounds; in round *j* every still-unplaced key attempts its
     *j*-th candidate slot (lanes of bucket b1, then of b2); collisions on a
     free slot go to the lowest query index via a scatter-min claim array.
-    Returns ``(header, placed int32[N] (-1 = overflow))``. Claimed slots keep
-    meta 0 (the free-slot invariant); callers stamp real meta afterwards.
+    Claimed slots keep meta 0 (the free-slot invariant); callers stamp real
+    meta afterwards. Each round is a ``tfp::claim_round`` span; the rounds,
+    the placed and the unplaced keys are counted (the unplaced with one
+    more read, only when every round ran).
     """
     n = q.shape[0]
     dev = header.device
     cap = header.shape[0] * _B
     placed = torch.full((n,), -1, dtype=torch.int64, device=dev)
-    # skip all insert work when the batch has no misses (the steady state)
-    if not bool(need.any()):
-        return header, placed.to(torch.int32)
     max_probes = min(max_probes, 2 * _B)
     flat = header.view(-1)
     iota = torch.arange(n, device=dev)
@@ -364,24 +393,34 @@ def _claim_insert(header: torch.Tensor, q: torch.Tensor, need: torch.Tensor,
     def read_key(pos):
         return torch.stack([flat[_hpos_lo(pos)], flat[_hpos_hi(pos)]], dim=-1)
 
+    rounds, unplaced = 0, None
     for j in range(max_probes):
         active = need & (placed < 0)
         # early exit: almost always 1-2 rounds resolve all claims
         if j and not bool(active.any()):
+            unplaced = 0
             break
-        pos = b1 * _B + j if j < _B else b2 * _B + (j - _B)
-        attempt = active & hashing.is_free(read_key(pos))
-        claim = torch.full((cap,), n, dtype=torch.int64, device=dev)
-        claim.scatter_reduce_(0, pos, torch.where(attempt, iota, n), "amin")
-        won = attempt & (claim[pos] == iota)
-        wpos = pos[won]
-        flat[_hpos_lo(wpos)] = q_lo[won]
-        flat[_hpos_hi(wpos)] = q_hi[won]
-        # duplicate safety: a claim loser whose slot now holds ITS key was
-        # raced by its own twin — adopt that slot (read after the writes)
-        dup_hit = active & hashing.keys_equal(read_key(pos), q)
-        placed = torch.where(won | dup_hit, pos, placed)
-    return header, placed.to(torch.int32)
+        rounds += 1
+        with profiling.annotate("tfp::claim_round"):
+            pos = b1 * _B + j if j < _B else b2 * _B + (j - _B)
+            attempt = active & hashing.is_free(read_key(pos))
+            claim = torch.full((cap,), n, dtype=torch.int64, device=dev)
+            claim.scatter_reduce_(0, pos, torch.where(attempt, iota, n),
+                                  "amin")
+            won = attempt & (claim[pos] == iota)
+            wpos = pos[won]
+            flat[_hpos_lo(wpos)] = q_lo[won]
+            flat[_hpos_hi(wpos)] = q_hi[won]
+            # duplicate safety: a claim loser whose slot now holds ITS key
+            # was raced by its own twin — adopt that slot (read after the
+            # writes)
+            dup_hit = active & hashing.keys_equal(read_key(pos), q)
+            placed = torch.where(won | dup_hit, pos, placed)
+    if unplaced is None:
+        unplaced = int((need & (placed < 0)).sum())
+    profiling.count(claim_rounds=rounds, inserted=misses - unplaced,
+                    unplaced=unplaced)
+    return placed.to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -408,7 +447,9 @@ def _gather_rows(table: KvTable, slot: torch.Tensor, ok: torch.Tensor,
                  meta_rows: torch.Tensor) -> torch.Tensor:
     """Embedding columns of the rows at ``slot``; ``meta_rows`` is the
     probe's meta (it came with the bucket read)."""
-    return _rows_view(table, _gather_payload(table, slot, ok), ok, meta_rows)
+    with profiling.annotate("tfp::gather"):
+        return _rows_view(table, _gather_payload(table, slot, ok), ok,
+                          meta_rows)
 
 
 def _init_rows_for(table: KvTable, q: torch.Tensor) -> torch.Tensor:
@@ -444,34 +485,45 @@ def lookup_or_insert(table: KvTable,
 
     fr = find(table, q, valid)
     need = valid & ~fr.found
-    header, placed_new = _claim_insert(table.header, q, need,
-                                       table.config.max_probes)
-    placed = torch.where(fr.found, fr.slot, placed_new)
-    ok = valid & (placed >= 0)
-    overflow = (need & (placed_new < 0)).any()
+    header, payload = table.header, table.payload
+    misses = _miss_gate(need)
+    # the misses' claim rounds, initial rows and meta write are one
+    # ``tfp::insert`` span; a batch without misses opens none
+    with (profiling.annotate("tfp::insert") if misses
+          else contextlib.nullcontext()):
+        placed_new = (_claim_rounds(header, q, need, misses,
+                                    table.config.max_probes) if misses
+                      else torch.full((n,), -1, dtype=torch.int32,
+                                      device=q.device))
+        placed = torch.where(fr.found, fr.slot, placed_new)
+        ok = valid & (placed >= 0)
+        overflow = (need & (placed_new < 0)).any()
 
-    # new rows get init-pool embedding columns and ZERO slot columns; the
-    # scatter is gated on any-miss (the steady state has none)
-    newly = need & (placed_new >= 0)
-    payload = table.payload
-    if bool(newly.any()):
-        init = _init_rows_for(table, q)
-        w, dim = payload.shape[1], table.config.dim
-        if w != dim:
-            init = torch.cat([init, init.new_zeros((n, w - dim))], dim=1)
-        rowops.scatter_rows(payload, torch.where(newly, placed_new, -1), init)
+        # new rows get init-pool embedding columns and ZERO slot columns;
+        # the scatter is gated on any-miss (the steady state has none)
+        newly = need & (placed_new >= 0)
+        if bool(newly.any()):
+            init = _init_rows_for(table, q)
+            w, dim = payload.shape[1], table.config.dim
+            if w != dim:
+                init = torch.cat([init, init.new_zeros((n, w - dim))], dim=1)
+            rowops.scatter_rows(payload, torch.where(newly, placed_new, -1),
+                                init)
 
-    # metadata: freq count, day stamp, delta-touch bits, preserved blacklist
-    # bit. The old meta came with the probe's bucket read (0 for new rows).
-    touch = (FLAG_TOUCH_BOTH if mark_delta
-             else torch.where(newly, FLAG_TOUCH_BOTH, 0))
-    upd_meta = packing.saturating_add_freq(fr.meta, counts, day) | touch
-    if not (defer_meta and table.config.enter_threshold == 0):
-        _set_meta_at(header, torch.where(ok, placed, table.capacity), upd_meta)
+        # metadata: freq count, day stamp, delta-touch bits, preserved
+        # blacklist bit. The old meta came with the probe's bucket read (0
+        # for new rows).
+        touch = (FLAG_TOUCH_BOTH if mark_delta
+                 else torch.where(newly, FLAG_TOUCH_BOTH, 0))
+        upd_meta = packing.saturating_add_freq(fr.meta, counts, day) | touch
+        if not (defer_meta and table.config.enter_threshold == 0):
+            _set_meta_at(header, torch.where(ok, placed, table.capacity),
+                         upd_meta)
 
     new_table = dataclasses.replace(table, header=header, payload=payload)
-    prow = _gather_payload(new_table, placed, ok)
-    rows = _rows_view(new_table, prow, ok, upd_meta)
+    with profiling.annotate("tfp::gather"):
+        prow = _gather_payload(new_table, placed, ok)
+        rows = _rows_view(new_table, prow, ok, upd_meta)
     return LookupResult(rows=rows, slot=torch.where(ok, placed, -1),
                         table=new_table, overflow=overflow,
                         payload_rows=prow, meta_rows=upd_meta)

@@ -18,7 +18,7 @@ from torch import nn
 from .. import embedding as emb
 from ..kv import hashing, multi as kvm, table as kvt, unique as kvu
 from ..utils import device as _dev
-from ..utils import packing
+from ..utils import packing, profiling
 
 
 class SparseModel:
@@ -152,30 +152,37 @@ def make_train_step(model: SparseModel, sparse_opt=None, dense_tx=None, *,
         return looks
 
     def serve(state: TrainState, batch):
-        with torch.no_grad():
+        with profiling.annotate("tfp::step"), torch.no_grad():
             looks = lookups(state, batch)
-            loss, preds = _forward(model, state, batch,
-                                   {n: emb.gather(looks[n]) for n in looks})
+            loss, preds = _forward(model, state, batch, lambda: {
+                n: emb.gather(looks[n]) for n in looks})
         return state, loss, preds
 
     def train_step(state: TrainState, batch):
-        looks = lookups(state, batch)
-        names = sorted(looks)
-        rows = {n: looks[n].rows.detach().requires_grad_() for n in names}
-        loss, preds = _forward(model, state, batch,
-                               {n: emb.gather(looks[n], rows[n])
-                                for n in names})
-        return _update(state, sparse_opt, sparse_lr, loss, preds, rows, looks)
+        with profiling.annotate("tfp::step"):
+            looks = lookups(state, batch)
+            names = sorted(looks)
+            rows = {n: looks[n].rows.detach().requires_grad_()
+                    for n in names}
+            loss, preds = _forward(model, state, batch, lambda: {
+                n: emb.gather(looks[n], rows[n]) for n in names})
+            return _update(state, sparse_opt, sparse_lr, loss, preds, rows,
+                           looks)
 
     return train_step if train else serve
 
 
 def _forward(model: SparseModel, state: TrainState, batch, embs):
+    """``(loss, preds)`` in a ``tfp::forward`` span: ``embs()`` (the take of
+    the looked-up rows to the batch), the towers and the loss, with the
+    features and labels fed in a ``tfp::feed`` span."""
     dev = state.step.device
-    preds = model.apply(state.dense, embs,
-                        _features(batch.get("features"), dev))
-    labels = torch.as_tensor(batch["labels"], device=dev)
-    return model.loss(preds, labels), preds
+    with profiling.annotate("tfp::forward"):
+        with profiling.annotate("tfp::feed"):
+            features = _features(batch.get("features"), dev)
+            labels = torch.as_tensor(batch["labels"], device=dev)
+        preds = model.apply(state.dense, embs(), features)
+        return model.loss(preds, labels), preds
 
 
 def _update(state: TrainState, sparse_opt, sparse_lr, loss, preds, rows,
@@ -185,14 +192,16 @@ def _update(state: TrainState, sparse_opt, sparse_lr, loss, preds, rows,
     with the 1-indexed step and the lookup's payload and meta rows."""
     names = list(rows)
     params = list(state.dense.parameters())
-    grads = torch.autograd.grad(loss, params + [rows[n] for n in names],
-                                allow_unused=True)
+    with profiling.annotate("tfp::backward"):
+        grads = torch.autograd.grad(loss, params + [rows[n] for n in names],
+                                    allow_unused=True)
     # optax updates every leaf; a parameter the loss does not reach gets a
     # zero gradient, as in JAX. Each step replaces ``p.grad``, so after a
     # step it holds that step's gradient.
-    for p, g in zip(params, grads):
-        p.grad = torch.zeros_like(p) if g is None else g
-    state.opt_state.step()
+    with profiling.annotate("tfp::dense_opt"):
+        for p, g in zip(params, grads):
+            p.grad = torch.zeros_like(p) if g is None else g
+        state.opt_state.step()
     step = state.step + 1
     with torch.no_grad():
         for n, g in zip(names, grads[len(params):]):
@@ -275,18 +284,21 @@ def make_train_step_multi(model: SparseModel, sparse_opt=None, dense_tx=None,
         return embs
 
     def serve(state: TrainState, batch):
-        with torch.no_grad():
+        with profiling.annotate("tfp::step"), torch.no_grad():
             looks, parts = lookups(state, batch)
-            loss, preds = _forward(model, state, batch, expand(
+            loss, preds = _forward(model, state, batch, lambda: expand(
                 parts, {k: look.rows for k, look in looks.items()}))
         return state, loss, preds
 
     def train_step(state: TrainState, batch):
-        looks, parts = lookups(state, batch)
-        rows = {k: look.rows.detach().requires_grad_()
-                for k, look in looks.items()}
-        loss, preds = _forward(model, state, batch, expand(parts, rows))
-        return _update(state, sparse_opt, sparse_lr, loss, preds, rows, looks)
+        with profiling.annotate("tfp::step"):
+            looks, parts = lookups(state, batch)
+            rows = {k: look.rows.detach().requires_grad_()
+                    for k, look in looks.items()}
+            loss, preds = _forward(model, state, batch,
+                                   lambda: expand(parts, rows))
+            return _update(state, sparse_opt, sparse_lr, loss, preds, rows,
+                           looks)
 
     return train_step if train else serve
 

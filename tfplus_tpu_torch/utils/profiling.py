@@ -2,17 +2,43 @@
 
 Counterpart of ``tfplus_tpu/utils/profiling.py``. Where the JAX package
 wraps ``jax.profiler`` traces for XProf, :func:`trace` records a
-``torch.profiler`` trace that TensorBoard's profiler plugin reads, and
-:func:`annotate` is a ``record_function`` range; :class:`StepMeter` tracks
-examples/s and step-time percentiles on the host's clock.
+``torch.profiler`` trace that TensorBoard's profiler plugin reads;
+:class:`StepMeter` tracks examples/s and step-time percentiles on the
+host's clock.
+
+The sparse step marks its layers with :class:`annotate` spans, which open a
+``record_function`` range only while a profiler records (a ``trace`` block,
+or any other ``torch.profiler.profile`` block), so they cost one flag read
+otherwise. Their names are fixed:
+
+=====================  ====================================================
+``tfp::step``          one training step or serving request
+``tfp::feed``          host inputs (ids, features, labels) to the device
+``tfp::lookup``        one table's lookup (``embedding.lookup_unique``)
+``tfp::dedup``         ``kv.unique_with_counts``
+``tfp::probe``         ``kv.find``: both bucket scans
+``tfp::insert``        placing a lookup's misses: claim rounds, initial
+                       rows, meta write (only when the batch has misses)
+``tfp::claim_round``   one round of the claim insert
+``tfp::gather``        the payload row gather of a lookup
+``tfp::forward``       the take to the batch, the dense towers and the loss
+``tfp::backward``      ``torch.autograd.grad`` over the towers and rows
+``tfp::dense_opt``     the dense optimizer's step
+``tfp::sparse_opt``    ``SparseOptimizer.apply`` on one table
+=====================  ====================================================
+
+:func:`counters` counts, always and at the cost of a host integer add, what
+the host already holds; :func:`reset_counters` zeros them.
 """
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 
 @contextlib.contextmanager
@@ -21,7 +47,6 @@ def trace(log_dir: str):
     ``*.pt.trace.json`` that TensorBoard's profiler reads). CPU activity
     always, CUDA activity too when ``torch.cuda.is_available()``: this picks
     what is recorded, not where anything runs. Yields the profiler."""
-    import torch
     from torch.profiler import (ProfilerActivity, profile,
                                 tensorboard_trace_handler)
     activities = [ProfilerActivity.CPU]
@@ -32,12 +57,66 @@ def trace(log_dir: str):
         yield prof
 
 
-@contextlib.contextmanager
-def annotate(name: str):
-    """A named range in the trace (``torch.profiler.record_function``)."""
-    import torch
-    with torch.profiler.record_function(name):
-        yield
+class annotate:
+    """A named range in the trace (``torch.profiler.record_function``),
+    opened only while a profiler records; otherwise nothing."""
+    __slots__ = ("name", "_range")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._range = None
+
+    def __enter__(self):
+        if torch.autograd._profiler_enabled():
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        r, self._range = self._range, None
+        if r is not None:
+            r.__exit__(*exc)
+        return False
+
+
+#: the counters of :func:`counters`
+COUNTERS = (
+    "lookups",       # embedding.lookup_unique calls
+    "ids",           # ids handed to dedup (the input's length, pads too)
+    "unique_ids",    # valid unique ids dedup found
+    "misses",        # ids a claim insert had to place: a training
+                     # lookup's misses, and a table load's or rehash's
+                     # new keys (serving's misses are not counted: that
+                     # would need a device read)
+    "claim_rounds",  # claim rounds run
+    "inserted",      # misses placed
+    "unplaced",      # misses left with no slot (both buckets full): a
+                     # training lookup then reads zeros for them and does
+                     # not update them
+)
+_counts = dict.fromkeys(COUNTERS, 0)
+_counts_lock = threading.Lock()
+
+
+def count(**added: int) -> None:
+    """Add to counters by name, e.g. ``count(lookups=1, ids=n)``."""
+    with _counts_lock:
+        for name, n in added.items():
+            _counts[name] += n
+
+
+def counters() -> Dict[str, int]:
+    """A snapshot of the process-wide counters. ``misses == inserted +
+    unplaced`` always holds."""
+    with _counts_lock:
+        return dict(_counts)
+
+
+def reset_counters() -> None:
+    """Zero every counter."""
+    with _counts_lock:
+        for k in _counts:
+            _counts[k] = 0
 
 
 class StepMeter:
