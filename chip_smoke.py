@@ -26,6 +26,16 @@ failed check:
    the same inputs (``earlier_ms``, ``csrc/rowops_earlier.cu``) and beside
    one PyTorch call that computes the same function; each case prints the
    launch plan (``rowops.plan``) that gather, set and add took.
+   Then the claim-insert kernel (``ops/csrc/claim.cu``) against the
+   table's Python claim rounds (``kv.table._claim_rounds``) on copies of
+   one header, at the benchmark's shapes: a DCN table's training lookup
+   (2,048 ids, 5 % fresh, into 2^20 rows holding 2^18 keys), BST's item
+   table's (12,288 ids, 5 % fresh, 2^23 rows holding 2^21) and a table's
+   load (2^18 keys into an empty 2^20-row table): header, ``placed`` and
+   the four insert counters bit for bit, and at the lookups the payload a
+   card ``lookup_or_insert`` leaves equal to its rows before with the
+   misses' initial rows scattered by the plain scatter; each timed beside
+   the rounds and its byte bound.
 3. Embedding serving (the bench's serving-leg shape): a 1M-row dim-128
    table filled by ``lookup_or_insert`` of 32,768 ids, then repeated
    ``lookup_or_zeros`` of those ids and their reversal.
@@ -556,11 +566,124 @@ def kernel_phase(torch, rowops):
     return cases
 
 
+# the claim phase's shapes: (capacity, resident keys, ids, fresh share)
+CLAIM_SHAPES = {"dcn_lookup": (1 << 20, 1 << 18, BATCH, 0.05),
+                "bst_item_lookup": (1 << 23, 1 << 21, 6 * BATCH, 0.05),
+                "dcn_load": (1 << 20, 0, 1 << 18, 1.0)}
+CLAIM_DIM = 64
+
+
+def claim_case(torch, np, kv, name, capacity, resident, n, fresh, reps=9):
+    """One claim-phase shape: the kernel and the Python rounds on copies
+    of one header (header, ``placed`` and counters bit for bit), both
+    timed from a cold L2 on the header as it was, the kernel as the path
+    calls it (at a lookup with the init pool and staging rows, at a load
+    without), and at a lookup the payload a card ``lookup_or_insert``
+    leaves."""
+    from tfplus_tpu_torch.kv import hashing
+    from tfplus_tpu_torch.kv import table as kt
+    from tfplus_tpu_torch.ops import claim, rowops
+    from tfplus_tpu_torch.utils import profiling
+    rng = np.random.RandomState(sorted(CLAIM_SHAPES).index(name) + 1)
+    t = kv.create(CLAIM_DIM, capacity, init_pool_rows=10000, seed=1,
+                  device=DEV)
+    keys = rng.permutation(np.unique(rng.randint(
+        1, 1 << 62, resident + n + 64, dtype=np.int64)))
+    old, new = keys[:resident], keys[resident:]
+    if resident:
+        kv.insert(t, hashing.encode_ids(old, device=DEV),
+                  torch.zeros((resident, CLAIM_DIM), device=DEV))
+    n_new = int(round(n * fresh))
+    q = hashing.encode_ids(np.concatenate([old[:n - n_new], new[:n_new]]),
+                           device=DEV)
+    need = ~kv.find(t, q).found
+    header = t.header.clone()
+
+    def rounds(h):
+        misses = kt._miss_gate(need)
+        return (kt._claim_rounds(h, q, need, misses, 32) if misses
+                else torch.full((n,), -1, dtype=torch.int32, device=DEV))
+
+    lookup = resident > 0
+    staging = t.payload.new_empty((n, t.payload.shape[1]))
+
+    def kernel(h):
+        if lookup:
+            return claim.claim_insert(h, q, need, 32, pool=t.init_pool,
+                                      rows=staging)
+        return claim.claim_insert(h, q, need, 32)
+
+    runs = {}
+    for key, fn in (("plain", rounds), ("kernel", kernel)):
+        h = header.clone()
+        profiling.reset_counters()
+        placed = fn(h)
+        torch.cuda.synchronize()
+        c = profiling.counters()
+        runs[key] = (h, placed, [c[k] for k in profiling.DEVICE_COUNTERS])
+    (h0, p0, c0), (h1, p1, c1) = runs["plain"], runs["kernel"]
+    check(torch.equal(h0, h1), f"claim {name}: the kernel's header differs")
+    check(torch.equal(p0, p1), f"claim {name}: the kernel's placed differs")
+    check(c0 == c1 and c1[0] == c1[2] + c1[3],
+          f"claim {name}: counters differ: {c0} {c1}")
+    out = {"ids": n, "listed": c1[0], "rounds": c1[1], "unplaced": c1[3]}
+    # each call on the header as it was, restored outside the events
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=DEV)
+    h = header.clone()
+    times = {"plain": [], "kernel": []}
+    for rep in range(reps):
+        turns = [("plain", rounds), ("kernel", kernel)]
+        for key, fn in (turns[::-1] if rep % 2 else turns):
+            h.copy_(header)
+            flush.zero_()
+            torch.cuda._sleep(SLEEP_CYCLES)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn(h)
+            b.record()
+            torch.cuda.synchronize()
+            times[key].append(a.elapsed_time(b))
+    out["ms"] = statistics.median(times["kernel"])
+    out["plain_ms"] = statistics.median(times["plain"])
+    # the ids, need and placed; each listed key's two header lanes read
+    # and written once; at a lookup each placed key's two pool rows read
+    # and its staging row written
+    row_bytes = (3 * CLAIM_DIM * t.payload.element_size()) if lookup else 0
+    out["bound_ms"] = bound_ms(n * (8 + 1 + 4) + c1[0] * 16
+                               + c1[2] * row_bytes)
+    if lookup:
+        # the card's lookup_or_insert: the same placement, and its payload
+        # the rows before with the misses' initial rows scattered plainly
+        before = t.payload.clone()
+        res = kv.lookup_or_insert(t, q)
+        torch.cuda.synchronize()
+        check(torch.equal(torch.where(need, res.slot, -1), p1),
+              f"claim {name}: lookup_or_insert placed otherwise")
+        newly = need & (p1 >= 0)
+        rowops.scatter_rows_plain(before, torch.where(newly, p1, -1),
+                                  kt._init_rows_for(t, q))
+        check(torch.equal(before, t.payload),
+              f"claim {name}: lookup_or_insert's payload differs")
+        out["payload_rows_checked"] = int(newly.sum())
+    return out
+
+
+def claim_phase(torch, np, kv):
+    cases = {}
+    for name, shape in CLAIM_SHAPES.items():
+        cases[name] = c = claim_case(torch, np, kv, name, *shape)
+        print("claim case", name, json.dumps(c), flush=True)
+        torch.cuda.empty_cache()
+    return cases
+
+
 def _wrappers():
-    from tfplus_tpu_torch.ops import compactor, rowops
+    from tfplus_tpu_torch.ops import claim, compactor, rowops
     from tfplus_tpu_torch.ops import flash_attention as fa
     return {"gather_rows": rowops.gather_rows,
             "scatter_rows": rowops.scatter_rows,
+            "claim_insert": claim.claim_insert,
             "flash_fwd": fa.flash_fwd, "flash_fwd_single": fa.flash_fwd_single,
             "flash_bwd_dkv": fa.flash_bwd_dkv,
             "flash_bwd_dq": fa.flash_bwd_dq,
@@ -5477,6 +5600,8 @@ def main() -> int:
               flush=True)
 
     cases = kernel_phase(torch, rowops)
+    claim_cases = claim_phase(torch, np, kv)
+    peak_memory(torch, "claim kernel")
     attn_cases, bench = attention_phase(torch, np, fa)
     bwd_cases, bench_grads = attention_backward_phase(torch, np, fa, bench)
     head_dim_phase(torch, np, fa)
@@ -5577,6 +5702,24 @@ def main() -> int:
          "bound_ms": comp_time["bound_ms"], "bound_by": "bytes",
          "library_ms": comp_time["library_ms"]},
     ]
+    check(dcn_train[0]["claim_insert"] > 0
+          and bst_train[0]["claim_insert"] > 0,
+          f"a training path did not launch the claim kernel: "
+          f"{dcn_train[0]} {bst_train[0]}")
+    kernels.append({
+        "name": "claim_insert", "route": "cuda", "source": CSRC + "claim.cu",
+        "replaces": "none: the lax.while_loop of tfplus_tpu/kv/table.py "
+                    "_claim_insert (XLA code)",
+        "launches": launches["claim_insert"],
+        "launches_dcn_training": dcn_train[0]["claim_insert"],
+        "launches_bst_training": bst_train[0]["claim_insert"],
+        "max_abs_err": 0.0, "ms": claim_cases["dcn_lookup"]["ms"],
+        "plain_ms": claim_cases["dcn_lookup"]["plain_ms"],
+        "bound_ms": claim_cases["dcn_lookup"]["bound_ms"],
+        "bound_by": "bytes",
+        "cases": {n: [c["ms"], c["plain_ms"], c["bound_ms"], c["rounds"],
+                      c["listed"]] for n, c in claim_cases.items()},
+        "cases_columns": ["ms", "plain_ms", "bound_ms", "rounds", "listed"]})
     check(all(e["launches"] > 0 for e in kernels),
           f"a kernel was not launched on its path: {kernels}")
     # the distributed tier's paths (phases 23-24) launch rows 1-6

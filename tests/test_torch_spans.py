@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from tfplus_tpu_torch import embedding, kv, models, train
+from tfplus_tpu_torch.ops import claim
 from tfplus_tpu_torch.utils import profiling
 
 TABLES = ("C1", "C2", "C3")
@@ -213,3 +214,38 @@ def test_counters_add_up_across_threads():
     assert set(c) == set(profiling.COUNTERS)
     profiling.reset_counters()
     assert set(profiling.counters().values()) == {0}
+
+
+def test_device_counts_fold_into_counters():
+    """Counts a kernel adds into a device's buffer (here the CPU's, added
+    as tensors) appear in ``counters()`` beside the host's counts, keep
+    ``misses == inserted + unplaced``, and ``reset_counters()`` zeros
+    both."""
+    profiling.reset_counters()
+    profiling.count(misses=5, claim_rounds=2, inserted=4, unplaced=1)
+    buf = profiling.device_counts("cpu")
+    assert buf is profiling.device_counts(torch.device("cpu"))
+    assert buf.dtype == torch.int64
+    assert buf.shape == (len(profiling.DEVICE_COUNTERS),)
+    buf.add_(torch.tensor([7, 3, 6, 1]))
+    buf[profiling.DEVICE_COUNTERS.index("claim_rounds")] += torch.tensor(2)
+    c = profiling.counters()
+    assert (c["misses"], c["claim_rounds"], c["inserted"],
+            c["unplaced"]) == (12, 7, 10, 2)
+    assert c["misses"] == c["inserted"] + c["unplaced"]
+    assert set(c) == set(profiling.COUNTERS)
+    profiling.reset_counters()
+    assert set(profiling.counters().values()) == {0}
+    assert not bool(buf.any())
+
+
+def test_claim_kernel_takes_card_tensors_only():
+    """The claim-insert kernel's wrapper refuses CPU tensors (the table
+    runs its Python rounds there) and launches nothing."""
+    header = kv.table._empty_header(4, "cpu")
+    q = torch.zeros((3, 2), dtype=torch.int32)
+    need = torch.ones((3,), dtype=torch.bool)
+    launches = claim.claim_insert.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        claim.claim_insert(header, q, need, 32)
+    assert claim.claim_insert.launches == launches

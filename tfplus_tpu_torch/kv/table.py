@@ -19,15 +19,20 @@ import (:func:`import_arrays` with ``clear=True``) return a NEW table: the
 header and payload are reallocated at the new capacity, and the old table's
 tensors must not be used for the new one.
 
-Device syncs: ``_claim_insert``'s rounds, ``lookup_or_insert``'s any-miss
-gate and the doubling's spill gate are Python control flow (the JAX
-package's ``lax.while_loop`` and ``lax.cond``), so each reads one value
-back from the device: the miss count before the rounds, whether any key is
-still unplaced before each round after the first, one boolean for each
-gate, and the unplaced count once more only when every round ran. Growth
-also reads the live count before and after each rebuild. The counts feed
+Device syncs. On the card, the claim insert of ``lookup_or_insert`` and
+``_claim_insert`` (the JAX package's ``lax.while_loop``) is one launch of
+:func:`tfplus_tpu_torch.ops.claim.claim_insert`: every round and the counts
+run on the device, the misses' initial rows are one ungated row scatter,
+and nothing is read back. On the CPU the rounds are Python control flow
+(:func:`_claim_rounds`, the kernel's plain version), so they read values
+back: the miss count before the rounds (the miss gate), whether any key is
+still unplaced before each round after the first, whether any miss was
+placed (the initial-row gate), and the unplaced count once more only when
+every round ran. On both, the doubling's spill gate reads one boolean and
+growth reads the live count before and after each rebuild. The counts feed
 :func:`~tfplus_tpu_torch.utils.profiling.counters` (``misses``,
-``claim_rounds``, ``inserted``, ``unplaced``).
+``claim_rounds``, ``inserted``, ``unplaced``), from the host on the CPU and
+from the device counter buffer on the card.
 """
 from __future__ import annotations
 
@@ -39,7 +44,7 @@ import numpy as np
 import torch
 
 from . import hashing
-from ..ops import rowops
+from ..ops import claim, rowops
 from ..utils import device as _dev
 from ..utils import packing, profiling
 
@@ -355,22 +360,50 @@ def _miss_gate(need: torch.Tensor) -> int:
 
 
 def _claim_insert(header: torch.Tensor, q: torch.Tensor, need: torch.Tensor,
-                  max_probes: int):
+                  max_probes: int, *, misses: Optional[int] = None,
+                  table: Optional[KvTable] = None):
     """Deterministic parallel insert of **unique** keys, IN PLACE on
-    ``header``: :func:`_claim_rounds` behind the miss gate. Returns
-    ``(header, placed int32[N] (-1 = overflow))``."""
-    misses = _miss_gate(need)
-    if not misses:
-        return header, torch.full((q.shape[0],), -1, dtype=torch.int32,
-                                  device=header.device)
-    return header, _claim_rounds(header, q, need, misses, max_probes)
+    ``header``: on the card one claim-insert kernel launch, on the CPU
+    :func:`_claim_rounds` behind the miss gate (``misses``: its count where
+    the caller already read it). With ``table`` (whose header this is),
+    also writes the placed keys' initial payload rows (init-pool embedding
+    columns, zero slot columns) with the row scatter: on the card the
+    kernel computes them and the scatter is not gated, on the CPU
+    :func:`_init_rows_for` computes them and the scatter runs only where a
+    key was placed. Returns ``(header, placed int32[N] (-1 = overflow))``."""
+    if header.is_cuda:
+        if table is None:
+            return header, claim.claim_insert(header, q, need, max_probes)
+        rows = table.payload.new_empty((q.shape[0], table.payload.shape[1]))
+        placed = claim.claim_insert(header, q, need, max_probes,
+                                    pool=table.init_pool, rows=rows)
+        rowops.scatter_rows(table.payload, placed, rows)
+        return header, placed
+    if misses is None:
+        misses = _miss_gate(need)
+    placed = (_claim_rounds(header, q, need, misses, max_probes) if misses
+              else torch.full((q.shape[0],), -1, dtype=torch.int32,
+                              device=header.device))
+    if table is not None:
+        newly = need & (placed >= 0)
+        if bool(newly.any()):
+            init = _init_rows_for(table, q)
+            w, dim = table.payload.shape[1], table.config.dim
+            if w != dim:
+                init = torch.cat([init, init.new_zeros((q.shape[0], w - dim))],
+                                 dim=1)
+            rowops.scatter_rows(table.payload, torch.where(newly, placed, -1),
+                                init)
+    return header, placed
 
 
 def _claim_rounds(header: torch.Tensor, q: torch.Tensor, need: torch.Tensor,
                   misses: int, max_probes: int) -> torch.Tensor:
     """The claim rounds of :func:`_claim_insert` for the ``misses`` keys of
     ``need``, IN PLACE on ``header``; returns ``placed`` int32[N] (-1 =
-    overflow).
+    overflow). The CPU path, and the plain version of the claim-insert
+    kernel (``ops/csrc/claim.cu``), which leaves the same header bit for
+    bit.
 
     ``max_probes`` rounds; in round *j* every still-unplaced key attempts its
     *j*-th candidate slot (lanes of bucket b1, then of b2); collisions on a
@@ -486,29 +519,20 @@ def lookup_or_insert(table: KvTable,
     fr = find(table, q, valid)
     need = valid & ~fr.found
     header, payload = table.header, table.payload
-    misses = _miss_gate(need)
-    # the misses' claim rounds, initial rows and meta write are one
-    # ``tfp::insert`` span; a batch without misses opens none
-    with (profiling.annotate("tfp::insert") if misses
+    # on the card the insert reads nothing back and opens its span on every
+    # batch; on the CPU the miss gate skips a batch without misses (the
+    # steady state), span included
+    misses = None if header.is_cuda else _miss_gate(need)
+    with (profiling.annotate("tfp::insert") if misses is None or misses
           else contextlib.nullcontext()):
-        placed_new = (_claim_rounds(header, q, need, misses,
-                                    table.config.max_probes) if misses
-                      else torch.full((n,), -1, dtype=torch.int32,
-                                      device=q.device))
+        # the misses' slots and initial rows
+        _, placed_new = _claim_insert(header, q, need,
+                                      table.config.max_probes,
+                                      misses=misses, table=table)
         placed = torch.where(fr.found, fr.slot, placed_new)
         ok = valid & (placed >= 0)
         overflow = (need & (placed_new < 0)).any()
-
-        # new rows get init-pool embedding columns and ZERO slot columns;
-        # the scatter is gated on any-miss (the steady state has none)
         newly = need & (placed_new >= 0)
-        if bool(newly.any()):
-            init = _init_rows_for(table, q)
-            w, dim = payload.shape[1], table.config.dim
-            if w != dim:
-                init = torch.cat([init, init.new_zeros((n, w - dim))], dim=1)
-            rowops.scatter_rows(payload, torch.where(newly, placed_new, -1),
-                                init)
 
         # metadata: freq count, day stamp, delta-touch bits, preserved
         # blacklist bit. The old meta came with the probe's bucket read (0

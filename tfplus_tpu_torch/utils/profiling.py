@@ -18,8 +18,11 @@ otherwise. Their names are fixed:
 ``tfp::dedup``         ``kv.unique_with_counts``
 ``tfp::probe``         ``kv.find``: both bucket scans
 ``tfp::insert``        placing a lookup's misses: claim rounds, initial
-                       rows, meta write (only when the batch has misses)
-``tfp::claim_round``   one round of the claim insert
+                       rows, meta write (on the CPU only when the batch
+                       has misses; on the card always: one claim launch,
+                       one row scatter)
+``tfp::claim_round``   one round of the claim insert (CPU tensors only: on
+                       the card every round runs inside the kernel)
 ``tfp::gather``        the payload row gather of a lookup
 ``tfp::forward``       the take to the batch, the dense towers and the loss
 ``tfp::backward``      ``torch.autograd.grad`` over the towers and rows
@@ -28,7 +31,9 @@ otherwise. Their names are fixed:
 =====================  ====================================================
 
 :func:`counters` counts, always and at the cost of a host integer add, what
-the host already holds; :func:`reset_counters` zeros them.
+the host already holds, and what kernels add on the device into the buffer
+of :func:`device_counts` (the claim insert's counts on the card), which it
+reads once a device only when asked; :func:`reset_counters` zeros both.
 """
 from __future__ import annotations
 
@@ -94,7 +99,11 @@ COUNTERS = (
                      # training lookup then reads zeros for them and does
                      # not update them
 )
+#: the counters kernels add on the device, in the order of the buffer of
+#: :func:`device_counts`
+DEVICE_COUNTERS = ("misses", "claim_rounds", "inserted", "unplaced")
 _counts = dict.fromkeys(COUNTERS, 0)
+_device_counts: Dict[torch.device, torch.Tensor] = {}
 _counts_lock = threading.Lock()
 
 
@@ -105,18 +114,40 @@ def count(**added: int) -> None:
             _counts[name] += n
 
 
-def counters() -> Dict[str, int]:
-    """A snapshot of the process-wide counters. ``misses == inserted +
-    unplaced`` always holds."""
+def device_counts(device) -> torch.Tensor:
+    """The process-wide int64[len(DEVICE_COUNTERS)] buffer on ``device``
+    into which kernels add their counts, with no host read; made zero at
+    first use."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     with _counts_lock:
-        return dict(_counts)
+        buf = _device_counts.get(dev)
+        if buf is None:
+            buf = _device_counts[dev] = torch.zeros(
+                (len(DEVICE_COUNTERS),), dtype=torch.int64, device=dev)
+    return buf
+
+
+def counters() -> Dict[str, int]:
+    """A snapshot of the process-wide counters, the device buffers folded
+    in (one read a device that has one). ``misses == inserted + unplaced``
+    always holds."""
+    with _counts_lock:
+        out = dict(_counts)
+        for buf in _device_counts.values():
+            for name, n in zip(DEVICE_COUNTERS, buf.tolist()):
+                out[name] += n
+    return out
 
 
 def reset_counters() -> None:
-    """Zero every counter."""
+    """Zero every counter, on the host and in the device buffers."""
     with _counts_lock:
         for k in _counts:
             _counts[k] = 0
+        for buf in _device_counts.values():
+            buf.zero_()
 
 
 class StepMeter:
