@@ -4,7 +4,11 @@ pools and dense weights. The program and the reference are handed the same.
 A table of ``n`` resident ids holds ``key(i) = 2**40 + (i*A + C) mod 2**40``
 for ``i < n`` (``A`` odd, so the map is one to one, and ``C`` from the seed);
 its row ``i`` is row ``i`` of ``0.05 * randn(n, dim)`` drawn on the device
-from the table's seed. Ids from ``FRESH_BASE`` up are never resident.
+from the table's seed. A configuration with ``"row_draw": "chunked"`` draws
+its rows instead in chunks of ``ROW_CHUNK`` ids, each from a seed of its own
+(:func:`chunk_rows`), so that a part of a table is drawn without the rest:
+the same seed gives the same rows over any number of ranks. Ids from
+``FRESH_BASE`` up are never resident.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ MASK = SPAN - 1
 FRESH_BASE = 1 << 41
 ROW_SCALE = 0.05            # the scale of KvVariable's default init pool
 POOL_ROWS = 10000           # init pool rows, as the port's tables default
+ROW_CHUNK = 1 << 20         # ids a chunk of a "chunked" table's rows
 _A = 0x9E3779B97F4A7C15 & MASK | 1
 _A_INV = pow(_A, -1, SPAN)
 
@@ -65,6 +70,29 @@ def table_rows(seed: int, table: str, n: int, dim: int, device,
     g = generator(seed, device, "rows", table)
     return torch.randn((n, dim), generator=g, device=device,
                        dtype=dtype) * ROW_SCALE
+
+
+def chunk_rows(seed: int, table: str, chunk: int, n: int, dim: int, device,
+               dtype=torch.float32) -> torch.Tensor:
+    """The rows of resident ids ``chunk * ROW_CHUNK`` up to the next chunk
+    (or ``n``) of a table whose configuration draws its rows in chunks."""
+    lo = chunk * ROW_CHUNK
+    g = generator(seed, device, "rows", table, chunk)
+    return torch.randn((min(n, lo + ROW_CHUNK) - lo, dim), generator=g,
+                       device=device, dtype=dtype) * ROW_SCALE
+
+
+def rows_at(seed: int, table: str, idx: torch.Tensor, n: int, dim: int,
+            device) -> torch.Tensor:
+    """The rows of resident row indices ``idx`` of a chunked table, drawing
+    only the chunks that hold them."""
+    out = torch.empty((idx.shape[0], dim), device=device)
+    chunk = idx // ROW_CHUNK
+    for c in torch.unique(chunk).tolist():
+        at = chunk == c
+        out[at] = chunk_rows(seed, table, c, n, dim, device)[
+            idx[at] - c * ROW_CHUNK]
+    return out
 
 
 def init_pool(seed: int, table: str, dim: int, device) -> torch.Tensor:

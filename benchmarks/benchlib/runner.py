@@ -5,6 +5,11 @@ Both kinds of cell are a closed loop with one caller: training steps, or
 serving requests each timed from the call until its predictions are on the
 host, back to back. The window closes on a device synchronize after the
 step or request that crosses its end.
+
+In a cell over several ranks (``world``, see ``ranks.py``) every rank runs
+this with its part of the program: rank 0 decides when the window closes,
+the window opens and closes on a synchronize and a barrier on every rank,
+and rank 0 alone reports and runs the reference.
 """
 from __future__ import annotations
 
@@ -50,8 +55,8 @@ class Loop:
     caller: training steps, or serving requests each timed from the call
     until its predictions are on the host, back to back."""
 
-    def __init__(self, prog: SparseProgram, first: int):
-        self.prog, self.next = prog, first
+    def __init__(self, prog: SparseProgram, first: int, world=None):
+        self.prog, self.next, self.world = prog, first, world
         self.done = []            # step or request indices, in order
         self.ends = []            # when each returned, on the host's clock
         self.latency_s = []       # serving: per request
@@ -84,18 +89,26 @@ class Loop:
         """Steps or requests back to back until ``seconds`` have passed
         (and at least ``min_steps``), then a synchronize; returns the
         window's length, from its start (kept in ``t0``) to the end of the
-        synchronize."""
+        synchronize. Over several ranks rank 0 decides when to stop, and
+        the window opens and closes on a barrier after the synchronize."""
         dev = self.prog.device
         _sync(dev)
+        if self.world is not None:
+            self.world.barrier()
         self.t0 = t0 = time.perf_counter()
         n = 0
         while True:
             self.one()
             n += 1
-            if n >= min_steps and time.perf_counter() - t0 >= seconds:
+            stop = n >= min_steps and time.perf_counter() - t0 >= seconds
+            if self.world is not None:
+                stop = self.world.agree(stop)
+            if stop:
                 break
         with _range("bench::sync"):
             _sync(dev)
+            if self.world is not None:
+                self.world.barrier()
         return time.perf_counter() - t0
 
     def pieces(self, seconds: float) -> list:
@@ -130,13 +143,15 @@ def traced(loop: Loop, seconds: float, min_steps: int):
 
 def per_layer(prog: SparseProgram, trace: Trace, indices, readers) -> dict:
     """The per-layer metrics: each reader gets a view of the traced
-    stretch and returns a number, or None where it finds nothing to read."""
+    stretch and returns a number, or None where it finds nothing to read.
+    Over several ranks, rank 0's trace over its share of the work."""
     batches = [prog.traffic.batch(i) for i in indices]
-    bounds = [prog.attention_bound_s(b) for b in batches]
+    local = [prog.local(b) for b in batches]
+    bounds = [prog.attention_bound_s(b) for b in local]
     view = compare.View(
         kind="train" if prog.train else "serve", trace=trace,
         steps=len(batches),
-        flops=sum(prog.model_flops(b) for b in batches),
+        flops=sum(prog.model_flops(b) for b in local),
         rows_bytes=sum(prog.rows_bytes(b) for b in batches),
         attention_bound_s=(None if bounds and bounds[0] is None
                            else sum(bounds)),
@@ -150,21 +165,27 @@ def per_layer(prog: SparseProgram, trace: Trace, indices, readers) -> dict:
 
 
 def run(files, cell: dict, seed: int, seconds: float, trace: bool,
-        device, t_start: float, hooks=None) -> dict:
+        device, t_start: float, hooks=None, world=None):
     """One run of ``cell`` (an entry of ``workloads``); returns the result
-    without the device block. ``hooks(prog)`` may replace parts of the
-    program before set-up ends (tests plant faults so)."""
+    without the device block (None on a rank other than 0 of ``world``).
+    ``hooks(prog)`` may replace parts of the program before set-up ends
+    (tests plant faults so)."""
     device = torch.device(device)
     cfg = files.config(cell["config"])
     mix = files.traffic(cell["traffic"])
     adapter = files.model(cell["config"])
     limits = files.limits(cell["name"])
+    tag = "" if world is None else f"rank {world.rank}: "
+
+    def log(msg):
+        _log(t_start, tag + msg)
+
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    _log(t_start, f"{cell['name']} seed {seed}: building")
-    prog = SparseProgram(adapter, cfg, mix, seed, device)
-    _log(t_start, "tables filled, traffic made; ids the fill left out: "
-         f"{sum(prog.unplaced.values())}")
+    log(f"{cell['name']} seed {seed}: building")
+    prog = SparseProgram(adapter, cfg, mix, seed, device, world)
+    log("tables filled, traffic made; ids the fill left out: "
+        f"{sum(prog.unplaced.values())}")
     if hooks is not None:
         hooks(prog)
     readings = None
@@ -173,13 +194,15 @@ def run(files, cell: dict, seed: int, seconds: float, trace: bool,
         first = mix["check_steps"]
     else:
         first = 0
-    loop = Loop(prog, first)
+    loop = Loop(prog, first, world)
     for _ in range(mix["warmup_steps"]):
         loop.one()
     _sync(device)
+    if world is not None:
+        world.barrier()
     loop.clear()
     setup_s = time.perf_counter() - t_start
-    _log(t_start, "set-up done")
+    log("set-up done")
 
     metrics, result = {}, {}
     if trace:
@@ -187,6 +210,8 @@ def run(files, cell: dict, seed: int, seconds: float, trace: bool,
                              mix["trace_min_steps"])
         metrics = per_layer(prog, tr, indices, files.readers(cell))
         result["busy_s"], result["window_s"] = tr.busy_s, tr.window_s
+        if world is not None:
+            result["busy_s"] = world.mean(tr.busy_s)
         result["breakdown"] = tr.breakdown()
     else:
         window_s = loop.run_for(seconds)
@@ -199,22 +224,28 @@ def run(files, cell: dict, seed: int, seconds: float, trace: bool,
                                                "unit": "examples/s"}
             metrics["serve_p95_ms"] = {"value": 1e3 * p95(loop.latency_s),
                                        "unit": "ms"}
-        _log(t_start, "steps or requests a second in each 5 s of the "
-             f"window: {[round(r, 3) for r in loop.pieces(5.0)]}")
+        log("steps or requests a second in each 5 s of the "
+            f"window: {[round(r, 3) for r in loop.pieces(5.0)]}")
         metrics["setup_s"] = {"value": setup_s, "unit": "s"}
         reported = {m["name"] for m in files.end_to_end(cell)}
         metrics = {k: v for k, v in metrics.items() if k in reported}
     attempted = len(loop.done)
-    _log(t_start, f"window done: {attempted} steps or requests")
+    log(f"window done: {attempted} steps or requests")
     if prog.train:
         losses = torch.stack(loop.losses).cpu().numpy() if loop.losses \
             else np.zeros(0)
-        failed = int((~np.isfinite(losses)).sum())
+        bad = ~np.isfinite(losses)
+        if world is not None:
+            bad = np.asarray(world.max(bad.astype(np.int64).tolist()), bool)
+        failed = int(bad.sum())
     else:
         failed = sum(1 for s in loop.done
                      if not np.isfinite(loop.preds[s]).all())
     result["memory_peak_bytes"] = (torch.cuda.max_memory_allocated(device)
                                    if device.type == "cuda" else 0)
+    if world is not None:
+        result["memory_peak_bytes"] = world.max(
+            [result["memory_peak_bytes"]])[0]
 
     # the check: the program's state goes, then the reference runs
     served = {s: loop.preds[s] for s in _sample(loop.done, seed,
@@ -222,9 +253,11 @@ def run(files, cell: dict, seed: int, seconds: float, trace: bool,
     del loop
     prog.release()
     gc.collect()
+    if world is not None and world.rank:
+        return None
     checks = (compare.training(prog, readings, limits) if prog.train
               else compare.serving(prog, served, limits))
-    _log(t_start, "reference done")
+    log("reference done")
     result.update(attempted=attempted, failed=failed, metrics=metrics,
                   checks=checks,
                   correct=failed == 0 and compare.passed(checks))

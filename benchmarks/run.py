@@ -8,9 +8,11 @@ cell up from the seed (tables, weights, traffic; set-up counts from the
 start of this script to the first timed step), measures for ``--seconds``
 (``--trace 1``: profiles a bounded stretch and reports the per-layer
 metrics), checks the outputs against the plain reference, and prints one
-JSON line. It needs as many CUDA devices as the cell asks for; without them
-it exits with 2 and prints no result, as it does (with 3) when JAX or the
-JAX package was loaded.
+JSON line. A cell that asks for one chip runs in this process; a cell that
+asks for more runs as that many ranks, one process per card
+(``benchlib/ranks.py``), and this process prints rank 0's line. Without as
+many CUDA devices as the cell asks for it exits with 2 and prints no
+result, as it does (with 3) when JAX or the JAX package was loaded.
 """
 import time
 
@@ -42,12 +44,14 @@ def parse(argv):
     return p.parse_args(argv)
 
 
-def main(argv=None) -> int:
+def main(argv=None, cells=None, device="cuda") -> int:
+    """``cells`` (a ``benchlib.files.Files``) and ``device`` let a test run
+    cells from its own files on the CPU."""
     args = parse(argv)
-    with open(ROOT / "BENCHMARK.json") as f:
-        bench = json.load(f)
     from benchlib import files, result, runner
-    cells = files.Files(bench)
+    if cells is None:
+        with open(ROOT / "BENCHMARK.json") as f:
+            cells = files.Files(json.load(f))
     cell = cells.cell(args.workload)
     import torch
     torch.set_num_threads(1)
@@ -57,19 +61,23 @@ def main(argv=None) -> int:
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}"
               ": no result", file=sys.stderr)
         return 2
+    if cell["chips"] > 1:
+        from benchlib import ranks
+        return ranks.run(cells, cell, args.seed, args.seconds,
+                         bool(args.trace), T_START, device)
     out = runner.run(cells, cell, args.seed, args.seconds, bool(args.trace),
-                     "cuda", T_START)
-    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-              "count": cell["chips"],
-              "memory_peak_bytes": out["memory_peak_bytes"]}
+                     device, T_START)
+    dev = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+           "count": cell["chips"],
+           "memory_peak_bytes": out["memory_peak_bytes"]}
     if args.trace:
-        device.update(busy_s=out["busy_s"], window_s=out["window_s"])
+        dev.update(busy_s=out["busy_s"], window_s=out["window_s"])
     bad = result.forbidden_modules()
     if bad:
         print(f"loaded JAX or the JAX package: {bad}: no result",
               file=sys.stderr)
         return 3
-    result.emit(result.line(out, device))
+    result.emit(result.line(out, dev))
     return 0
 
 
