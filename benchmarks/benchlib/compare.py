@@ -71,7 +71,7 @@ def reference_training(prog, n: int, *, dtype=torch.float64, tf32=False,
         out = ref_sparse.train(
             forward_of(prog), prog.weights, batches,
             prog.row_source("fresh"), prog.cfg["sparse_optimizer"],
-            prog.cfg["dense_optimizer"]["lr"], dtype=dtype,
+            prog.cfg["dense_optimizer"], dtype=dtype,
             device=prog.device, loss_rows=loss_rows)
     out["grads"] = {k: v.double().cpu() for k, v in out["grads"].items()}
     out["final"] = {k: v.double().cpu() for k, v in out["final"].items()}

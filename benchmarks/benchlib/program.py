@@ -20,8 +20,6 @@ from reference import sparse as ref_sparse
 from . import inputs, peaks
 from .traffic import Traffic
 
-SLOT_WIDTH = {"adam": 2, "group_adam": 3}
-
 
 def _check_world(adapter, mix: dict, train: bool, size: int) -> None:
     """What a cell over ``size`` ranks needs before anything is built."""
@@ -36,17 +34,10 @@ def _check_world(adapter, mix: dict, train: bool, size: int) -> None:
                          f"over {size} ranks")
 
 
-def _sparse_optimizer(train_mod, spec: dict):
-    if spec["rule"] == "adam":
-        return train_mod.AdamOptimizer(beta1=spec["b1"], beta2=spec["b2"],
-                                       epsilon=spec["eps"])
-    if spec["rule"] == "group_adam":
-        return train_mod.GroupAdamOptimizer(
-            beta1=spec["b1"], beta2=spec["b2"], epsilon=spec["eps"],
-            l1_regularization_strength=spec["l1"],
-            l2_regularization_strength=spec["l2"],
-            l21_regularization_strength=spec["l21"])
-    raise ValueError(f"unknown sparse rule {spec['rule']!r}")
+def _kwargs(rule, spec: dict) -> dict:
+    """The keyword arguments of ``rule``'s constructor from the
+    configuration's optimizer entry ``spec``."""
+    return {kw: spec[key] for kw, key in rule.args}
 
 
 class SparseProgram:
@@ -70,6 +61,11 @@ class SparseProgram:
         self.world = world
         self.train = mix["loop"] == "train"
         self.chunked = cfg.get("row_draw") == "chunked"
+        sparse = cfg["sparse_optimizer"]
+        if self.train:       # the rules' table: reference.sparse.RULES
+            self.rule = ref_sparse.rule(sparse)
+            self.dense_rule = ref_sparse.rule(cfg["dense_optimizer"],
+                                              dense=True)
         if world is not None:
             _check_world(adapter, mix, self.train, world.size)
         self.tables = adapter.tables(cfg)          # name -> (dim, rows, keys)
@@ -77,12 +73,13 @@ class SparseProgram:
         for name, spec in model.table_specs.items():
             spec["initializer"] = inputs.init_pool(seed, name, spec["dim"],
                                                    self.device)
-        sparse = cfg["sparse_optimizer"]
-        self.opt = (_sparse_optimizer(tp.train, sparse) if self.train
-                    else None)
-        dense_tx = (functools.partial(torch.optim.Adam,
-                                      lr=cfg["dense_optimizer"]["lr"])
-                    if self.train else None)
+        self.opt, dense_tx = None, None
+        if self.train:
+            self.opt = getattr(tp.train, self.rule.port)(
+                **_kwargs(self.rule, sparse))
+            dense_tx = functools.partial(
+                getattr(torch.optim, self.dense_rule.port),
+                **_kwargs(self.dense_rule, cfg["dense_optimizer"]))
         self.state = (tp.models.init_state(model, self.opt, dense_tx,
                                            device=self.device)
                       if world is None else self._sharded_state(dense_tx))
@@ -195,15 +192,16 @@ class SparseProgram:
     def check_steps(self, n: int):
         """Steps ``0..n-1`` of the run through the window's own call and
         feed, with what the reference compares: each step's loss, the first
-        gradient per leaf as the optimizers hold it after step 1 (Adam's
-        first moment over ``1 - beta1``), and each leaf after step ``n``.
-        Table leaves cover the ids the steps touched, sorted.
+        gradient per leaf as the optimizers leave it after step 1 (read as
+        the rule's ``first_grad`` says: Adam's first moment over ``1 -
+        beta1``, or SGD's step, (seeded value - value after step 1) / lr),
+        and each leaf after step ``n``. Table leaves cover the ids the
+        steps touched, sorted.
 
         In a world of several ranks the readings are gathered to rank 0
         (the others get None): the loss is the mean of the ranks' slices'
         losses, the dense leaves are rank 0's (the step all-reduces their
         gradients), and each id's row is read from the shard that owns it."""
-        b1 = self.cfg["sparse_optimizer"]["b1"]
         batches = [self.traffic.batch(s) for s in range(n)]
         touched = {name: np.unique(np.concatenate(
             [b["ids"][name] for b in batches])) for name in self.tables}
@@ -215,16 +213,12 @@ class SparseProgram:
             self.state, loss, _ = self.step(self.state, self.traffic.feed(b))
             out["losses"].append(float(loss))
             if s == 0:
-                opt = self.state.opt_state
-                beta = opt.param_groups[0]["betas"][0]
-                for pname, p in self.state.dense.named_parameters():
-                    m = opt.state.get(p, {}).get("exp_avg")
-                    out["grads"][pname] = (
-                        torch.full(p.shape, float("nan"), dtype=torch.float64)
-                        if m is None else m.double().cpu() / (1 - beta))
+                out["grads"] = self._dense_first_grads()
                 for name in self.tables:
-                    start, _ = self.state.tables[name].config.slot_columns()[
-                        self.opt.slot_name]
+                    start = 0           # "step": the rows themselves
+                    if self.rule.first_grad == "moment":
+                        start, _ = self.state.tables[
+                            name].config.slot_columns()[self.opt.slot_name]
                     grads[name] = self._rows(name, self._mine(first[name]),
                                              start, self.tables[name][0])
         for pname, p in self.state.dense.named_parameters():
@@ -244,9 +238,33 @@ class SparseProgram:
             final = {name: self._assemble(touched[name], [p[2][name]
                                                           for p in parts])
                      for name in self.tables}
+        sparse = self.cfg["sparse_optimizer"]
         for name in self.tables:
-            out["grads"][f"table:{name}"] = grads[name].double() / (1 - b1)
+            if self.rule.first_grad == "moment":
+                g = grads[name].double() / (1 - sparse["b1"])
+            else:
+                seeded = self.row_source("fresh")(name, first[name]).cpu()
+                g = (seeded - grads[name].double()) / sparse["lr"]
+            out["grads"][f"table:{name}"] = g
             out["final"][f"table:{name}"] = final[name].double()
+        return out
+
+    def _dense_first_grads(self) -> dict:
+        """Each dense leaf's first gradient, read after step 1 as its rule
+        says (Adam: NaN for a leaf it did not step)."""
+        opt = self.state.opt_state
+        lr = self.cfg["dense_optimizer"]["lr"]
+        out = {}
+        for pname, p in self.state.dense.named_parameters():
+            if self.dense_rule.first_grad == "moment":
+                m = opt.state.get(p, {}).get("exp_avg")
+                beta = opt.param_groups[0]["betas"][0]
+                out[pname] = (
+                    torch.full(p.shape, float("nan"), dtype=torch.float64)
+                    if m is None else m.double().cpu() / (1 - beta))
+            else:
+                out[pname] = (self.weights[pname].double().cpu()
+                              - p.detach().double().cpu()) / lr
         return out
 
     def _assemble(self, ids: np.ndarray, parts: list) -> torch.Tensor:
@@ -310,8 +328,8 @@ class SparseProgram:
             dim = self.tables[name][0]
             uniq = self._mine(np.unique(ids))
             if self.train:
-                width = dim * (1 + SLOT_WIDTH[
-                    self.cfg["sparse_optimizer"]["rule"]])
+                width = dim * (1 + ref_sparse.rule(
+                    self.cfg["sparse_optimizer"]).width)
                 fresh = int((uniq >= inputs.FRESH_BASE).sum())
                 rows = 2 * uniq.shape[0] + fresh
             else:

@@ -1,7 +1,8 @@
 """A cell over ``chips`` ranks: one process of the harness per card.
 
-``run.py`` calls :func:`run` for a cell with ``chips`` above 1 (a one-card
-cell never imports this module). The launcher starts ``chips`` processes,
+``run.py`` calls :func:`run` for a cell with ``chips`` above 1, and
+``readings.py`` calls :func:`readings` (a one-card cell never imports this
+module). The launcher starts ``chips`` processes,
 
     python3 -m benchlib.ranks <spec.json> <rank>
 
@@ -16,9 +17,10 @@ others have handed over their readings, and writes the result's line to the
 launch's directory.
 
 The launcher waits under a limit of its own (set-up, the window and the
-check): when a rank fails, or the limit passes, it kills every rank and
-prints no line. Otherwise it prints rank 0's line, as a one-card run
-prints its own. A rank exits 3 when it loaded JAX or the JAX package, and
+check; for readings, set-up and each seed's): when a rank fails, or the
+limit passes, it kills every rank and prints no line. Otherwise it prints
+rank 0's line (for readings, its line a seed), as a one-card run prints its
+own. A rank exits 3 when it loaded JAX or the JAX package, and
 so does the launcher then. ``setup_s`` counts from the launcher's start to
 rank 0's first timed step, on the system-wide monotonic clock.
 """
@@ -44,6 +46,7 @@ from . import result
 BENCH = Path(__file__).resolve().parents[1]
 SETUP_LIMIT_S = 900         # a first run in a checkout builds the kernels
 CHECK_LIMIT_S = 240         # the gathering and the reference after the window
+READINGS_SEED_S = 600       # readings.py: a seed's program and four references
 COLLECTIVE_S = 600          # one collective, the first waiting on the builds
 POLL_S = 0.2
 EXIT_JAX = 3                # a rank loaded JAX or the JAX package
@@ -101,28 +104,24 @@ def _stop(procs) -> None:
         p.wait()
 
 
-def run(files, cell: dict, seed: int, seconds: float, trace: bool,
-        t_start: float, device: str = "cuda", limit_s: float = None,
-        collective_s: float = COLLECTIVE_S) -> int:
-    """Launch ``cell`` over ``cell["chips"]`` ranks and print rank 0's
-    result line; returns the exit code. ``t_start`` is the run's start on
-    ``time.perf_counter``; ``limit_s`` bounds the whole launch."""
+def _launch(files, cell: dict, job: dict, device: str, limit_s: float,
+            collective_s: float, launched: float):
+    """Start ``cell["chips"]`` ranks on ``job`` (what ``rank_main`` does),
+    wait for them under ``limit_s`` from ``launched`` (on the system-wide
+    monotonic clock), and kill every rank when one fails or the limit
+    passes. Returns ``(0, what rank 0 wrote)``, or an exit code and None
+    once it has said on standard error why there is no result."""
     world = cell["chips"]
-    launched = time.monotonic() - (time.perf_counter() - t_start)
-    if limit_s is None:
-        limit_s = SETUP_LIMIT_S + seconds + CHECK_LIMIT_S
     deadline = launched + limit_s
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(BENCH), str(BENCH.parent), os.environ.get("PYTHONPATH", "")]))
     with tempfile.TemporaryDirectory(prefix="bench_ranks_") as tmp:
         spec = Path(tmp) / "spec.json"
-        spec.write_text(json.dumps({
-            "bench": files.bench, "roots": [str(r) for r in files.roots],
-            "workload": cell["name"], "seed": seed, "seconds": seconds,
-            "trace": trace, "device": device, "world": world,
-            "port": _free_port(), "launched": launched,
-            "collective_s": collective_s, "parent": os.getpid(),
-            "out": str(Path(tmp) / "line.json")}))
+        spec.write_text(json.dumps(dict(
+            job, bench=files.bench, roots=[str(r) for r in files.roots],
+            workload=cell["name"], device=device, world=world,
+            port=_free_port(), launched=launched, collective_s=collective_s,
+            parent=os.getpid(), out=str(Path(tmp) / "out.txt"))))
         procs = [subprocess.Popen(
             [sys.executable, "-m", "benchlib.ranks", str(spec), str(r)],
             env=env, cwd=BENCH.parent, stdout=2)
@@ -141,19 +140,50 @@ def run(files, cell: dict, seed: int, seconds: float, trace: bool,
                 time.sleep(POLL_S)
         finally:
             _stop(procs)
-        out = Path(tmp) / "line.json"
+        out = Path(tmp) / "out.txt"
         if bad or not out.is_file():
             print(f"{cell['name']}: ranks {bad or 'all'} failed or left no "
                   "result: no result", file=sys.stderr)
-            return EXIT_JAX if any(c == EXIT_JAX for _, c in bad) else 1
-        line = json.loads(out.read_text())
+            return (EXIT_JAX if any(c == EXIT_JAX for _, c in bad)
+                    else 1), None
+        return 0, out.read_text()
+
+
+def run(files, cell: dict, seed: int, seconds: float, trace: bool,
+        t_start: float, device: str = "cuda", limit_s: float = None,
+        collective_s: float = COLLECTIVE_S) -> int:
+    """Launch ``cell`` over ``cell["chips"]`` ranks and print rank 0's
+    result line; returns the exit code. ``t_start`` is the run's start on
+    ``time.perf_counter``; ``limit_s`` bounds the whole launch."""
+    launched = time.monotonic() - (time.perf_counter() - t_start)
+    if limit_s is None:
+        limit_s = SETUP_LIMIT_S + seconds + CHECK_LIMIT_S
+    code, text = _launch(files, cell, {"job": "run", "seed": seed,
+                                       "seconds": seconds, "trace": trace},
+                         device, limit_s, collective_s, launched)
+    if code:
+        return code
     found = result.forbidden_modules()
     if found:
         print(f"loaded JAX or the JAX package: {found}: no result",
               file=sys.stderr)
         return EXIT_JAX
-    result.emit(line)
+    result.emit(json.loads(text))
     return 0
+
+
+def readings(files, cell: dict, seeds: list, override: dict,
+             device: str = "cuda", limit_s: float = None,
+             collective_s: float = COLLECTIVE_S):
+    """``readings.py`` over ``cell["chips"]`` ranks: returns the exit code
+    and rank 0's lines, one a seed (None when a rank failed or the launch
+    passed ``limit_s``)."""
+    if limit_s is None:
+        limit_s = SETUP_LIMIT_S + READINGS_SEED_S * len(seeds)
+    code, text = _launch(files, cell, {"job": "readings", "seeds": seeds,
+                                       "override": override},
+                         device, limit_s, collective_s, time.monotonic())
+    return code, (None if code else text.splitlines())
 
 
 def _die_with_parent(parent: int) -> None:
@@ -165,7 +195,8 @@ def _die_with_parent(parent: int) -> None:
 
 
 def rank_main(spec_path: str, rank: int) -> int:
-    """One rank's process."""
+    """One rank's process: a run of the cell (``job`` "run") or
+    ``readings.py``'s readings of its seeds (``job`` "readings")."""
     spec = json.loads(Path(spec_path).read_text())
     _die_with_parent(spec["parent"])
     from . import runner
@@ -184,10 +215,16 @@ def rank_main(spec_path: str, rank: int) -> int:
         world = World(rank, spec["world"], dist.group.WORLD,
                       dist.new_group(backend="gloo", timeout=timeout))
         files = Files(spec["bench"], roots=spec["roots"])
-        t_start = time.perf_counter() - (time.monotonic() - spec["launched"])
-        out = runner.run(files, files.cell(spec["workload"]), spec["seed"],
-                         spec["seconds"], spec["trace"], device, t_start,
-                         world=world)
+        cell = files.cell(spec["workload"])
+        if spec["job"] == "readings":
+            import readings
+            lines = list(readings.lines(files, cell, spec["seeds"],
+                                        spec["override"], device, world))
+        else:
+            t_start = time.perf_counter() - (time.monotonic()
+                                             - spec["launched"])
+            out = runner.run(files, cell, spec["seed"], spec["seconds"],
+                             spec["trace"], device, t_start, world=world)
     finally:
         dist.destroy_process_group()
     found = result.forbidden_modules()
@@ -195,7 +232,11 @@ def rank_main(spec_path: str, rank: int) -> int:
         print(f"rank {rank} loaded JAX or the JAX package: {found}",
               file=sys.stderr)
         return EXIT_JAX
-    if rank == 0:
+    if rank:
+        return 0
+    if spec["job"] == "readings":
+        text = "".join(line + "\n" for line in lines)
+    else:
         dev = {"platform": "gpu",
                "kind": (torch.cuda.get_device_name(device) if on_card
                         else "cpu"),
@@ -203,7 +244,8 @@ def rank_main(spec_path: str, rank: int) -> int:
                "memory_peak_bytes": out["memory_peak_bytes"]}
         if spec["trace"]:
             dev.update(busy_s=out["busy_s"], window_s=out["window_s"])
-        Path(spec["out"]).write_text(json.dumps(result.line(out, dev)))
+        text = json.dumps(result.line(out, dev))
+    Path(spec["out"]).write_text(text)
     return 0
 
 

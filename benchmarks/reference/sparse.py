@@ -1,18 +1,25 @@
 """The sparse side in plain PyTorch: KV rows keyed by id, the row a fresh id
-starts from, the sparse optimizers (Adam, GroupAdam) and dense Adam, and a
-few training steps of a sparse model.
+starts from, the optimizer rules (sparse: SGD, Adam, GroupAdam; dense: SGD,
+Adam), and a few training steps of a sparse model.
 
 A table here is a sorted array of the ids that the steps touch with their
 rows and slot columns. A fresh id starts from the mean of two rows of the
 table's init pool, chosen by two murmur3-mixed hashes of the id's 32-bit
 words (the KvVariable rule). The sparse optimizers are TFPlus's update
-rules written out again (``python/training/adam.py`` lazy Adam;
-``training_ops.cc`` GroupAdam V4 with l1, l2 and l21 scaled by the
-learning rate).
+rules written out again (``python/training/gradient_descent.py``
+scatter-sub; ``python/training/adam.py`` lazy Adam; ``training_ops.cc``
+GroupAdam V4 with l1, l2 and l21 scaled by the learning rate).
+
+:data:`RULES` and :data:`DENSE_RULES` are the one table of the rules the
+benchmark knows: for each, the port's constructor, the slot width, the
+reference's update, and how the program's first gradient is read back after
+step 1.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Callable
 
 import numpy as np
 import torch
@@ -87,7 +94,78 @@ def group_adam_rows(var, slots, g, lr, t, b1=0.9, b2=0.999, eps=1e-8,
     return new, torch.cat([m, v, lin], 1), ~keep
 
 
-RULES = {"adam": (adam_rows, 2), "group_adam": (group_adam_rows, 3)}
+def sgd_rows(var, slots, g, lr, t, **_):
+    """Plain gradient descent on the touched rows; no slots."""
+    return var - lr * g, slots, None
+
+
+def adam_dense(p, state, g, lr, t):
+    """``torch.optim.Adam`` with betas 0.9, 0.999 and eps 1e-8 on a dense
+    leaf; ``state`` is ``(m, v)``, None before the first step."""
+    m, v = state if state is not None else (torch.zeros_like(p),) * 2
+    m = 0.9 * m + 0.1 * g
+    v = 0.999 * v + 0.001 * g * g
+    bc1, bc2 = 1 - 0.9 ** t, 1 - 0.999 ** t
+    return p - lr / bc1 * m / (torch.sqrt(v) / math.sqrt(bc2) + 1e-8), (m, v)
+
+
+def sgd_dense(p, state, g, lr, t):
+    """``torch.optim.SGD`` without momentum or decay on a dense leaf."""
+    return p - lr * g, state
+
+
+@dataclasses.dataclass(frozen=True)
+class Rule:
+    """One optimizer rule as the benchmark runs it.
+
+    ``port`` is the constructor the program builds it with (for a table, a
+    function of ``tfplus_tpu_torch``'s ``train`` module; for the towers, a
+    class of ``torch.optim``) and ``args`` its keyword arguments, each
+    from a key of the configuration's optimizer entry. ``width`` is the
+    state the rule keeps per value: in a table, the slot columns per
+    embedding column of its payload. ``update`` is the reference's update:
+    ``(rows, slots, g, lr, t, **kw) -> (rows, slots, blacklisted or None)``
+    for a table, ``(leaf, state, g, lr, t) -> (leaf, state)`` for the
+    towers. ``first_grad`` is how the program's first gradient is read back
+    after step 1: ``"moment"``, the first moment the rule keeps over ``1 -
+    b1``; ``"step"``, (the seeded value - the value after step 1) / lr,
+    which carries the rounding of the float32 value after step 1 (up to
+    half an ulp of the value, and as much again for a fresh row's initial
+    value, which the program averages in float32) over lr into the
+    gradient read."""
+    port: str
+    args: tuple
+    width: int
+    update: Callable
+    first_grad: str
+
+
+_ADAM_ARGS = (("beta1", "b1"), ("beta2", "b2"), ("epsilon", "eps"))
+RULES = {
+    "sgd": Rule("GradientDescentOptimizer", (), 0, sgd_rows, "step"),
+    "adam": Rule("AdamOptimizer", _ADAM_ARGS, 2, adam_rows, "moment"),
+    "group_adam": Rule(
+        "GroupAdamOptimizer",
+        _ADAM_ARGS + (("l1_regularization_strength", "l1"),
+                      ("l2_regularization_strength", "l2"),
+                      ("l21_regularization_strength", "l21")),
+        3, group_adam_rows, "moment"),
+}
+DENSE_RULES = {
+    "sgd": Rule("SGD", (("lr", "lr"),), 0, sgd_dense, "step"),
+    "adam": Rule("Adam", (("lr", "lr"),), 2, adam_dense, "moment"),
+}
+
+
+def rule(spec: dict, dense: bool = False) -> Rule:
+    """The rule that an optimizer entry (``{"rule": ..., ...}``) names;
+    ValueError for one the benchmark does not know."""
+    table = DENSE_RULES if dense else RULES
+    if spec["rule"] not in table:
+        raise ValueError(f"unknown {'dense' if dense else 'sparse'} "
+                         f"optimizer rule {spec['rule']!r}; known: "
+                         f"{sorted(table)}")
+    return table[spec["rule"]]
 
 
 class Table:
@@ -110,7 +188,7 @@ class Table:
                            rows)
 
 
-def train(forward, weights, batches, initial_rows, sparse, dense_lr,
+def train(forward, weights, batches, initial_rows, sparse, dense,
           *, dtype=torch.float64, device="cpu", loss_rows=None):
     """Train from ``weights`` (name -> tensor) and tables that start from
     ``initial_rows(table, ids)`` through ``batches`` (each with
@@ -119,9 +197,9 @@ def train(forward, weights, batches, initial_rows, sparse, dense_lr,
     ``forward(params, embs, features) -> logits`` is the model family's
     forward, ``embs[table]`` the rows of that table's id stream in input
     order. ``sparse = dict(rule=..., lr=..., b1=..., ...)`` names the sparse
-    rule; dense Adam takes betas 0.9, 0.999 and eps 1e-8 as
-    ``torch.optim.Adam``. ``loss_rows`` keeps the loss over the first that
-    many examples only (a planted fault).
+    rule and ``dense = dict(rule=..., lr=...)`` the dense one (see
+    :data:`RULES`). ``loss_rows`` keeps the loss over the first that many
+    examples only (a planted fault).
 
     Returns ``losses`` per step, ``grads`` (leaf -> the first step's
     gradient: dense leaves whole, a table's rows for the ids of step 1 in
@@ -132,20 +210,19 @@ def train(forward, weights, batches, initial_rows, sparse, dense_lr,
     def on(x):
         return torch.as_tensor(np.asarray(x)).to(device, dtype)
 
-    rule, width = RULES[sparse["rule"]]
+    sparse_rule, dense_rule = rule(sparse), rule(dense, dense=True)
     opt_kw = {k: v for k, v in sparse.items() if k not in ("rule", "lr")}
     names = sorted(batches[0]["ids"])
     touched = {n: np.unique(np.concatenate([b["ids"][n] for b in batches]))
                for n in names}
     tables = {n: Table(touched[n], initial_rows(n, touched[n]).to(device,
                                                                    dtype),
-                       width) for n in names}
+                       sparse_rule.width) for n in names}
     params = {k: v.detach().to(device, dtype).clone()
               for k, v in weights.items()}
     initial = {k: v.clone() for k, v in params.items()}
     initial.update({f"table:{n}": t.var.clone() for n, t in tables.items()})
-    m = {k: torch.zeros_like(v) for k, v in params.items()}
-    v2 = {k: torch.zeros_like(v) for k, v in params.items()}
+    dense_state = dict.fromkeys(params)
     losses, grads, ids1 = [], {}, {}
     for t, batch in enumerate(batches, start=1):
         leaves, embs, idx = {}, {}, {}
@@ -174,17 +251,14 @@ def train(forward, weights, batches, initial_rows, sparse, dense_lr,
                               + [leaves[n] for n in names])]
         losses.append(float(loss.detach()))
         with torch.no_grad():
-            bc1, bc2 = 1 - 0.9 ** t, 1 - 0.999 ** t
             for k, gk in zip(keys, g):
-                m[k] = 0.9 * m[k] + 0.1 * gk
-                v2[k] = 0.999 * v2[k] + 0.001 * gk * gk
-                params[k] = (params[k].detach() - dense_lr / bc1 * m[k]
-                             / (torch.sqrt(v2[k]) / math.sqrt(bc2) + 1e-8))
+                params[k], dense_state[k] = dense_rule.update(
+                    params[k].detach(), dense_state[k], gk, dense["lr"], t)
             for n, gn in zip(names, g[len(keys):]):
                 tab = tables[n]
                 var = tab.read(idx[n])
-                new, slots, black = rule(var, tab.slots[idx[n]], gn,
-                                         sparse["lr"], t, **opt_kw)
+                new, slots, black = sparse_rule.update(
+                    var, tab.slots[idx[n]], gn, sparse["lr"], t, **opt_kw)
                 tab.var[idx[n]] = new
                 tab.slots[idx[n]] = slots
                 tab.black[idx[n]] = (black if black is not None

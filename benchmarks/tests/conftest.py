@@ -29,21 +29,39 @@ def bench():
         return json.load(f)
 
 
-@pytest.fixture(scope="session")
-def tiny(tmp_path_factory, bench):
-    """``(Files, cells)``: every cell of BENCHMARK.json, under the same
-    names, at tiny widths."""
+# plain SGD on the tables and the towers, at MLPerf DLRM's learning rate
+SGD = {"sparse_optimizer": {"rule": "sgd", "lr": 1.0},
+       "dense_optimizer": {"rule": "sgd", "lr": 1.0}}
+
+
+def tiny_files(tmp, bench, extra=None):
+    """``Files`` over every cell of BENCHMARK.json, under the same names,
+    at tiny widths, with ``extra`` (e.g. :data:`SGD`) set in every
+    configuration."""
     from benchlib.files import Files
-    tmp = tmp_path_factory.mktemp("tiny")
     for d in ("configs", "models", "traffic", "limits"):
         (tmp / d).mkdir()
     for name, cut in TINY.items():
         cfg = json.loads((BENCH / "configs" / f"{name}.json").read_text())
-        cfg.update(cut)
+        cfg.update(cut, **(extra or {}))
         (tmp / "configs" / f"{name}.json").write_text(json.dumps(cfg))
     for path in (BENCH / "traffic").glob("*.json"):
         m = json.loads(path.read_text())
         m.update(batch=64, pool_batches=4)
         (tmp / "traffic" / path.name).write_text(json.dumps(m))
-    return (Files(bench, roots=[tmp, BENCH]),
+    return Files(bench, roots=[tmp, BENCH])
+
+
+@pytest.fixture(scope="session")
+def tiny(tmp_path_factory, bench):
+    """``(Files, cells)``: every cell of BENCHMARK.json, under the same
+    names, at tiny widths."""
+    return (tiny_files(tmp_path_factory.mktemp("tiny"), bench),
+            {w["name"]: w for w in bench["workloads"]})
+
+
+@pytest.fixture(scope="session")
+def tiny_sgd(tmp_path_factory, bench):
+    """As ``tiny``, with plain SGD on the tables and the towers."""
+    return (tiny_files(tmp_path_factory.mktemp("tiny_sgd"), bench, SGD),
             {w["name"]: w for w in bench["workloads"]})

@@ -55,18 +55,22 @@ def _half_answers(prog):
 
 TRAIN = ["dcn_criteo.train_zipf", "bst_taobao.train_zipf"]
 SERVE = ["dcn_criteo.serve_zipf", "bst_taobao.serve_zipf"]
-CASES = ([(c, None, True) for c in TRAIN + SERVE]
-         + [(c, f, False) for c in TRAIN
+CASES = ([(c, None, True, "") for c in TRAIN + SERVE]
+         + [(c, f, False, "") for c in TRAIN
             for f in (_unchanged_state, _half_batch)]
-         + [(c, f, False) for c in SERVE
-            for f in (_altered_answer, _half_answers)])
+         + [(c, f, False, "") for c in SERVE
+            for f in (_altered_answer, _half_answers)]
+         # the training cells again with plain SGD on tables and towers
+         + [(c, f, f is None, "sgd-") for c in TRAIN
+            for f in (None, _unchanged_state, _half_batch)])
 
 
-@pytest.mark.parametrize("cell,fault,correct", CASES,
-                         ids=[f"{c}-{f.__name__ if f else 'sound'}"
-                              for c, f, _ in CASES])
-def test_correct_comes_out_false_for_each_fault(tiny, cell, fault, correct):
-    files, cells = tiny
+@pytest.mark.parametrize("cell,fault,correct,rules", CASES,
+                         ids=[f"{c}-{r}{f.__name__ if f else 'sound'}"
+                              for c, f, _, r in CASES])
+def test_correct_comes_out_false_for_each_fault(request, cell, fault,
+                                                correct, rules):
+    files, cells = request.getfixturevalue("tiny_sgd" if rules else "tiny")
     out = runner.run(files, cells[cell], 2 ** 31 + 99, 0.2,
                      False, "cpu", 0.0, hooks=fault)
     assert out["correct"] is correct, out["checks"]

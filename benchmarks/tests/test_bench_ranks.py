@@ -1,8 +1,9 @@
 """A cell over several ranks, one process per card: a tiny DCN cell whose
 adapter (``sharded_dcn.py``) steps over row-sharded tables, from a test
 root, through the launcher over 2 gloo ranks on the CPU (``-m cuda``: over
-NCCL on up to 4 cards). Each launch has a limit of 100 s and each
-collective one of 60 s, so that a hung rank fails the test instead of
+NCCL on up to 4 cards), with Adam's rules and with plain SGD; and
+``readings.py`` over the same ranks. Each launch has a limit of 100 s and
+each collective one of 60 s, so that a hung rank fails the test instead of
 eating the suite's time. Also: a one-card cell starts no process and joins
 no group, and the rows of a configuration without ``row_draw`` are the
 whole-table draw they always were."""
@@ -19,14 +20,17 @@ from benchlib import inputs, ranks, result, runner
 from benchlib.files import Files
 from benchlib.program import SparseProgram
 
-from conftest import BENCH, TINY
+from conftest import BENCH, SGD, TINY
 
 LIMIT_S = 100
 COLLECTIVE_S = 60
 SEED = 2 ** 31 + 77
 SECONDS = 0.5
-CONFIGS = {"dcn_sharded": None, "dcn_sharded_fault": "scale_rank1",
-           "dcn_sharded_dies": "rank1_exits"}
+# configuration -> (the adapter's FAULT, what the configuration sets)
+CONFIGS = {"dcn_sharded": (None, {}),
+           "dcn_sharded_fault": ("scale_rank1", {}),
+           "dcn_sharded_dies": ("rank1_exits", {}),
+           "dcn_sharded_sgd": (None, SGD)}
 TRAIN_METRICS = ("train_examples_per_s", "setup_s")
 
 
@@ -35,24 +39,29 @@ def _cell(config, chips):
             "traffic": "train_zipf", "chips": chips, "why": "test"}
 
 
-def _root(tmp, bench, cells):
-    """A test root with the sharded configurations, the tiny training mix
-    and the DCN training limits; returns its ``Files`` over ``cells``."""
+def _root(tmp, bench, cells, cut=None, mix_cut=None, limits=None):
+    """A test root with the sharded configurations (``cut`` in place of the
+    tiny widths' table sizes and more), the tiny training mix (with
+    ``mix_cut``) and the DCN training limits (or ``limits``); returns its
+    ``Files`` over ``cells``."""
     for d in ("configs", "models", "traffic", "limits"):
         (tmp / d).mkdir()
-    cfg = json.loads((BENCH / "configs" / "dcn_criteo.json").read_text())
-    cfg.update(TINY["dcn_criteo"], row_draw="chunked")
+    base = json.loads((BENCH / "configs" / "dcn_criteo.json").read_text())
+    base.update(TINY["dcn_criteo"] if cut is None else cut,
+                row_draw="chunked")
     adapter = (BENCH / "tests" / "sharded_dcn.py").read_text()
-    for name, fault in CONFIGS.items():
+    for name, (fault, extra) in CONFIGS.items():
+        cfg = dict(base, **extra)
         (tmp / "configs" / f"{name}.json").write_text(json.dumps(cfg))
         (tmp / "models" / f"{name}.py").write_text(
             adapter + f"\nFAULT = {fault!r}\n")
     mix = json.loads((BENCH / "traffic" / "train_zipf.json").read_text())
-    mix.update(batch=64, pool_batches=4)
+    mix.update(mix_cut or dict(batch=64, pool_batches=4))
     (tmp / "traffic" / "train_zipf.json").write_text(json.dumps(mix))
-    limits = (BENCH / "limits" / "dcn_criteo.train_zipf.json").read_text()
+    text = (json.dumps(limits) if limits is not None else
+            (BENCH / "limits" / "dcn_criteo.train_zipf.json").read_text())
     for c in cells:
-        (tmp / "limits" / f"{c['name']}.json").write_text(limits)
+        (tmp / "limits" / f"{c['name']}.json").write_text(text)
     names = [c["name"] for c in cells]
     test_bench = {
         "workloads": cells,
@@ -65,7 +74,8 @@ def _root(tmp, bench, cells):
 
 
 CELLS = [_cell("dcn_sharded", 1), _cell("dcn_sharded", 2),
-         _cell("dcn_sharded_fault", 2), _cell("dcn_sharded_dies", 2)]
+         _cell("dcn_sharded_fault", 2), _cell("dcn_sharded_dies", 2),
+         _cell("dcn_sharded_sgd", 1), _cell("dcn_sharded_sgd", 2)]
 
 
 @pytest.fixture(scope="module")
@@ -254,3 +264,85 @@ def test_the_sharded_cell_over_nccl(tmp_path, bench, capfd):
         if trace:
             assert lines[0]["device"]["busy_s"] > 0
             assert "launches_per_step.train" in lines[0]["metrics"]
+
+
+def test_two_ranks_with_sgd_print_one_correct_line_with_the_one_rank_checks(
+        sharded, capfd):
+    """The sharded adapter with plain SGD on the tables and the towers."""
+    one = runner.run(sharded, CELLS[4], SEED, SECONDS, False, "cpu", 0.0)
+    assert one["correct"] is True, one["checks"]
+    rc, lines, err, _ = _launch(sharded, CELLS[5], capfd)
+    assert rc == 0, err[-4000:]
+    assert len(lines) == 1 and lines[0]["correct"] is True, lines
+    for k, c in lines[0]["checks"].items():
+        assert c["value"] == pytest.approx(one["checks"][k]["value"],
+                                           abs=1e-6), k
+
+
+def _readings(files, cell, seeds, capfd, device="cpu"):
+    import readings
+    rc = readings.main(["--workload", cell["name"], "--seeds",
+                        *map(str, seeds), "--device", device], files=files,
+                       limit_s=LIMIT_S, collective_s=COLLECTIVE_S)
+    lines, err = _lines(capfd)
+    return rc, lines, err
+
+
+@pytest.mark.parametrize("cell", [CELLS[1], CELLS[5]],
+                         ids=lambda c: c["config"])
+def test_readings_over_two_ranks_print_a_line_a_seed_with_the_runs_checks(
+        sharded, cell, capfd):
+    rc, lines, err = _readings(sharded, cell, [SEED, SEED + 1], capfd)
+    assert rc == 0, err[-4000:]
+    assert [x["seed"] for x in lines] == [SEED, SEED + 1]
+    for x in lines:
+        assert {"program", "reference_f32", "control_tf32",
+                "fault_half_batch", "missing_ids", "fill_unplaced",
+                "losses"} <= set(x)
+        assert x["missing_ids"] == {}
+    rc, run_lines, err, _ = _launch(sharded, cell, capfd)
+    assert rc == 0 and len(run_lines) == 1, err[-4000:]
+    for k, c in run_lines[0]["checks"].items():
+        assert lines[0]["program"][k] == c["value"], k
+
+
+def test_readings_with_a_rank_that_exits_early_print_no_line(sharded,
+                                                              capfd):
+    t0 = time.perf_counter()
+    rc, lines, err = _readings(sharded, CELLS[3], [SEED], capfd)
+    assert rc != 0 and lines == [] and "no result" in err
+    assert time.perf_counter() - t0 < LIMIT_S + 10
+
+
+@pytest.mark.cuda
+def test_readings_over_nccl(tmp_path, bench, capfd):
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards or more")
+    cell = _cell("dcn_sharded_sgd", min(torch.cuda.device_count(), 4))
+    files = _root(tmp_path, bench, [cell])
+    limits = files.limits(cell["name"])
+    rc, lines, err = _readings(files, cell, [SEED, SEED + 1], capfd, "cuda")
+    assert rc == 0, err[-4000:]
+    assert [x["seed"] for x in lines] == [SEED, SEED + 1]
+    for x in lines:
+        assert all(x["program"][k] <= v for k, v in limits.items()), x
+        assert x["missing_ids"] == {}
+
+
+def test_readings_of_a_one_card_cell_start_no_process(tiny, capfd):
+    """A one-card cell's readings stay in this process, and its program
+    numbers are the run's own check numbers for the seed."""
+    files, cells = tiny
+    cell = cells["dcn_criteo.train_zipf"]
+
+    def refuse(*a, **k):
+        raise AssertionError("a one-card cell started a process or a group")
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(subprocess, "Popen", refuse)
+        mp.setattr(dist, "init_process_group", refuse)
+        rc, lines, err = _readings(files, cell, [SEED], capfd)
+    assert rc == 0 and len(lines) == 1, err[-4000:]
+    out = runner.run(files, cell, SEED, SECONDS, False, "cpu", 0.0)
+    for k, c in out["checks"].items():
+        assert lines[0]["program"][k] == c["value"], k

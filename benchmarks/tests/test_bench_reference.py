@@ -135,7 +135,7 @@ def test_training_steps_of_a_linear_model_by_hand():
         forward, {"w": torch.tensor([2.0])},
         [{"ids": {"t": ids}, "features": np.zeros(3), "labels": labels}],
         lambda name, x: torch.tensor([[rows[int(i)]] for i in x]),
-        {"rule": "adam", "lr": 0.1}, 0.1)
+        {"rule": "adam", "lr": 0.1}, {"rule": "adam", "lr": 0.1})
     x = np.array([rows[int(i)] for i in ids])
     sig = 1 / (1 + np.exp(-2.0 * x))
     assert out["losses"][0] == pytest.approx(float(np.mean(
@@ -160,3 +160,87 @@ def test_the_references_import_nothing_of_the_program():
         text = path.read_text()
         assert "tfplus_tpu" not in text.replace("``tfplus_tpu_torch``", "")
         assert "import jax" not in text
+
+
+@pytest.mark.parametrize("name", sorted(sparse.RULES))
+def test_each_rules_port_keeps_its_slot_width(name):
+    """The rule table names the port's constructor and its slot width, the
+    one place the benchmark knows the width from (``rows_bytes`` too)."""
+    from tfplus_tpu_torch import train
+    from benchlib.program import _kwargs
+    rule = sparse.RULES[name]
+    spec = {"b1": 0.9, "b2": 0.999, "eps": 1e-8, "l1": 0.0, "l2": 0.0,
+            "l21": 0.0}
+    opt = getattr(train, rule.port)(**_kwargs(rule, spec))
+    assert opt.rule.slot_width == rule.width
+    assert {"sgd": 0, "adam": 2, "group_adam": 3}[name] == rule.width
+
+
+def test_sgd_rows_against_the_ports_gradient_descent():
+    """The reference's SGD on a small table's touched rows against the
+    port's ``GradientDescentOptimizer``; untouched rows stay as they were."""
+    from tfplus_tpu_torch import kv, train
+    from benchlib import inputs
+    dim, lr = 4, 0.5
+    table = kv.create(dim, 64, device="cpu")
+    ids = torch.arange(1, 21, dtype=torch.int64)
+    rows = torch.randn(20, dim)
+    kv.insert(table, inputs.encode(ids), rows)
+    opt = train.GradientDescentOptimizer()
+    table = opt.init(table)
+    touched = torch.tensor([3, 7, 8, 15])
+    g = torch.randn(4, dim)
+    slot = kv.find(table, inputs.encode(touched)).slot
+    opt.apply(table, slot, g, lr=lr, step=1)
+    want, slots, black = sparse.sgd_rows(rows[touched - 1], rows.new_zeros(
+        (4, 0)), g, lr, 1)
+    assert black is None and slots.shape == (4, 0)
+    held = table.payload[kv.find(table, inputs.encode(ids)).slot.long()]
+    assert torch.equal(held[touched - 1], want)
+    rest = torch.ones(20, dtype=torch.bool)
+    rest[touched - 1] = False
+    assert torch.equal(held[rest], rows[rest])
+
+
+@pytest.mark.parametrize("name", sorted(sparse.DENSE_RULES))
+def test_dense_rules_against_torch_optim(name):
+    """Three steps of the reference's dense rule against ``torch.optim``'s
+    class of the same rule, in float64."""
+    rule = sparse.DENSE_RULES[name]
+    gen = torch.Generator().manual_seed(3)
+    p0 = torch.randn(5, 3, generator=gen, dtype=torch.float64)
+    grads = [torch.randn(5, 3, generator=gen, dtype=torch.float64)
+             for _ in range(3)]
+    p = torch.nn.Parameter(p0.clone())
+    opt = getattr(torch.optim, rule.port)([p], lr=0.3)
+    ref, state = p0.clone(), None
+    for t, g in enumerate(grads, start=1):
+        p.grad = g.clone()
+        opt.step()
+        ref, state = rule.update(ref, state, g, 0.3, t)
+    torch.testing.assert_close(p.detach(), ref, rtol=1e-13, atol=1e-15)
+
+
+def test_an_unknown_rule_raises_before_any_table_is_built(tiny):
+    """Sparse or dense, a rule the benchmark does not know raises a
+    ValueError that names it, in the program before the adapter builds a
+    table and in the reference's training."""
+    from benchlib.program import SparseProgram
+    files, _ = tiny
+    cfg = files.config("dcn_criteo")
+    mix = files.traffic("train_zipf")
+
+    class Adapter:
+        def tables(self, cfg):
+            raise AssertionError("a table was built")
+
+    for key, rule in (("sparse_optimizer", "adagrad"),
+                      ("dense_optimizer", "rmsprop")):
+        bad = dict(cfg, **{key: dict(cfg[key], rule=rule)})
+        with pytest.raises(ValueError, match=rule):
+            SparseProgram(Adapter(), bad, mix, 1, "cpu")
+    batch = {"ids": {"t": np.array([1])}, "features": np.zeros(1),
+             "labels": np.zeros(1)}
+    with pytest.raises(ValueError, match="adagrad"):
+        sparse.train(None, {}, [batch], None, {"rule": "adagrad", "lr": 1.0},
+                     {"rule": "sgd", "lr": 1.0})
