@@ -35,7 +35,14 @@ failed check:
    the four insert counters bit for bit, and at the lookups the payload a
    card ``lookup_or_insert`` leaves equal to its rows before with the
    misses' initial rows scattered by the plain scatter; each timed beside
-   the rounds and its byte bound.
+   the rounds and its byte bound. Then the probe kernel
+   (``ops/csrc/probe.cu``) against the table's plain find
+   (``kv.table._find_plain``) at a DCN table's lookup (2,048 ids into 2^20
+   rows holding 2^18 keys) and BST's item table's (12,288 ids into 2^23
+   rows holding 2^21), 5 % fresh: every output and the ``probed`` and
+   ``found`` counts bit for bit, with and without ``valid`` and the pad
+   plane, one launch a call; timed beside the plain version and its byte
+   bound.
 3. Embedding serving (the bench's serving-leg shape): a 1M-row dim-128
    table filled by ``lookup_or_insert`` of 32,768 ids, then repeated
    ``lookup_or_zeros`` of those ids and their reversal.
@@ -678,12 +685,82 @@ def claim_phase(torch, np, kv):
     return cases
 
 
+# the probe phase's shapes: (capacity, resident keys, ids, fresh share)
+PROBE_SHAPES = {"dcn_lookup": (1 << 20, 1 << 18, BATCH, 0.05),
+                "bst_item_lookup": (1 << 23, 1 << 21, 6 * BATCH, 0.05)}
+
+
+def probe_case(torch, np, kv, name, capacity, resident, n, fresh):
+    """One probe-phase shape: ``find`` on the card (the probe kernel)
+    against the plain find on the same card tensors (every output and the
+    ``probed``/``found`` counts bit for bit, with and without the pad
+    plane), both timed from a cold L2 (the plain version with its two
+    count reads)."""
+    from tfplus_tpu_torch.kv import hashing
+    from tfplus_tpu_torch.kv import table as kt
+    from tfplus_tpu_torch.ops import probe
+    from tfplus_tpu_torch.utils import profiling
+    rng = np.random.RandomState(sorted(PROBE_SHAPES).index(name) + 11)
+    t = kv.create(CLAIM_DIM, capacity, init_pool_rows=10000, seed=1,
+                  device=DEV)
+    keys = rng.permutation(np.unique(rng.randint(
+        1, 1 << 62, resident + n + 64, dtype=np.int64)))
+    old, new = keys[:resident], keys[resident:]
+    kv.insert(t, hashing.encode_ids(old, device=DEV),
+              torch.zeros((resident, CLAIM_DIM), device=DEV))
+    n_new = int(round(n * fresh))
+    q = hashing.encode_ids(np.concatenate([old[:n - n_new], new[:n_new]]),
+                           device=DEV)
+    valid = torch.from_numpy(rng.rand(n) < 0.95).to(DEV)
+    for args in ((None, False), (valid, True)):
+        runs = {}
+        for key, fn in (("plain", kt._find_plain), ("kernel", kv.find)):
+            profiling.reset_counters()
+            before = probe.probe.launches
+            fr = fn(t, q, args[0], want_pad=args[1])
+            torch.cuda.synchronize()
+            c = profiling.counters()
+            runs[key] = (fr, (c["probed"], c["found"]),
+                         probe.probe.launches - before)
+        (f0, c0, l0), (f1, c1, l1) = runs["plain"], runs["kernel"]
+        check(l0 == 0 and l1 == 1,
+              f"probe {name}: launches plain {l0}, kernel {l1}")
+        for field, a, b in zip(kt.FindResult._fields, f0, f1):
+            check((a is None and b is None) or (
+                a.dtype == b.dtype and torch.equal(a, b)),
+                f"probe {name}: the kernel's {field} differs")
+        check(c0 == c1 and c1[1] <= c1[0],
+              f"probe {name}: counts differ: {c0} {c1}")
+        if args[0] is None:
+            probed, found = c1
+    times = time_turns(torch, {"kernel": lambda: kv.find(t, q),
+                               "plain": lambda: kt._find_plain(t, q)})
+    # each key's words, its two buckets' key and meta planes read once,
+    # slot, found, insert slot and meta written once
+    nbytes = n * (8 + 2 * 3 * 64 + 4 + 1 + 4 + 8)
+    out = {"ids": n, "capacity": capacity, "probed": probed, "found": found,
+           "ms": times["kernel"], "plain_ms": times["plain"],
+           "bound_ms": bound_ms(nbytes)}
+    del t
+    return out
+
+
+def probe_phase(torch, np, kv):
+    cases = {}
+    for name, shape in PROBE_SHAPES.items():
+        cases[name] = c = probe_case(torch, np, kv, name, *shape)
+        print("probe case", name, json.dumps(c), flush=True)
+        torch.cuda.empty_cache()
+    return cases
+
+
 def _wrappers():
-    from tfplus_tpu_torch.ops import claim, compactor, rowops
+    from tfplus_tpu_torch.ops import claim, compactor, probe, rowops
     from tfplus_tpu_torch.ops import flash_attention as fa
     return {"gather_rows": rowops.gather_rows,
             "scatter_rows": rowops.scatter_rows,
             "claim_insert": claim.claim_insert,
+            "probe": probe.probe,
             "flash_fwd": fa.flash_fwd, "flash_fwd_single": fa.flash_fwd_single,
             "flash_bwd_dkv": fa.flash_bwd_dkv,
             "flash_bwd_dq": fa.flash_bwd_dq,
@@ -5602,6 +5679,8 @@ def main() -> int:
     cases = kernel_phase(torch, rowops)
     claim_cases = claim_phase(torch, np, kv)
     peak_memory(torch, "claim kernel")
+    probe_cases = probe_phase(torch, np, kv)
+    peak_memory(torch, "probe kernel")
     attn_cases, bench = attention_phase(torch, np, fa)
     bwd_cases, bench_grads = attention_backward_phase(torch, np, fa, bench)
     head_dim_phase(torch, np, fa)
@@ -5720,6 +5799,22 @@ def main() -> int:
         "cases": {n: [c["ms"], c["plain_ms"], c["bound_ms"], c["rounds"],
                       c["listed"]] for n, c in claim_cases.items()},
         "cases_columns": ["ms", "plain_ms", "bound_ms", "rounds", "listed"]})
+    check(dcn_train[0]["probe"] > 0 and bst_train[0]["probe"] > 0,
+          f"a training path did not launch the probe kernel: "
+          f"{dcn_train[0]} {bst_train[0]}")
+    kernels.append({
+        "name": "probe", "route": "cuda", "source": CSRC + "probe.cu",
+        "replaces": "none: find of tfplus_tpu/kv/table.py (XLA code)",
+        "launches": launches["probe"],
+        "launches_dcn_training": dcn_train[0]["probe"],
+        "launches_bst_training": bst_train[0]["probe"],
+        "max_abs_err": 0.0, "ms": probe_cases["dcn_lookup"]["ms"],
+        "plain_ms": probe_cases["dcn_lookup"]["plain_ms"],
+        "bound_ms": probe_cases["dcn_lookup"]["bound_ms"],
+        "bound_by": "bytes",
+        "cases": {n: [c["ms"], c["plain_ms"], c["bound_ms"], c["probed"],
+                      c["found"]] for n, c in probe_cases.items()},
+        "cases_columns": ["ms", "plain_ms", "bound_ms", "probed", "found"]})
     check(all(e["launches"] > 0 for e in kernels),
           f"a kernel was not launched on its path: {kernels}")
     # the distributed tier's paths (phases 23-24) launch rows 1-6

@@ -38,6 +38,7 @@ new = {"tfplus_tpu_torch.ops.rowops", "tfplus_tpu_torch.ops.flash_attention",
        "tfplus_tpu_torch.checkpoint.repartition", "tfplus_tpu_torch.io",
        "tfplus_tpu_torch.io.filesystem", "tfplus_tpu_torch.utils.progress",
        "tfplus_tpu_torch.ops.compactor", "tfplus_tpu_torch.ops.claim",
+       "tfplus_tpu_torch.ops.probe",
        "tfplus_tpu_torch.config",
        "tfplus_tpu_torch.kv.quant", "tfplus_tpu_torch.variables",
        "tfplus_tpu_torch.serving", "tfplus_tpu_torch.models.dlrm",

@@ -12,7 +12,8 @@ import pytest
 import torch
 
 from tfplus_tpu_torch import embedding, kv, models, train
-from tfplus_tpu_torch.ops import claim
+from tfplus_tpu_torch.kv import hashing
+from tfplus_tpu_torch.ops import claim, probe
 from tfplus_tpu_torch.utils import profiling
 
 TABLES = ("C1", "C2", "C3")
@@ -217,22 +218,26 @@ def test_counters_add_up_across_threads():
 
 
 def test_device_counts_fold_into_counters():
-    """Counts a kernel adds into a device's buffer (here the CPU's, added
+    """Counts kernels add into a device's buffer (here the CPU's, added
     as tensors) appear in ``counters()`` beside the host's counts, keep
-    ``misses == inserted + unplaced``, and ``reset_counters()`` zeros
-    both."""
+    ``misses == inserted + unplaced`` and ``found <= probed``, and
+    ``reset_counters()`` zeros both."""
     profiling.reset_counters()
-    profiling.count(misses=5, claim_rounds=2, inserted=4, unplaced=1)
+    profiling.count(misses=5, claim_rounds=2, inserted=4, unplaced=1,
+                    probed=2, found=1)
     buf = profiling.device_counts("cpu")
     assert buf is profiling.device_counts(torch.device("cpu"))
     assert buf.dtype == torch.int64
     assert buf.shape == (len(profiling.DEVICE_COUNTERS),)
-    buf.add_(torch.tensor([7, 3, 6, 1]))
+    # the claim insert's four, then the probe's two
+    assert profiling.DEVICE_COUNTERS[4:] == ("probed", "found")
+    buf.add_(torch.tensor([7, 3, 6, 1, 9, 4]))
     buf[profiling.DEVICE_COUNTERS.index("claim_rounds")] += torch.tensor(2)
     c = profiling.counters()
     assert (c["misses"], c["claim_rounds"], c["inserted"],
             c["unplaced"]) == (12, 7, 10, 2)
     assert c["misses"] == c["inserted"] + c["unplaced"]
+    assert (c["probed"], c["found"]) == (11, 5)
     assert set(c) == set(profiling.COUNTERS)
     profiling.reset_counters()
     assert set(profiling.counters().values()) == {0}
@@ -249,3 +254,45 @@ def test_claim_kernel_takes_card_tensors_only():
     with pytest.raises(ValueError, match="CUDA"):
         claim.claim_insert(header, q, need, 32)
     assert claim.claim_insert.launches == launches
+
+
+def test_probe_kernel_takes_card_tensors_only():
+    """The probe kernel's wrapper refuses CPU tensors (the table runs its
+    plain find there) and launches nothing."""
+    header = kv.table._empty_header(4, "cpu")
+    q = torch.zeros((3, 2), dtype=torch.int32)
+    launches = probe.probe.launches
+    for valid in (None, torch.ones((3,), dtype=torch.bool)):
+        with pytest.raises(ValueError, match="CUDA"):
+            probe.probe(header, q, valid)
+    assert probe.probe.launches == launches
+
+
+def test_find_counts_probed_and_found():
+    """``find`` on the CPU counts the valid keys it probed and the keys it
+    found: of keys half of which the table holds, exactly half, and
+    reserved ids and keys ``valid`` leaves out in neither."""
+    rng = np.random.RandomState(11)
+    t = kv.create(4, 1 << 10, device="cpu")
+    ids = np.unique(rng.randint(1, 1 << 40, 400).astype(np.int64))[:300]
+    held = hashing.encode_ids(ids[::2], device="cpu")
+    kv.insert(t, held, torch.zeros((held.shape[0], 4)))
+    q = hashing.encode_ids(ids, device="cpu")
+    profiling.reset_counters()
+    fr = kv.find(t, q)
+    c = profiling.counters()
+    assert (c["probed"], c["found"]) == (300, 150)
+    assert int(fr.found.sum()) == 150
+    # reserved ids (EMPTY, TOMBSTONE) and keys left out are not probed
+    q2 = torch.cat([q, torch.tensor([[hashing.EMPTY_LO, hashing.EMPTY_HI],
+                                     [hashing.TOMB_LO, hashing.TOMB_HI]],
+                                    dtype=torch.int32)])
+    valid = torch.ones((q2.shape[0],), dtype=torch.bool)
+    valid[:100] = False
+    profiling.reset_counters()
+    fr = kv.find(t, q2, valid)
+    c = profiling.counters()
+    assert c["probed"] == 200 and c["found"] == 100
+    assert c["found"] <= c["probed"]
+    assert not bool(fr.found[:100].any() or fr.found[-2:].any())
+    profiling.reset_counters()

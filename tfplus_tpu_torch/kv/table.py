@@ -19,8 +19,11 @@ import (:func:`import_arrays` with ``clear=True``) return a NEW table: the
 header and payload are reallocated at the new capacity, and the old table's
 tensors must not be used for the new one.
 
-Device syncs. On the card, the claim insert of ``lookup_or_insert`` and
-``_claim_insert`` (the JAX package's ``lax.while_loop``) is one launch of
+Device syncs. On the card, :func:`find` is one launch of
+:func:`tfplus_tpu_torch.ops.probe.probe` and reads nothing back; on the
+CPU it runs :func:`_find_plain`, the kernel's plain version. On the card,
+the claim insert of ``lookup_or_insert`` and ``_claim_insert`` (the JAX
+package's ``lax.while_loop``) is one launch of
 :func:`tfplus_tpu_torch.ops.claim.claim_insert`: every round and the counts
 run on the device, the misses' initial rows are one ungated row scatter,
 and nothing is read back. On the CPU the rounds are Python control flow
@@ -31,8 +34,9 @@ placed (the initial-row gate), and the unplaced count once more only when
 every round ran. On both, the doubling's spill gate reads one boolean and
 growth reads the live count before and after each rebuild. The counts feed
 :func:`~tfplus_tpu_torch.utils.profiling.counters` (``misses``,
-``claim_rounds``, ``inserted``, ``unplaced``), from the host on the CPU and
-from the device counter buffer on the card.
+``claim_rounds``, ``inserted``, ``unplaced``, and the probe's ``probed``
+and ``found``), from the host on the CPU and from the device counter
+buffer on the card.
 """
 from __future__ import annotations
 
@@ -44,7 +48,7 @@ import numpy as np
 import torch
 
 from . import hashing
-from ..ops import claim, rowops
+from ..ops import claim, probe, rowops
 from ..utils import device as _dev
 from ..utils import packing, profiling
 
@@ -327,27 +331,42 @@ def find(table: KvTable, q: torch.Tensor,
     """Probe both candidate buckets of each query key (int32[N, 2]).
     ``want_pad`` also returns the found slots' pad-lane words, read from
     the same bucket rows. Reads only ``table.header``, so an int8
-    ``QuantKvTable`` probes through it too."""
+    ``QuantKvTable`` probes through it too. On the card one launch of
+    :func:`tfplus_tpu_torch.ops.probe.probe`, on the CPU
+    :func:`_find_plain`; both count ``probed`` and ``found``."""
     with profiling.annotate("tfp::probe"):
-        valid = _valid_keys(q, valid)
-        b1, b2 = hashing.bucket_choices(q, table.capacity)
-        mj1, fj1, meta1, pad1 = _bucket_scan(table.header[b1], q, valid,
-                                             want_pad)
-        mj2, fj2, meta2, pad2 = _bucket_scan(table.header[b2], q, valid,
-                                             want_pad)
-        f1 = mj1 < _B
-        f2 = mj2 < _B
-        found = f1 | f2
-        slot = torch.where(f1, b1 * _B + mj1,
-                           torch.where(f2, b2 * _B + mj2, -1))
-        meta = torch.where(f1, meta1, meta2)
-        pad = torch.where(f1, pad1, pad2) if want_pad else None
-        hf1 = fj1 < _B
-        has_free = (hf1 | (fj2 < _B)) & valid
-        ins = torch.where(has_free,
-                          torch.where(hf1, b1 * _B + fj1, b2 * _B + fj2), -1)
-        return FindResult(slot=slot.to(torch.int32), found=found,
-                          insert_slot=ins.to(torch.int32), meta=meta, pad=pad)
+        if table.header.is_cuda:
+            return FindResult(*probe.probe(table.header, q, valid, want_pad))
+        return _find_plain(table, q, valid, want_pad=want_pad)
+
+
+def _find_plain(table: KvTable, q: torch.Tensor,
+                valid: Optional[torch.Tensor] = None, *,
+                want_pad: bool = False) -> FindResult:
+    """:func:`find` as eager tensor ops: the CPU path, and the plain version
+    of the probe kernel (``ops/csrc/probe.cu``), which gives the same
+    result bit for bit. Counts ``probed`` and ``found`` with one host read
+    each."""
+    valid = _valid_keys(q, valid)
+    b1, b2 = hashing.bucket_choices(q, table.capacity)
+    mj1, fj1, meta1, pad1 = _bucket_scan(table.header[b1], q, valid,
+                                         want_pad)
+    mj2, fj2, meta2, pad2 = _bucket_scan(table.header[b2], q, valid,
+                                         want_pad)
+    f1 = mj1 < _B
+    f2 = mj2 < _B
+    found = f1 | f2
+    slot = torch.where(f1, b1 * _B + mj1,
+                       torch.where(f2, b2 * _B + mj2, -1))
+    meta = torch.where(f1, meta1, meta2)
+    pad = torch.where(f1, pad1, pad2) if want_pad else None
+    hf1 = fj1 < _B
+    has_free = (hf1 | (fj2 < _B)) & valid
+    ins = torch.where(has_free,
+                      torch.where(hf1, b1 * _B + fj1, b2 * _B + fj2), -1)
+    profiling.count(probed=int(valid.sum()), found=int(found.sum()))
+    return FindResult(slot=slot.to(torch.int32), found=found,
+                      insert_slot=ins.to(torch.int32), meta=meta, pad=pad)
 
 
 def _miss_gate(need: torch.Tensor) -> int:

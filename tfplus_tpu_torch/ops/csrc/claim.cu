@@ -47,7 +47,8 @@
 // row: ~0.2 MB for a DCN table a step, 0.06 us at 3.35 TB/s), but each
 // round is three dependent trips to L2 (read, bid, adopt) behind grid
 // barriers. The design keeps every round on the device and touches only
-// the listed keys.
+// the listed keys. The hashing is kv_hash.cuh's, which the probe kernel
+// (probe.cu) shares.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -55,14 +56,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "kv_hash.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 512;
-constexpr int32_t kEmptyLo = -1;
-constexpr int32_t kTombLo = -2;
-constexpr int32_t kFreeHi = -1;
 constexpr int kMaxDevices = 64;
 
 // control words at the head of the scratch buffer
@@ -94,22 +94,6 @@ struct Args {
   int64_t dim;
   int dtype;
 };
-
-__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return h;
-}
-
-// kv/hashing.py `hash_words`
-__device__ __forceinline__ uint32_t hash_words(uint32_t lo, uint32_t hi,
-                                               uint32_t seed) {
-  const uint32_t h = fmix32(lo + seed);
-  return fmix32(h ^ (hi * 0x9E3779B9u) ^ (seed * 0x01000193u));
-}
 
 __device__ __forceinline__ int64_t slot_of(int j, uint32_t b1, uint32_t b2) {
   return j < 16 ? static_cast<int64_t>(b1) * 16 + j
@@ -184,8 +168,8 @@ __device__ void init_rows(const Args& a, int32_t count, int64_t warp,
     const int32_t* key = a.q + 2 * static_cast<int64_t>(i);
     const uint32_t lo = static_cast<uint32_t>(key[0]);
     const uint32_t hi = static_cast<uint32_t>(key[1]);
-    const int64_t r1 = hash_words(lo, hi, 0x1B873593u) % a.pool_rows;
-    const int64_t r2 = hash_words(lo, hi, 0xCC9E2D51u) % a.pool_rows;
+    const int64_t r1 = kvh::hash_words(lo, hi, 0x1B873593u) % a.pool_rows;
+    const int64_t r2 = kvh::hash_words(lo, hi, 0xCC9E2D51u) % a.pool_rows;
     init_row<T>(pool, rows + static_cast<int64_t>(i) * a.width, r1, r2,
                 a.dim, a.width, lane);
   }
@@ -226,14 +210,10 @@ __global__ void __launch_bounds__(kThreads) claim_kernel(Args a) {
     off = __shfl_sync(0xffffffffu, off, leader);
     if (nd) {
       const int64_t k = off + __popc(m & below);
-      const uint32_t lo = static_cast<uint32_t>(a.q[2 * i]);
-      const uint32_t hi = static_cast<uint32_t>(a.q[2 * i + 1]);
-      const uint32_t c1 = hash_words(lo, hi, 0x2545F491u) & a.bucket_mask;
-      uint32_t c2 = hash_words(lo, hi, 0x6A09E667u) & a.bucket_mask;
-      if (c2 == c1) c2 = (c2 + 1) & a.bucket_mask;
       a.list[k] = static_cast<int32_t>(i);
-      a.b1[k] = c1;
-      a.b2[k] = c2;
+      kvh::bucket_choices(static_cast<uint32_t>(a.q[2 * i]),
+                          static_cast<uint32_t>(a.q[2 * i + 1]),
+                          a.bucket_mask, &a.b1[k], &a.b2[k]);
     }
   }
   grid.sync();
@@ -252,7 +232,7 @@ __global__ void __launch_bounds__(kThreads) claim_kernel(Args a) {
         const int64_t s = slot_of(j, __ldcg(&a.b1[k]), __ldcg(&a.b2[k]));
         const int32_t lo = __ldcg(&a.header[lo_pos(s)]);
         const int32_t hi = __ldcg(&a.header[hi_pos(s)]);
-        if (hi == kFreeHi && (lo == kEmptyLo || lo == kTombLo)) {
+        if (kvh::is_free(lo, hi)) {
           atomicMin(&a.claim[s], i);
           bid = 1;
         }

@@ -16,7 +16,8 @@ otherwise. Their names are fixed:
 ``tfp::feed``          host inputs (ids, features, labels) to the device
 ``tfp::lookup``        one table's lookup (``embedding.lookup_unique``)
 ``tfp::dedup``         ``kv.unique_with_counts``
-``tfp::probe``         ``kv.find``: both bucket scans
+``tfp::probe``         ``kv.find``: both bucket scans (on the card one
+                       probe kernel launch)
 ``tfp::insert``        placing a lookup's misses: claim rounds, initial
                        rows, meta write (on the CPU only when the batch
                        has misses; on the card always: one claim launch,
@@ -32,8 +33,9 @@ otherwise. Their names are fixed:
 
 :func:`counters` counts, always and at the cost of a host integer add, what
 the host already holds, and what kernels add on the device into the buffer
-of :func:`device_counts` (the claim insert's counts on the card), which it
-reads once a device only when asked; :func:`reset_counters` zeros both.
+of :func:`device_counts` (the claim insert's and the probe's counts on the
+card), which it reads once a device only when asked;
+:func:`reset_counters` zeros both.
 """
 from __future__ import annotations
 
@@ -91,17 +93,22 @@ COUNTERS = (
     "unique_ids",    # valid unique ids dedup found
     "misses",        # ids a claim insert had to place: a training
                      # lookup's misses, and a table load's or rehash's
-                     # new keys (serving's misses are not counted: that
-                     # would need a device read)
+                     # new keys (a serving lookup places none: its misses
+                     # are probed - found)
     "claim_rounds",  # claim rounds run
     "inserted",      # misses placed
     "unplaced",      # misses left with no slot (both buckets full): a
                      # training lookup then reads zeros for them and does
                      # not update them
+    "probed",        # valid keys a probe (kv.find) looked for, in every
+                     # caller: lookups (serving's too), loads, deletes
+    "found",         # of those, the keys the table held: found / probed
+                     # is the probes' hit share
 )
 #: the counters kernels add on the device, in the order of the buffer of
-#: :func:`device_counts`
-DEVICE_COUNTERS = ("misses", "claim_rounds", "inserted", "unplaced")
+#: :func:`device_counts`: the claim insert's four, then the probe's two
+DEVICE_COUNTERS = ("misses", "claim_rounds", "inserted", "unplaced",
+                   "probed", "found")
 _counts = dict.fromkeys(COUNTERS, 0)
 _device_counts: Dict[torch.device, torch.Tensor] = {}
 _counts_lock = threading.Lock()
@@ -132,7 +139,7 @@ def device_counts(device) -> torch.Tensor:
 def counters() -> Dict[str, int]:
     """A snapshot of the process-wide counters, the device buffers folded
     in (one read a device that has one). ``misses == inserted + unplaced``
-    always holds."""
+    and ``found <= probed`` always hold."""
     with _counts_lock:
         out = dict(_counts)
         for buf in _device_counts.values():
