@@ -1,14 +1,13 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port (tfplus_tpu_torch) on one GPU and check it.
 
-    python3 chip_smoke.py                  # build, check and measure
-    python3 chip_smoke.py --profile DIR    # also writes torch.profiler tables
-                                           # of the serving and training
-                                           # paths to DIR
+    python3 chip_smoke.py
 
 Run from the repository root on a machine with one CUDA card and nvcc. It
-imports neither JAX nor the JAX package. Phases, each of which raises on a
-failed check:
+imports neither JAX nor the JAX package. It checks every path of the port
+and times each hand-written kernel alone, beside its bound, its plain
+version and one library call; it times no path (``benchmarks/run.py``
+measures the paths). Phases, each of which raises on a failed check:
 
 1. The card's name and power limit; the CUDA kernels are built from
    ``tfplus_tpu_torch/ops/csrc`` and the build time printed, with ptxas's
@@ -22,10 +21,8 @@ failed check:
    scatters) and at the payload widths the training paths give it at
    2,048 rows (f32 widths 3, 16, 48, 96, 192, 256 and 512: dim-1, DLRM's
    and NCF's tables with Adam's slots, BST's 3·64 and DCN's GroupAdam
-   4·D), rerun bit for bit, and timed beside it, beside the earlier kernels on
-   the same inputs (``earlier_ms``, ``csrc/rowops_earlier.cu``) and beside
-   one PyTorch call that computes the same function; each case prints the
-   launch plan (``rowops.plan``) that gather, set and add took.
+   4·D), rerun bit for bit, and timed beside it and beside one PyTorch
+   call that computes the same function; each case prints the launch plan (``rowops.plan``) that gather, set and add took.
    Then the claim-insert kernel (``ops/csrc/claim.cu``) against the
    table's Python claim rounds (``kv.table._claim_rounds``) on copies of
    one header, at the benchmark's shapes: a DCN table's training lookup
@@ -44,8 +41,8 @@ failed check:
    plane, one launch a call; timed beside the plain version and its byte
    bound.
 3. Embedding serving (the bench's serving-leg shape): a 1M-row dim-128
-   table filled by ``lookup_or_insert`` of 32,768 ids, then repeated
-   ``lookup_or_zeros`` of those ids and their reversal.
+   table filled by ``lookup_or_insert`` of 32,768 ids, then
+   ``lookup_or_zeros`` of those ids and of their reversal.
 4. DCN serving at the reference width: 26 tables of 1M rows, each filled
    with 2^19 keys through ``insert``, then batch-2048 requests through
    ``make_train_step(train=False)``, checked against a host-side map of what
@@ -62,15 +59,14 @@ failed check:
    single-pass kernel off BST: f32 B16 H8 D32 at Sq 1000 against Skv 128
    with q and kv segments that differ, bf16 B64 H8 S200 D16 with two
    segments, and without segments bf16 B64 H8 S192 D64 and S64 D128 (which
-   the dispatch sends to the tensor cores; forced here and timed beside
-   them); ``flash_attention_with_lse``'s residuals and its -inf on padding
-   rows. Each case records the route it took; at the bench shape the
-   CUDA-core kernel is also timed on the same bf16 inputs, and on the
-   single-pass cases the earlier single-pass kernel of flash_fwd.cu, as the
-   earlier routes; the single-pass kernel is also rerun bit for bit.
+   the dispatch sends to the tensor cores; forced here);
+   ``flash_attention_with_lse``'s residuals and its -inf on padding rows.
+   Each case records the route it took; the single-pass kernel is also
+   rerun bit for bit.
 6. Flash entry points: ``flash_attention(causal=True)`` and
-   ``flash_attention_with_lse`` at the bench's shape, every forward launch
-   on the tensor-core route.
+   ``flash_attention_with_lse`` at the bench's shape, once each, equal to
+   the checked kernel's output, every forward launch on the tensor-core
+   route.
 7. BST and DIN serving at published widths: an item table of 2^23 rows
    filled with 2^22 keys and a user table of 2^22 rows filled with 2^21,
    dim 64, then batch-2048 requests (histories of 1-20 items, 2 % of users
@@ -92,17 +88,15 @@ failed check:
    lengths in 512-2048; bf16 D16 S200 with two segments and padding, and
    f32 D32 at Sq 1000 against Skv 128 with q and kv segments that differ
    (single-pass). dk/dv and dq take the tensor-core route on the bf16 D128
-   cases and the CUDA-core one on the f32 ones; at the bench shape the
-   CUDA-core dk/dv and dq kernels are also timed on the same inputs, and on
-   the single-pass cases too (the earlier route). Then head dims the
+   cases and the CUDA-core one on the f32 ones. Then head dims the
    kernels take only padded (12, 60) or in 128-column chunks (136, 256):
    B1 H2 S200, causal with segments and non-causal, f32 and bf16, each
    forward (the route ``flash_attention`` takes) and the backward that
    ``_bwd_dispatch`` takes (single-pass at D 12 non-causal) held against
    the plain versions at the caller's D, with the routes recorded.
-9. ``flash_attention(causal=True)`` forward and backward x10 at the bench's
-   shape, in TFLOP/s counted as the JAX bench's ``grad=True`` leg, every
-   forward, dk/dv and dq launch on the tensor-core route.
+9. ``flash_attention(causal=True)`` forward and backward once at the
+   bench's shape, the gradients equal to the checked kernels', the
+   forward, dk/dv and dq launches on the tensor-core route.
 10. Training checks at the reference DCN's and BST's widths with tables of
    2^14 rows: three steps from one state on the card and on the CPU (headers
    and slots bit for bit, the rest within the stated tolerances), two runs
@@ -110,7 +104,8 @@ failed check:
    ten steps on one batch.
 11. DCN training at the reference width: 26 tables of 2^20 rows with
    GroupAdam's slot columns (payload 4·D), each filled with 2^19 keys, then
-   batch-2048 steps with 5 % unseen ids (GroupAdam 1e-3, dense Adam 1e-3).
+   batch-2048 steps with 5 % unseen ids (GroupAdam 1e-3, dense Adam 1e-3):
+   finite losses, and the kernels' launches per step.
 12. BST training at published widths: the item and user tables of phase 7
    with Adam's slot columns (payload 3·D), batch-2048 steps (Adam 0.01,
    dense Adam 0.01); every step launches the single-pass forward and the
@@ -132,7 +127,7 @@ failed check:
    bit for bit, then 5 more steps.
 16. One growth at reference size: a dim-128 GroupAdam table of 2^20 rows with
    2^19 keys grown to 2^21, then compacted after a third of its keys are
-   deleted, each timed against its byte bound and checked row for row.
+   deleted, each checked row for row.
 17. The serving API on DLRM at its Criteo Kaggle widths
    (facebookresearch/dlrm ``bench/dlrm_s_criteo_kaggle.sh``: 26 tables of
    dim 16, bottom MLP 13-512-256-64-16, top 512-256-1; cut to 2^20 rows
@@ -142,12 +137,12 @@ failed check:
    bit for bit against the CPU on the same int8 table, within max|row|/254
    of the f32 rows); three Adam steps of the live tables and a delta save;
    ``refresh_from_delta`` of both (f32 rows per key bit for bit with the
-   trainer's and no slot columns; int8 within the bound). Seconds and
-   GB/s of export, loads and refresh, and peak memory.
+   trainer's and no slot columns; int8 within the bound).
 18. The int8 lookup at the bench's serving-leg shape (a 2^20-row dim-128
    table filled with 32,768 ids): ``quantize_table`` bit for bit against
-   the CPU, ``quant.lookup_or_zeros`` of the ids and their reversal in
-   ids/s beside ``kv.lookup_or_zeros``, in turns. Then on that table each
+   the CPU, ``quant.lookup_or_zeros`` of the ids bit for bit against the
+   CPU and within the bound of ``kv.lookup_or_zeros``. Then on that table
+   each
    of the 7 ``scatter`` ops over 32,768 ids half present, ``get_count``,
    ``get_timestamp`` and a TTL eviction of a known share, against the same
    calls on a CPU copy bit for bit; and ``safe_embedding_lookup_sparse``
@@ -164,14 +159,12 @@ failed check:
    ``tfplus_tpu_torch/_build/native/``; the script fails if it does not
    build) and by the pure-Python parser, bit for bit, and read through
    ``build_binary_cache``, ``BinaryCriteoCache.batches(2048)`` and
-   ``CriteoLoader(threads=8)``, each in MB/s of the TSV. The reference DCN
-   of phase 11 (2^20-row GroupAdam tables, empty at the start) trains 16
-   batch-2048 steps from the cache four times from equal states, in
-   turns: through the per-leaf feed (28 pageable copies), through
-   ``data.make_packed_feed`` (one pinned buffer, one non-blocking copy,
-   unpacked on the card) twice, and per leaf again; losses and tables bit
-   for bit, examples/s, the feed's host ms per batch and the device µs of
-   its copies (CUDA events around each copy).
+   ``CriteoLoader(threads=8)`` (every row read). The reference DCN of
+   phase 11 (2^20-row GroupAdam tables, empty at the start) trains 16
+   batch-2048 steps from the cache four times from equal states: through
+   the per-leaf feed (28 pageable copies), through ``data.make_packed_feed``
+   (one pinned buffer, one non-blocking copy, unpacked on the card) twice,
+   and per leaf again; losses and tables bit for bit.
 21. The multi-table step (``models.make_train_step_multi``) at the
    reference DCN's widths: three steps on 2^14-row groups on the card
    against the CPU as in phase 10, and two runs from cloned states bit
@@ -181,9 +174,8 @@ failed check:
    forward, then 10 requests and 10 training steps (batch 2048, 5 %
    unseen ids) beside the per-table step on 26 tables of 2^19 rows holding
    the same keys and rows (built after the groups are freed; its
-   predictions equal the multi-table step's bit for bit): examples/s,
-   launches and ``aten::nonzero`` syncs per call from torch.profiler, and
-   row-kernel launches.
+   predictions equal the multi-table step's bit for bit): row-kernel
+   launches per request and the kernels' launches per step.
 22. The host-DRAM tier (``kv.storage.HybridTable``): a dim-128 Adam table
    of 2^21 rows under a 2^19-row budget, 64 batches of the unique ids of
    32,768 Zipf(1.05) draws from 2^22; each step prefetches the batch,
@@ -192,8 +184,8 @@ failed check:
    the budget. After every spill the device holds at most the budget; the
    logical size is every id seen; the hybrid export equals a 2^23-row
    table's that never spilled, per key bit for bit, and
-   ``restore_hybrid_split`` gives the same rows again. Step ms with and
-   without the tier, spill and prefetch ms and GB/s, host-tier bytes.
+   ``restore_hybrid_split`` gives the same rows again. Rows moved each
+   way per step, host-tier bytes.
 23. The distributed tier in a world of 1 over NCCL (this process; a gloo
    subgroup for the CPU): phase 17's DLRM over sharded tables
    (``parallel.sharded_lookup(defer_meta=True)``, the loss, the dense
@@ -201,11 +193,10 @@ failed check:
    Adam 1e-3). At 2^14-row shards, three steps on the card against the
    same sharded steps on the CPU as in phase 10, two runs bit for bit and
    a loss that falls over ten steps on one batch; then 26 shards of 2^20
-   rows holding 2^18 keys, 10 timed batch-2048 steps (5 % unseen ids, no
-   overflow flag set) in examples/s, launches and ``aten::nonzero`` per
-   step (torch.profiler) and the bytes of the tensors handed to the
-   collectives per step (in a world of 1 none crosses a link), beside
-   phase 21's per-table step; 10 f32 and 10 int8 requests through
+   rows holding 2^18 keys, 10 counted batch-2048 steps (5 % unseen ids, no
+   overflow flag set): row-kernel launches and the bytes of the tensors
+   handed to the collectives per step (in a world of 1 none crosses a
+   link); 10 f32 and 10 int8 requests through
    ``sharded_serving_lookup``, whose rows equal the table's per key (int8
    bit for bit against ``quant.lookup_or_zeros``, within max|row|/254).
    Its launches are read after the steps and requests, before the checks.
@@ -239,16 +230,15 @@ failed check:
    ``grow_if_needed``, each side's unplaced ids of the batch are listed,
    and the losses must be equal where both sides leave the same ids
    unplaced (a restore that leaves others is reported as a known fault);
-   grown to one capacity, twice the larger, the losses must be equal. Each leg
-   prints GB/s of payload each way beside the same call on local disk, and
-   its row-kernel launches; the emulators share this interpreter, so the
-   rates are a record.
+   grown to one capacity, twice the larger, the losses must be equal. Each
+   leg prints its payload bytes and its row-kernel launches.
 26. Profiling: ``utils.profiling.trace`` over three serving requests and
    three training steps of the reference-width DCN (2^16-row tables
    holding 2^14 keys), with ``annotate`` ranges around each lookup, the
    towers and each sparse apply; the TensorBoard trace must hold those
    ranges and as many ``rows_kernel`` CUDA events as the row wrappers
-   counted; ``StepMeter`` over ten steps beside their CUDA-event rate.
+   counted; ``StepMeter``'s rate over ten steps within half of their
+   CUDA events' rate.
 27. The examples' twins (``tfplus_tpu_torch/examples``), each in its own
    process (this script with ``--twin``), six at a time on the one card,
    the longest first: ``train_dcn`` (GroupAdam, 20 batches),
@@ -259,8 +249,7 @@ failed check:
    checkpoint written by the port's own TensorBundle writer, imported 2
    shards into 3, three GroupAdam steps, a native save and an export back
    to TFPlus format) and ``train_dlrm_sharded`` under ``torchrun
-   --nproc-per-node 1`` (NCCL); each must exit 0 and pass its checks, and
-   prints its examples/s (twins sharing the card: a record).
+   --nproc-per-node 1`` (NCCL); each must exit 0 and pass its checks.
 28. The TFPlus bridge: phase 17's DLRM after three Adam steps, 64 keys per
    table then blacklisted. (a) ``tf_export.export_checkpoint`` with uint16
    frequencies and with ``freq_use_uint32``, each twice: the same bytes.
@@ -272,28 +261,24 @@ failed check:
    source's. (d) one table's Adam ``m`` written by ``write_bundle`` as a
    slot KvVariable and ``attach_slot_rows``: the source's slot rows. (e)
    ``export_for_serving(format="tfplus")`` then ``import_checkpoint``: the
-   native export's ``load_for_serving`` predictions. (f) GB/s of the bundle
-   files each way beside ``checkpoint.save`` / ``restore`` of the same
-   tables on the same disk, and the CRC32C helper's GB/s.
+   native export's ``load_for_serving`` predictions. (f) the CRC32C helper
+   against its table loop on the export's data file.
 
 Each path (the serving and training paths, the flash entry points, the
 compactor entry point, the growth, checkpoint and repartition paths, and
 the serving-API, int8, table-op and CTR-model paths, the Criteo-fed DCN, the
 multi-table and per-table steps, the hybrid tier, the sharded DLRM, the
 two ranks' legs, the remote-storage legs, the traced window, the twins and
-the TFPlus bridge's legs) runs
-with the kernels' launch counts set to 0 just before it and read just after
-it. Each phase frees its tables before the next and prints the peak device
-memory it reached. The line before the last is the ``{"kernels": [...]}``
-JSON, after the ``{"serving": ...}``, ``{"training": ...}``,
-``{"growth": ...}``, ``{"parallel": ...}``, ``{"serving_api": ...}`` and
-``{"remote_storage": ..., "profiling": ..., "twins": ...}`` and
-``{"tf_bridge": ...}`` lines; each kernel's entry adds
-``launches_phases_23_24``, ``launches_phases_25_27`` and
-``launches_phase_28``, its launches on those phases' paths. The last
-line is ``{"ok": true, "device":
-{...}}``. Without a card, or without the port beside it, the script exits
-non-zero and prints no result.
+the TFPlus bridge's legs) runs with the kernels' launch counts set to 0
+just before it and read just after it, and each phase prints its checks'
+outcomes and its launches where it runs. Each phase frees its tables before the next and prints the peak
+device memory it reached. The line before the last is the
+``{"kernels": [...]}`` JSON: per kernel its time, bound, plain version's
+and library call's times at its main case, its launches on all the paths
+above, and ``launches_phases_23_24``, ``launches_phases_25_27`` and
+``launches_phase_28``, its launches on those phases' paths. The last line
+is ``{"ok": true, "device": {...}}``. Without a card, or without the port
+beside it, the script exits non-zero and prints no result.
 """
 import argparse
 import contextlib
@@ -348,7 +333,7 @@ SEQ_REQUESTS = 10
 # exact in f64; p_d, ds, the output and di's o round to bf16).
 BWD_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 1e-2)}
 BWD_F64_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
-TRAIN_STEPS = 10                 # timed training steps, after 2 warm-up
+TRAIN_STEPS = 10                 # counted training steps, after 2 others
 CHECK_ROWS = 1 << 14             # table rows of the training checks
 CHECK_BATCH = 256                # batch of the card-against-CPU check
 CHECK_STEPS = 3                  # steps of the card-against-CPU and rerun checks
@@ -457,10 +442,10 @@ def bound_ms(nbytes):
 
 def kernel_case(torch, rowops, dtype, width, n, gen):
     """Hold both kernels (scatter: set and add) against their plain versions
-    at one shape and rerun them bit for bit; time kernel, the earlier kernel on
-    the same inputs, plain version and the one-call library yardstick, and
-    record the launch plan each took. Bounds count each index read once,
-    each distinct source row read once and each output row written once."""
+    at one shape and rerun them bit for bit; time kernel, plain version and
+    the one-call library yardstick, and record the launch plan each took.
+    Bounds count each index read once, each distinct source row read once
+    and each output row written once."""
     values = torch.randn(C_ROWS, width, device=DEV, generator=gen).to(dtype)
     esz = values.element_size()
     # gather: duplicates, negatives, the last row and beyond it
@@ -510,10 +495,9 @@ def kernel_case(torch, rowops, dtype, width, n, gen):
     kept_idx, kept_rows = sidx[keep].long(), rows[keep]
     n_kept = int(keep.sum())
     n_rows_read = int(torch.unique(clamped).numel())
-    # the kernel, the earlier kernel and the library call take turns
+    # the kernel and the library call take turns
     times = time_turns(torch, {
         "gather": lambda: rowops.gather_rows(values, gidx),
-        "gather_earlier": lambda: rowops._gather_rows_earlier(values, gidx),
         "gather_library": lambda: torch.index_select(
             values, 0, gidx.clamp(0, C_ROWS - 1))})
     out["gather_plain_ms"] = time_ms(
@@ -523,8 +507,6 @@ def kernel_case(torch, rowops, dtype, width, n, gen):
     target = values.clone()
     times.update(time_turns(torch, {
         "scatter": lambda: rowops.scatter_rows(target, sidx, rows),
-        "scatter_earlier": lambda: rowops._scatter_rows_earlier(
-            target, sidx, rows),
         "scatter_library": lambda: target.index_copy_(0, kept_idx,
                                                       kept_rows)}))
     out["scatter_plain_ms"] = time_ms(
@@ -533,8 +515,6 @@ def kernel_case(torch, rowops, dtype, width, n, gen):
     times.update(time_turns(torch, {
         "scatter_add": lambda: rowops.scatter_rows(target, sidx, rows,
                                                    add=True),
-        "scatter_add_earlier": lambda: rowops._scatter_rows_earlier(
-            target, sidx, rows, add=True),
         "scatter_add_library": lambda: target.index_add_(0, kept_idx,
                                                          kept_rows)}))
     out["scatter_add_plain_ms"] = time_ms(
@@ -840,26 +820,19 @@ def route_of(fn, call):
     return taken[0], out
 
 
-def embedding_serving_phase(torch, np, kv, hashing, rowops, profile_dir):
+def embedding_serving_phase(torch, np, kv, hashing):
     """The bench's serving-leg shape: dim 128, 1M rows, 32k ids."""
     rng = np.random.RandomState(SEED)
     ids = rng.permutation(np.unique(rng.randint(0, 1 << 40, N_IDS + 4096,
                                                 dtype=np.int64)))[:N_IDS]
-    reps = 20
     reset_launches()
     t = kv.create(128, C_ROWS, max_probes=16, seed=SEED, device=DEV)
     q = kv.encode_ids(ids, device=DEV)
     res = kv.lookup_or_insert(t, q)
     t = res.table
-    kv.lookup_or_zeros(t, q)
+    a = kv.lookup_or_zeros(t, q)
+    b = kv.lookup_or_zeros(t, q.flip(0))
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    qf = q.flip(0)
-    for _ in range(reps):
-        a = kv.lookup_or_zeros(t, q)
-        b = kv.lookup_or_zeros(t, qf)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
     launches = read_launches()
 
     check(not bool(res.overflow), "serving leg: lookup_or_insert overflowed")
@@ -874,17 +847,12 @@ def embedding_serving_phase(torch, np, kv, hashing, rowops, profile_dir):
     check(bool((unknown == 0).all()), "serving leg: unknown ids not zero")
     check(launches["gather_rows"] > 0 and launches["scatter_rows"] > 0,
           f"serving leg did not launch both kernels: {launches}")
-    rate = 2 * reps * N_IDS / dt
-    print(f"embedding serving: {rate:.1f} ids/s (lookup_or_zeros of "
-          f"{N_IDS} ids, dim 128, {C_ROWS} rows, {2 * reps} calls in "
-          f"{dt:.6f} s); launches {json.dumps(launches)}", flush=True)
-    if profile_dir:
-        profile_calls(torch, "embedding",
-                      [lambda: kv.lookup_or_zeros(t, q)] * 5,
-                      dt / (2 * reps), profile_dir)
+    print(f"embedding serving: lookup_or_insert and two lookup_or_zeros of "
+          f"{N_IDS} ids, dim 128, {C_ROWS} rows; launches "
+          f"{json.dumps(launches)}", flush=True)
     del t, res
     torch.cuda.empty_cache()
-    return launches, rate
+    return launches
 
 
 def dcn_reference(np, dense, embs, features, labels):
@@ -927,7 +895,7 @@ def deep_logit(step, state, batch):
     return seen[0][:, 0]
 
 
-def dcn_serving_phase(torch, np, kv, embedding, models, rowops, profile_dir):
+def dcn_serving_phase(torch, np, kv, embedding, models, rowops):
     """Reference-width DCN: fill 26 tables, then serve batch-2048 requests."""
     model = models.DCN(capacity=C_ROWS)
     gen = torch.Generator(device=DEV).manual_seed(SEED)
@@ -938,7 +906,6 @@ def dcn_serving_phase(torch, np, kv, embedding, models, rowops, profile_dir):
         for i in range(len(model.embedding_dims))}
 
     reset_launches()
-    t0 = time.perf_counter()
     state = models.init_state(model, seed=SEED, device=DEV)
     rows_in = {}
     for name in sorted(state.tables):
@@ -947,7 +914,6 @@ def dcn_serving_phase(torch, np, kv, embedding, models, rowops, profile_dir):
         kv.insert(t, kv.encode_ids(tables_keys[name], device=DEV),
                   rows_in[name], day=1)
     torch.cuda.synchronize()
-    fill_s = time.perf_counter() - t0
     fill_launches = read_launches()
 
     # a user-facing insert may drop keys whose two buckets are full: serve
@@ -971,30 +937,26 @@ def dcn_serving_phase(torch, np, kv, embedding, models, rowops, profile_dir):
                         "features": rng.randn(BATCH, 13).astype(np.float32),
                         "labels": rng.randint(0, 2, BATCH).astype(np.float32)})
     step = models.make_train_step(model, train=False)
-    step(state, batches[0])                                   # warm-up
+    step(state, batches[0])            # the first request, not counted
     torch.cuda.synchronize()
     gather1 = rowops.gather_rows.launches
-    outs = []
-    t0 = time.perf_counter()
-    for b in batches[1:]:
-        outs.append(step(state, b)[1:])
+    outs = [step(state, b)[1:] for b in batches[1:]]
     torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
     launches = read_launches()
     per_request = (launches["gather_rows"] - gather1) / REQUESTS
 
     payload_gb = sum(t.payload.numel() * t.payload.element_size()
                      for t in state.tables.values()) / 1e9
     print(f"DCN fill: {len(state.tables)} tables x {C_ROWS} rows "
-          f"({payload_gb:.3f} GB payload), {FILL} keys each, in "
-          f"{fill_s:.3f} s; launches {json.dumps(fill_launches)}", flush=True)
+          f"({payload_gb:.3f} GB payload), {FILL} keys each; launches "
+          f"{json.dumps(fill_launches)}", flush=True)
     check(launches["gather_rows"] > 0 and launches["scatter_rows"] > 0,
           f"DCN path did not launch both kernels: {launches}")
     for loss, preds in outs:
         check(preds.shape == (BATCH,) and bool(torch.isfinite(preds).all())
               and bool(torch.isfinite(loss)), "DCN: non-finite output")
 
-    # the first timed request against a host-side map of what was inserted
+    # the second request against a host-side map of what was inserted
     b = batches[1]
     embs = {}
     for name, keys in tables_keys.items():
@@ -1033,15 +995,10 @@ def dcn_serving_phase(torch, np, kv, embedding, models, rowops, profile_dir):
           f"DCN: preds/loss differ from the float64 reference: {precision}")
     check(tf32_ratio > 1, "DCN: the precision check does not see TF32 in "
           f"the deep tower: {precision}")
-    rate = REQUESTS * BATCH / dt
-    print(f"DCN serving: {rate:.1f} examples/s ({REQUESTS} requests of "
-          f"batch {BATCH} in {dt:.6f} s, {per_request:.1f} gathers per "
-          f"request); launches {json.dumps(launches)}", flush=True)
-    if profile_dir:
-        profile_calls(torch, "dcn", [lambda b=b: step(state, b)
-                                     for b in batches[1:4]],
-                      dt / REQUESTS, profile_dir)
-    return launches, rate, per_request
+    print(f"DCN serving: {REQUESTS} requests of batch {BATCH}, "
+          f"{per_request:.1f} gathers per request; launches "
+          f"{json.dumps(launches)}", flush=True)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1146,9 +1103,7 @@ def attention_case(torch, np, fa, name, gen, b, h, s, d, dtype, causal,
     ``s`` is S or ``(Sq, Skv)``; ``seg`` one id array for q and kv or a
     ``(q_seg, kv_seg)`` pair. The kernel is the one the dispatch takes,
     or with ``single`` the single-pass kernel, which is also rerun bit for
-    bit and timed beside the earlier single-pass kernel of flash_fwd.cu on
-    the same inputs (``earlier_ms``) and, for bf16 at D 64/128, beside the
-    tiled kernel's tensor-core route (``tc_ms``)."""
+    bit."""
     sq, skv = s if isinstance(s, tuple) else (s, s)
     qs, ks = seg if isinstance(seg, tuple) else (seg, seg)
     q = torch.randn(b, h, sq, d, device=DEV, generator=gen).to(dtype)
@@ -1222,19 +1177,6 @@ def attention_case(torch, np, fa, name, gen, b, h, s, d, dtype, causal,
     del entry_got, entry_want
     c["ms"] = time_ms(torch, lambda: kernel(q, k, v, qs, ks, SEED,
                                             save_residuals=False, **kw))
-    if route == "tc" and name.startswith("bench"):
-        # the CUDA-core kernel on the same bf16 inputs: the earlier route
-        c["cuda_core_ms"] = time_ms(torch, lambda: fa._launch(
-            fa._flash_lib(), "tfp_flash_fwd", q, k, v, qs, ks, SEED,
-            kw["sm_scale"], p_dropout, False, mid=(int(causal),)))
-    if single:
-        # the earlier single-pass kernel on the same inputs
-        c["earlier_ms"] = time_ms(torch, lambda: fa._launch(
-            fa._flash_lib(), "tfp_flash_fwd_single", q, k, v, qs, ks, SEED,
-            kw["sm_scale"], p_dropout, False))
-        if fa.flash_route(dtype, d) == "tc":
-            c["tc_ms"] = time_ms(torch, lambda: fa.flash_fwd(
-                q, k, v, qs, ks, SEED, save_residuals=False, **tiled_kw))
     c["plain_ms"] = time_ms(torch, lambda: plain(q, k, v, qs, ks, SEED,
                                                  **kw))
     c["library_ms"] = None if p_dropout else time_ms(
@@ -1267,7 +1209,7 @@ def attention_phase(torch, np, fa):
     # the single-pass kernel off BST: few long problems (q and kv segments
     # that differ, a q segment that meets no key), two segments at bf16 D16,
     # and no segments at the largest Skv of bf16 D64 and at bf16 D128 (where
-    # the dispatch takes the tensor cores; forced here, timed beside them)
+    # the dispatch takes the tensor cores; forced here)
     specs += [
         ("single_long_rows_f32", 16, 8, (1000, 128), 32, f32, False,
          cross_segments(torch, np, fa, rng, 16), 0.0),
@@ -1297,31 +1239,24 @@ def attention_phase(torch, np, fa):
     return cases, bench
 
 
-def flash_path_phase(torch, fa, bench, reps=10):
+def flash_path_phase(torch, fa, bench):
     """The public entry points at the bench's shape (causal bf16 B4 H8
     S2048 D128): ``flash_attention`` and ``flash_attention_with_lse``."""
     q, k, v, kernel_out = bench
     reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        out = fa.flash_attention(q, k, v, causal=True)
+    out = fa.flash_attention(q, k, v, causal=True)
     out2, lse = fa.flash_attention_with_lse(q, k, v, causal=True)
     torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
     launches = read_launches()
-    check(launches["flash_fwd"] == reps + 1
-          and launches["flash_fwd.tc"] == reps + 1
+    check(launches["flash_fwd"] == 2 and launches["flash_fwd.tc"] == 2
           and launches["flash_fwd_single"] == 0,
           f"flash entry points did not launch the tensor-core tiled kernel: "
           f"{launches}")
     check(torch.equal(out, kernel_out) and torch.equal(out2, kernel_out)
           and bool(torch.isfinite(lse).all()),
           "flash entry points differ from the checked kernel output")
-    _, _, flops = attention_bound(fa, q, k, None, None, True, False)
-    print(f"flash entry points: {(reps + 1) * flops / dt / 1e12:.4f} "
-          f"TFLOP/s ({reps} flash_attention + 1 flash_attention_with_lse, "
-          f"causal bf16 B4 H8 S2048 D128, in {dt:.6f} s); launches "
+    print(f"flash entry points: flash_attention and "
+          f"flash_attention_with_lse, causal bf16 B4 H8 S2048 D128; launches "
           f"{json.dumps(launches)}", flush=True)
     return launches
 
@@ -1431,16 +1366,12 @@ def sequence_batch(np, models, rng, keys, resident, batch=BATCH):
 
 
 def serve_sequence_model(torch, np, name, model, step, state, batches,
-                         ref_fn, embs, profile_dir, tf32_control):
-    """Time the requests with the launch counts reset just before, then
-    check the first timed request against the float64 reference."""
+                         ref_fn, embs, tf32_control):
+    """Serve the requests with the launch counts reset just before, then
+    check the second request against the float64 reference."""
     reset_launches()
-    step(state, batches[0])                                   # warm-up
+    outs = [step(state, b)[1:] for b in batches][1:]
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    outs = [step(state, b)[1:] for b in batches[1:]]
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
     launches = read_launches()
     for loss, preds in outs:
         check(preds.shape == (BATCH,) and bool(torch.isfinite(preds).all())
@@ -1475,20 +1406,14 @@ def serve_sequence_model(torch, np, name, model, step, state, batches,
     if tf32_control:
         check(precision["preds_err_ratio_tf32_control"] > 1,
               f"{name}: the precision check does not see TF32: {precision}")
-    n = len(batches)            # the warm-up request counts too
-    per_request = {k: v / n for k, v in launches.items()}
-    rate = (n - 1) * BATCH / dt
-    print(f"{name} serving: {rate:.1f} examples/s ({n - 1} requests of "
-          f"batch {BATCH} in {dt:.6f} s); kernel launches per request "
-          f"{json.dumps(per_request)}", flush=True)
-    if profile_dir:
-        profile_calls(torch, name.lower(), [lambda b=b: step(state, b)
-                                            for b in batches[1:4]],
-                      dt / (n - 1), profile_dir)
-    return launches, rate, per_request, precision
+    per_request = {k: v / len(batches) for k, v in launches.items()}
+    print(f"{name} serving: {len(batches)} requests of batch {BATCH}; "
+          f"kernel launches per request {json.dumps(per_request)}",
+          flush=True)
+    return launches
 
 
-def sequence_serving_phase(torch, np, kv, embedding, models, profile_dir):
+def sequence_serving_phase(torch, np, kv, embedding, models):
     """BST, then DIN on the same item and user tables, at published
     widths."""
     bst = models.BST(**BST_CONFIG)
@@ -1502,7 +1427,6 @@ def sequence_serving_phase(torch, np, kv, embedding, models, profile_dir):
         for name, n in fills.items()}
 
     reset_launches()
-    t0 = time.perf_counter()
     state = models.init_state(bst, seed=SEED, device=DEV)
     rows_in = {}
     for name in sorted(state.tables):
@@ -1512,7 +1436,6 @@ def sequence_serving_phase(torch, np, kv, embedding, models, profile_dir):
         kv.insert(t, kv.encode_ids(keys[name], device=DEV), rows_in[name],
                   day=1)
     torch.cuda.synchronize()
-    fill_s = time.perf_counter() - t0
     fill_launches = read_launches()
     check(fill_launches["scatter_rows"] > 0,
           f"BST/DIN fill did not launch the scatter kernel: {fill_launches}")
@@ -1529,12 +1452,12 @@ def sequence_serving_phase(torch, np, kv, embedding, models, profile_dir):
     print(f"BST/DIN fill: item {state.tables['item'].capacity} rows with "
           f"{ITEM_FILL} keys, user {state.tables['user'].capacity} rows with "
           f"{USER_FILL} keys, dim 64 ({payload_gb:.3f} GB of payload and "
-          f"header), in {fill_s:.3f} s; launches "
+          f"header); launches "
           f"{json.dumps(fill_launches)}", flush=True)
     batches = [sequence_batch(np, models, rng, keys, resident)
                for _ in range(SEQ_REQUESTS + 1)]
 
-    # the first timed request's rows against the host-side map
+    # the second request's rows against the host-side map
     b = batches[1]
     embs = {}
     for name in ("item", "user"):
@@ -1546,12 +1469,10 @@ def sequence_serving_phase(torch, np, kv, embedding, models, profile_dir):
               f"BST/DIN: {name} looked-up rows differ from the inserted rows")
         embs[name] = want.double().cpu().numpy()
 
-    out = {"fill_launches": fill_launches, "fill_s": fill_s}
     bst_step = models.make_train_step(bst, train=False)
-    out["BST"] = serve_sequence_model(torch, np, "BST", bst, bst_step, state,
-                                      batches, bst_reference, embs,
-                                      profile_dir, tf32_control=True)
-    launches = out["BST"][0]
+    bst_launches = launches = serve_sequence_model(
+        torch, np, "BST", bst, bst_step, state, batches, bst_reference, embs,
+        tf32_control=True)
     check(launches["flash_fwd_single"] >= len(batches)
           and launches["flash_fwd"] == 0 and launches["gather_rows"] > 0,
           f"BST path: expected flash_fwd_single on every request, no "
@@ -1560,16 +1481,15 @@ def sequence_serving_phase(torch, np, kv, embedding, models, profile_dir):
         tables=state.tables, opt_state=None, step=state.step,
         dense=din.init_dense(torch.Generator().manual_seed(SEED), DEV))
     din_step = models.make_train_step(din, train=False)
-    out["DIN"] = serve_sequence_model(torch, np, "DIN", din, din_step,
-                                      din_state, batches, din_reference,
-                                      embs, profile_dir, tf32_control=False)
-    launches = out["DIN"][0]
+    launches = serve_sequence_model(torch, np, "DIN", din, din_step,
+                                    din_state, batches, din_reference, embs,
+                                    tf32_control=False)
     check(launches["gather_rows"] > 0 and launches["flash_fwd"] == 0
           and launches["flash_fwd_single"] == 0,
           f"DIN path: expected row gathers and no attention: {launches}")
     del state, din_state, rows_in
     torch.cuda.empty_cache()
-    return out
+    return [fill_launches, bst_launches, launches]
 
 
 # ---------------------------------------------------------------------------
@@ -1650,9 +1570,8 @@ def backward_case(torch, np, fa, name, gen, q, k, v, causal, seg=None,
     single-pass kernel, or dk/dv and dq) against their plain versions on the
     card and against float64 autograd through ``reference_attention``, rerun
     them bit for bit, and time kernel, plain version, bound and SDPA's
-    backward; on the single-pass route also the CUDA-core dk/dv and dq
-    kernels on the same inputs (the earlier route). ``seg`` is one id array
-    for q and kv, or a ``(q_seg, kv_seg)`` pair."""
+    backward. ``seg`` is one id array for q and kv, or a ``(q_seg, kv_seg)``
+    pair."""
     b, h, s, d = q.shape
     dtype = q.dtype
     dname = _dtype_name(dtype)
@@ -1726,23 +1645,6 @@ def backward_case(torch, np, fa, name, gen, q, k, v, causal, seg=None,
         e["bound_ms"], e["bound_by"], flops = backward_bound(
             fa, q, k, qs, ks, causal, kernel.split("_")[-1])
         e["tflops"] = flops / e["ms"] / 1e9
-
-    # the CUDA-core kernels on the same inputs: the earlier route
-    def cuda_core(fn_name, outs):
-        return lambda: fa._launch_bwd(fa._flash_bwd_lib(), fn_name,
-                                      [torch.empty_like(t) for t in outs],
-                                      *args, **kw)
-    if route == "tc" and "bench" in name:
-        c["flash_bwd_dkv"]["cuda_core_ms"] = time_ms(
-            torch, cuda_core("tfp_flash_bwd_dkv", (k, v)), reps=5)
-        c["flash_bwd_dq"]["cuda_core_ms"] = time_ms(
-            torch, cuda_core("tfp_flash_bwd_dq", (q,)), reps=5)
-    if route == "single":
-        e = c["flash_bwd_single"]
-        e["cuda_core_dkv_ms"] = time_ms(
-            torch, cuda_core("tfp_flash_bwd_dkv", (k, v)))
-        e["cuda_core_dq_ms"] = time_ms(
-            torch, cuda_core("tfp_flash_bwd_dq", (q,)))
     c["library_ms"] = None if p_dropout else time_ms(
         torch, sdpa_backward_call(torch, fa, q, k, v, qs, ks, causal, sm, do))
     torch.cuda.empty_cache()
@@ -1931,36 +1833,27 @@ def head_dim_phase(torch, np, fa):
     torch.cuda.empty_cache()
 
 
-def flash_grad_path_phase(torch, fa, bench, bench_grads, reps=10):
+def flash_grad_path_phase(torch, fa, bench, bench_grads):
     """``flash_attention(causal=True)`` forward and backward at the bench's
-    shape, reported as the JAX bench's ``grad=True`` leg counts it (3.5 ×
-    the forward's operations, ``bench.py:116``)."""
+    shape."""
     do, dq, dk, dv = bench_grads
     leaves = [t.detach().clone().requires_grad_() for t in bench[:3]]
     reset_launches()
+    out = fa.flash_attention(*leaves, causal=True)
+    grads = torch.autograd.grad(out, leaves, do)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        out = fa.flash_attention(*leaves, causal=True)
-        grads = torch.autograd.grad(out, leaves, do)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
     launches = read_launches()
-    check(launches["flash_fwd"] == reps and launches["flash_bwd_dkv"] == reps
-          and launches["flash_bwd_dq"] == reps
-          and launches["flash_fwd.tc"] == reps
-          and launches["flash_bwd_dkv.tc"] == reps
-          and launches["flash_bwd_dq.tc"] == reps,
+    check(all(launches[k] == 1 for k in (
+        "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd.tc",
+        "flash_bwd_dkv.tc", "flash_bwd_dq.tc")),
           f"flash gradients did not launch the tensor-core kernels: "
           f"{launches}")
     check(all(torch.equal(g, w) for g, w in zip(grads, (dq, dk, dv))),
           "flash_attention's gradients differ from the checked kernels'")
-    _, _, flops = attention_bound(fa, *leaves[:2], None, None, True, False)
-    tflops = reps * 3.5 * flops / dt / 1e12
-    print(f"flash gradients: {tflops:.4f} TFLOP/s (flash_attention forward "
-          f"+ backward x{reps}, causal bf16 B4 H8 S2048 D128, in {dt:.6f} s); "
-          f"launches {json.dumps(launches)}", flush=True)
-    return launches, tflops
+    print(f"flash gradients: flash_attention forward and backward, causal "
+          f"bf16 B4 H8 S2048 D128; launches {json.dumps(launches)}",
+          flush=True)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2010,20 +1903,18 @@ def fill_tables(torch, np, kv, state, keys, gen):
     return resident
 
 
-def train_path(torch, name, step, state, batches, per_step, profile_dir):
-    """Two warm-up steps, then the timed ones; the launch counts are reset
+def train_path(torch, name, step, state, batches, per_step):
+    """Two first steps, then the counted ones; the launch counts are reset
     by the caller before the tables were filled."""
     for b in batches[:2]:
         state, loss, _ = step(state, b)
     torch.cuda.synchronize()
     before = read_launches()
-    t0 = time.perf_counter()
     losses = []
     for b in batches[2:]:
         state, loss, preds = step(state, b)
         losses.append(loss)
     torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
     after = read_launches()
     n = len(batches) - 2
     check(all(bool(torch.isfinite(x)) for x in losses)
@@ -2034,19 +1925,13 @@ def train_path(torch, name, step, state, batches, per_step, profile_dir):
               f"{name}: expected {per_step[k]} {k} per step: {steps}")
     check(steps["gather_rows"] > 0 and steps["scatter_rows"] > 0,
           f"{name}: the row kernels were not launched: {steps}")
-    rate = n * BATCH / dt
-    print(f"{name} training: {rate:.1f} examples/s ({n} steps of batch "
-          f"{BATCH} in {dt:.6f} s, loss {float(losses[0]):.6f} -> "
-          f"{float(losses[-1]):.6f}); kernel launches per step "
-          f"{json.dumps(steps)}", flush=True)
-    if profile_dir:
-        profile_calls(torch, f"{name.lower()}_train",
-                      [lambda b=b: step(state, b) for b in batches[2:5]],
-                      dt / n, profile_dir)
-    return state, after, rate, steps
+    print(f"{name} training: {n} steps of batch {BATCH}, loss "
+          f"{float(losses[0]):.6f} -> {float(losses[-1]):.6f}; kernel "
+          f"launches per step {json.dumps(steps)}", flush=True)
+    return state, after
 
 
-def dcn_training_phase(torch, np, kv, models, train, profile_dir):
+def dcn_training_phase(torch, np, kv, models, train):
     """Reference-width DCN: GroupAdam 1e-3 and dense Adam 1e-3 (the JAX
     bench's DCN leg), 26 tables of 2^20 rows with 2^19 keys each."""
     model = models.DCN(capacity=C_ROWS)
@@ -2057,28 +1942,26 @@ def dcn_training_phase(torch, np, kv, models, train, profile_dir):
         0, 1 << 40, FILL + FILL // 8, dtype=np.int64)))[:FILL]
         for i in range(len(model.embedding_dims))}
     reset_launches()
-    t0 = time.perf_counter()
     state = models.init_state(model, opt,
                               functools.partial(torch.optim.Adam, lr=1e-3),
                               seed=SEED, device=DEV)
     resident = fill_tables(torch, np, kv, state, keys, gen)
-    torch.cuda.synchronize()
-    fill_s = time.perf_counter() - t0
     payload_gib = sum(t.payload.numel() * t.payload.element_size()
                       for t in state.tables.values()) / 2 ** 30
     print(f"DCN training fill: 26 tables x {C_ROWS} rows x 4·D "
-          f"({payload_gib:.3f} GiB payload), {FILL} keys each, in "
-          f"{fill_s:.3f} s", flush=True)
+          f"({payload_gib:.3f} GiB payload), {FILL} keys each",
+          flush=True)
     batches = [dcn_batch(np, rng, keys, resident, BATCH)
                for _ in range(TRAIN_STEPS + 2)]
     step = models.make_train_step(model, opt, sparse_lr=1e-3)
-    state, launches, rate, per_step = train_path(
-        torch, "DCN", step, state, batches, {"flash_fwd": 0}, profile_dir)
+    state, launches = train_path(torch, "DCN", step, state, batches,
+                                 {"flash_fwd": 0})
     del state
-    return launches, rate, per_step, peak_memory(torch, "DCN training")
+    peak_memory(torch, "DCN training")
+    return launches
 
 
-def bst_training_phase(torch, np, kv, models, train, profile_dir):
+def bst_training_phase(torch, np, kv, models, train):
     """BST at published widths: Adam 0.01 and dense Adam 0.01 (the paper's
     Table 2 learning rate), the item and user tables of the serving phase
     with Adam's slots."""
@@ -2100,12 +1983,13 @@ def bst_training_phase(torch, np, kv, models, train, profile_dir):
                for _ in range(TRAIN_STEPS + 2)]
     step = models.make_train_step(model, opt, sparse_lr=0.01)
     blocks = model.num_blocks
-    state, launches, rate, per_step = train_path(
+    state, launches = train_path(
         torch, "BST", step, state, batches,
         {"flash_fwd_single": blocks, "flash_bwd_single": blocks,
-         "flash_bwd_dkv": 0, "flash_bwd_dq": 0, "flash_fwd": 0}, profile_dir)
+         "flash_bwd_dkv": 0, "flash_bwd_dq": 0, "flash_fwd": 0})
     del state
-    return launches, rate, per_step, peak_memory(torch, "BST training")
+    peak_memory(torch, "BST training")
+    return launches
 
 
 def copy_state(torch, convert, models, state, device, dense_tx):
@@ -2300,54 +2184,6 @@ def training_checks_phase(torch, np, kv, models, train, convert):
     return out
 
 
-def profile_calls(torch, name, calls, call_s, out_dir):
-    """torch.profiler over a few calls of one path: device kernel time,
-    kernel launches and ``aten::nonzero`` calls (each a sync) per call, the
-    row kernels' share of them beside what the row wrappers counted in the
-    same calls, and the device's busy share of an unprofiled call that took
-    ``call_s``; the table of ops and kernels goes to
-    ``out_dir/<name>_profile.txt`` when ``out_dir`` is given. Returns the
-    per-call numbers."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    before = read_launches()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for call in calls:
-            call()
-        torch.cuda.synchronize()
-    after = read_launches()
-    counted = sum(after[k] - before[k]
-                  for k in ("gather_rows", "scatter_rows")) / len(calls)
-    avgs = prof.key_averages()
-    kernels = [e for e in avgs if e.device_type == DeviceType.CUDA]
-    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / len(calls)
-    launches = sum(e.count for e in kernels) / len(calls)
-    rows = [e for e in kernels if "rows_kernel" in e.key]
-    rows_ms = sum(e.self_device_time_total for e in rows) / 1e3 / len(calls)
-    rows_launches = sum(e.count for e in rows) / len(calls)
-    nonzero = sum(e.count for e in avgs if e.key == "aten::nonzero") \
-        / len(calls)
-    where = ""
-    if out_dir:
-        os.makedirs(out_dir, exist_ok=True)
-        path = os.path.join(out_dir, f"{name}_profile.txt")
-        with open(path, "w") as f:
-            f.write(avgs.table(sort_by="self_cuda_time_total", row_limit=60))
-        where = f"; table in {path}"
-    print(f"{name} profile: {dev_ms:.4f} ms of device kernels, "
-          f"{launches:.1f} kernel launches and {nonzero:.1f} aten::nonzero "
-          f"per call; device busy {dev_ms / (call_s * 1e3):.4f} of an "
-          f"unprofiled call ({call_s * 1e3:.4f} ms); row kernels "
-          f"{rows_ms:.4f} ms in {rows_launches:.1f} launches (the row "
-          f"wrappers counted {counted:.1f}){where}", flush=True)
-    return {"device_ms": dev_ms, "launches": launches,
-            "nonzero_syncs": nonzero, "busy": dev_ms / (call_s * 1e3),
-            "row_kernel_launches": rows_launches,
-            "row_wrapper_launches": counted}
-
-
 # ---------------------------------------------------------------------------
 # compactor, growth, checkpoints and resume
 # ---------------------------------------------------------------------------
@@ -2430,7 +2266,8 @@ def compactor_phase(torch, ops, compactor):
           f"{json.dumps(timing)}; cases {json.dumps(cases)}; launches "
           f"{json.dumps(launches)}", flush=True)
     check(launches["compact"] == 1, f"compact entry point: {launches}")
-    return launches, cases, timing, peak_memory(torch, "compactor")
+    peak_memory(torch, "compactor")
+    return launches, cases, timing
 
 
 def payload_bytes(tbundle, prefix, slots=True):
@@ -2462,7 +2299,7 @@ def fresh_batch(np, rng, model, batch):
 
 
 def growth_checkpoint_phase(torch, np, kv, models, train, checkpoint,
-                            tbundle, rowops, profile_dir):
+                            tbundle, rowops):
     """The port's twin of examples/checkpoint_resume.py on the reference
     DCN: every table starts at 2^14 rows (a cut; the training phase's are
     2^20) and each step brings 2,048 fresh ids per table, so
@@ -2487,48 +2324,34 @@ def growth_checkpoint_phase(torch, np, kv, models, train, checkpoint,
         mgr = checkpoint.CheckpointManager(os.path.join(workdir, "ckpts"))
         torch.cuda.synchronize()
         reset_launches()
-        train_s, save_bytes = 0.0, 0
         for i in range(1, GROW_STEPS + 1):
-            t0 = time.perf_counter()
             caps = {n: t.capacity for n, t in state.tables.items()}
             state = models.grow_if_needed(state, BATCH)
             out["grows"] += sum(state.tables[n].capacity != c
                                 for n, c in caps.items())
             state, loss, _ = step(state, batches[i - 1])
-            torch.cuda.synchronize()
-            train_s += time.perf_counter() - t0
             if i in GROW_SAVES:
                 full = i == GROW_SAVES[0]
-                t0 = time.perf_counter()
                 tables = mgr.save(state.tables, state.dense, step=i,
                                   full=full)
-                torch.cuda.synchronize()
-                dt = time.perf_counter() - t0
                 state = state._replace(tables=tables)
                 kind = "full" if full else "delta"
-                nbytes = payload_bytes(tbundle, os.path.join(
-                    workdir, "ckpts", f"ckpt-{kind}-{i}"))
-                save_bytes += nbytes
-                out["saves"][f"{kind}@{i}"] = {
-                    "s": dt, "payload_bytes": nbytes,
-                    "gb_per_s": nbytes / dt / 1e9}
+                out["saves"][f"{kind}@{i}"] = payload_bytes(
+                    tbundle, os.path.join(workdir, "ckpts",
+                                          f"ckpt-{kind}-{i}"))
         caps = {n: t.capacity for n, t in state.tables.items()}
         # "crash": a second manager restores into fresh 2^14-row templates
         dense = model.init_dense(torch.Generator().manual_seed(SEED + 31),
                                  DEV)
         templates = model.init_tables(opt, seed=SEED + 32, device=DEV)
-        t0 = time.perf_counter()
         restored, dense, at = checkpoint.CheckpointManager(
             os.path.join(workdir, "ckpts")).restore(templates, dense)
         torch.cuda.synchronize()
-        restore_s = time.perf_counter() - t0
         launches = read_launches()
     finally:
         import shutil
         shutil.rmtree(workdir, ignore_errors=True)
     out.update({
-        "examples_per_s": GROW_STEPS * BATCH / train_s, "train_s": train_s,
-        "restore_s": restore_s, "restore_gb_per_s": save_bytes / restore_s / 1e9,
         "capacity_min": min(caps.values()), "capacity_max": max(caps.values()),
         "restored_capacity_min": min(t.capacity for t in restored.values())})
     check(at == GROW_STEPS, f"restored step {at}")
@@ -2568,13 +2391,9 @@ def growth_checkpoint_phase(torch, np, kv, models, train, checkpoint,
           f"growth path: the row kernels were not launched: {launches}")
     out["launches"] = launches
     print(f"growth/checkpoint/resume: {json.dumps(out)}", flush=True)
-    if profile_dir:
-        profile_calls(torch, "dcn_growth_train",
-                      [lambda b=b: step(state, b) for b in batches[:3]],
-                      train_s / GROW_STEPS, profile_dir)
     del state, resumed, restored, templates
-    out["peak_gib"] = peak_memory(torch, "growth/checkpoint/resume")
-    return launches, out
+    peak_memory(torch, "growth/checkpoint/resume")
+    return launches
 
 
 def repartition_phase(torch, np, kv, train, checkpoint):
@@ -2653,17 +2472,15 @@ def repartition_phase(torch, np, kv, train, checkpoint):
     out = {"rows_before": rows, "rows_after_5_steps": after,
            "launches": launches}
     print(f"repartition 4 -> 6: {json.dumps(out)}", flush=True)
-    return launches, out
+    return launches
 
 
 def reference_growth_phase(torch, np, kv, train, packing, rowops):
     """One dim-128 GroupAdam table (payload 4·128 f32) at 2^20 rows holding
     2^19 keys, with random values, slot columns and meta words written by
     ``insert_raw``: ``grow`` to 2^21, then ``compact`` after deleting a
-    third of the keys. Each is timed once and checked to keep every row
-    (size, and each key's full payload row and meta word). Bound: the live
-    rows read and written once, the new table's other rows zeroed, the old
-    header read and the new one written (16 B per slot), over 3.35 TB/s."""
+    third of the keys. Each is checked to keep every row (size, and each
+    key's full payload row and meta word)."""
     opt = train.GroupAdamOptimizer()
     gen = torch.Generator(device=DEV).manual_seed(SEED + 40)
     rng = np.random.RandomState(SEED + 40)
@@ -2688,21 +2505,12 @@ def reference_growth_phase(torch, np, kv, train, packing, rowops):
     placed = kv.find(t, q).found
     qk = q[placed]
     want = rows_of(t, qk)
-    row_bytes = w * 4
-
-    def bound(n, c_old, c_new):
-        return bound_ms(2 * n * row_bytes + (c_new - n) * row_bytes
-                        + 16 * (c_old + c_new))
-
-    out = {"rows": n0, "row_bytes": row_bytes}
+    out = {"rows": n0, "row_bytes": w * 4}
     torch.cuda.synchronize()
     reset_launches()
-    t0 = time.perf_counter()
     g = kv.grow(t, 2 * C_ROWS)
     torch.cuda.synchronize()
-    out["grow_ms"] = (time.perf_counter() - t0) * 1e3
     out["grow_launches"] = read_launches()
-    out["grow_bound_ms"] = bound(n0, C_ROWS, 2 * C_ROWS)
     del t
     got = rows_of(g, qk)
     check(g.capacity == 2 * C_ROWS and int(kv.size(g)) == n0
@@ -2715,12 +2523,9 @@ def reference_growth_phase(torch, np, kv, train, packing, rowops):
     n1 = int(kv.size(g))
     torch.cuda.synchronize()
     reset_launches()
-    t0 = time.perf_counter()
     c = kv.compact(g)
     torch.cuda.synchronize()
-    out["compact_ms"] = (time.perf_counter() - t0) * 1e3
     out["compact_launches"] = read_launches()
-    out["compact_bound_ms"] = bound(n1, 2 * C_ROWS, 2 * C_ROWS)
     got = rows_of(c, keep)
     check(c.capacity == 2 * C_ROWS and int(kv.size(c)) == n1 == n0 - n0 // 3
           and torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
@@ -2733,8 +2538,8 @@ def reference_growth_phase(torch, np, kv, train, packing, rowops):
     check(launches["scatter_rows"] >= 2,
           f"grow/compact did not move rows through the kernel: {launches}")
     del g, c, got, want
-    out["peak_gib"] = peak_memory(torch, "reference-size growth")
-    return launches, out
+    peak_memory(torch, "reference-size growth")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2804,7 +2609,6 @@ def dlrm_serving_api_phase(torch, np, kv, quant, models, train, serving,
     out = {}
     try:
         reset_launches()
-        t0 = time.perf_counter()
         state = models.init_state(model, seed=SEED, device=DEV)
         rows_in = {}
         for name in sorted(state.tables):
@@ -2813,8 +2617,6 @@ def dlrm_serving_api_phase(torch, np, kv, quant, models, train, serving,
             kv.insert(state.tables[name],
                       kv.encode_ids(keys[name], device=DEV), rows_in[name],
                       day=1)
-        torch.cuda.synchronize()
-        out["fill_s"] = time.perf_counter() - t0
         resident, order = {}, {}
         for name, k in keys.items():
             found = kv.find(state.tables[name],
@@ -2825,12 +2627,7 @@ def dlrm_serving_api_phase(torch, np, kv, quant, models, train, serving,
         batches = [dcn_batch(np, rng, keys, resident, BATCH)
                    for _ in range(REQUESTS + 1)]
         step = models.make_train_step(model, train=False)
-        step(state, batches[0])                               # warm-up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        outs = [step(state, b)[1:] for b in batches[1:]]
-        torch.cuda.synchronize()
-        out["examples_per_s"] = REQUESTS * BATCH / (time.perf_counter() - t0)
+        outs = [step(state, b)[1:] for b in batches][1:]
         for loss, preds in outs:
             check(preds.shape == (BATCH,) and bool(torch.isfinite(preds).all())
                   and bool(torch.isfinite(loss)), "DLRM: non-finite output")
@@ -2855,24 +2652,11 @@ def dlrm_serving_api_phase(torch, np, kv, quant, models, train, serving,
             md.add_embedding_column(column_name=name, var_name=name,
                                     embedding_dim=16)
         export_dir = os.path.join(workdir, "export")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         prefix = serving.export_for_serving(export_dir, state.tables, md)
-        out["export_s"] = time.perf_counter() - t0
-        nbytes = payload_bytes(tbundle, prefix)
-        out["export_payload_bytes"] = nbytes
-        out["export_gb_per_s"] = nbytes / out["export_s"] / 1e9
-        t0 = time.perf_counter()
+        out["export_payload_bytes"] = payload_bytes(tbundle, prefix)
         loaded, _ = serving.load_for_serving(export_dir, device=DEV)
-        torch.cuda.synchronize()
-        out["load_s"] = time.perf_counter() - t0
-        out["load_gb_per_s"] = nbytes / out["load_s"] / 1e9
-        t0 = time.perf_counter()
         loaded_q, _ = serving.load_for_serving(export_dir, quantize=True,
                                                device=DEV)
-        torch.cuda.synchronize()
-        out["load_int8_s"] = time.perf_counter() - t0
-        out["load_int8_gb_per_s"] = nbytes / out["load_int8_s"] / 1e9
         served = state._replace(tables=loaded)
         check(all(torch.equal(step(served, bb)[2], p)
                   for bb, (_, p) in zip(batches[1:4], outs[:3])),
@@ -2916,22 +2700,12 @@ def dlrm_serving_api_phase(torch, np, kv, quant, models, train, serving,
             state, loss, _ = tstep(state, bb)
         check(bool(torch.isfinite(loss)), "DLRM training: non-finite loss")
         delta = os.path.join(workdir, "delta-1")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         checkpoint.save(delta, state.tables, delta=True)
-        out["delta_save_s"] = time.perf_counter() - t0
         # a refresh reads the delta's values, not its slot columns
-        dbytes = payload_bytes(tbundle, delta, slots=False)
-        out["delta_values_bytes"] = dbytes
-        t0 = time.perf_counter()
+        out["delta_values_bytes"] = payload_bytes(tbundle, delta, slots=False)
         loaded = serving.refresh_from_delta(loaded, delta)
-        torch.cuda.synchronize()
-        out["refresh_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
         loaded_q = serving.refresh_from_delta(loaded_q, delta, quantize=True)
         torch.cuda.synchronize()
-        out["refresh_int8_s"] = time.perf_counter() - t0
-        out["refresh_gb_per_s"] = dbytes / out["refresh_s"] / 1e9
         out["launches"] = read_launches()
         for name, t in state.tables.items():
             k, want = per_key(np, kv, t)
@@ -2955,17 +2729,17 @@ def dlrm_serving_api_phase(torch, np, kv, quant, models, train, serving,
           f"DLRM serving API path: the row kernels were not launched: "
           f"{out['launches']}")
     del state, loaded, loaded_q
-    out["peak_gib"] = peak_memory(torch, "DLRM serving API")
     print(f"DLRM serving API: {json.dumps(out)}", flush=True)
-    return out["launches"], out
+    peak_memory(torch, "DLRM serving API")
+    return out["launches"]
 
 
 def int8_lookup_and_table_ops_phase(torch, np, kv, quant, embedding,
                                     convert):
     """(b) The JAX bench's serving-leg shape: a 2^20-row dim-128 table
-    filled with 32,768 ids; ``quant.lookup_or_zeros`` of the ids and their
-    reversal in ids/s beside ``kv.lookup_or_zeros`` on the same table, in
-    turns (f32, int8, int8, f32). (c) On that table, each of the 7 scatter
+    filled with 32,768 ids, quantized, and ``quant.lookup_or_zeros`` of the
+    ids against the CPU's and within the bound of ``kv.lookup_or_zeros``
+    on the same table. (c) On that table, each of the 7 scatter
     ops over 32,768 ids of which half are present, ``get_count``,
     ``get_timestamp`` and a TTL eviction of the filled rows no op touched,
     each against the same calls on a CPU copy bit for bit; then
@@ -2976,12 +2750,10 @@ def int8_lookup_and_table_ops_phase(torch, np, kv, quant, embedding,
     rng = np.random.RandomState(SEED + 60)
     ids = rng.permutation(np.unique(rng.randint(0, 1 << 40, N_IDS + 4096,
                                                 dtype=np.int64)))[:N_IDS]
-    reps = 20
     out = {}
     reset_launches()
     t = kv.create(128, C_ROWS, max_probes=16, seed=SEED, device=DEV)
     q = kv.encode_ids(ids, device=DEV)
-    qf = q.flip(0)
     check(not bool(kv.lookup_or_insert(t, q, day=100).overflow),
           "int8 leg: the fill overflowed")
     cpu = dataclasses.replace(t, **{f: getattr(t, f).to("cpu", copy=True)
@@ -2991,30 +2763,16 @@ def int8_lookup_and_table_ops_phase(torch, np, kv, quant, embedding,
     check(torch.equal(qt.header.cpu(), qt_cpu.header)
           and torch.equal(qt.payload.cpu(), qt_cpu.payload),
           "int8 leg: quantize_table on the card differs from the CPU's")
-    calls = {"f32": lambda x: kv.lookup_or_zeros(t, x),
-             "int8": lambda x: quant.lookup_or_zeros(qt, x)}
-    rates = {"f32": [], "int8": []}
-    for leg in ("f32", "int8", "int8", "f32"):
-        fn = calls[leg]
-        fn(q)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn(q)
-            fn(qf)
-        torch.cuda.synchronize()
-        rates[leg].append(2 * reps * N_IDS / (time.perf_counter() - t0))
-    out["int8_leg_launches"] = read_launches()
-    out["ids_per_s"] = rates
     full = kv.lookup_or_zeros(t, q)
     got = quant.lookup_or_zeros(qt, q)
+    torch.cuda.synchronize()
+    out["int8_leg_launches"] = read_launches()
     check(torch.equal(got.cpu(), quant.lookup_or_zeros(qt_cpu, q.cpu())),
           "int8 leg: the card's int8 lookup differs from the CPU's")
     check(bool(((got - full).abs() <= quant_bound(torch, full)).all()),
           "int8 leg: int8 rows past max|row|/254")
     out["int8_payload_bytes"] = qt.payload.numel()
     out["f32_payload_bytes"] = t.payload.numel() * 4
-    out["card"] = smi_line()
     del qt, qt_cpu
     print(f"int8 lookup leg: {json.dumps(out)}", flush=True)
 
@@ -3022,7 +2780,6 @@ def int8_lookup_and_table_ops_phase(torch, np, kv, quant, embedding,
     gen = torch.Generator().manual_seed(SEED + 61)
     present = ids[:N_IDS // 2]
     reset_launches()
-    ops_ms = {}
     for k, op in enumerate(("update", "add", "sub", "mul", "div", "min",
                             "max")):
         # fresh ids for every op: disjoint ranges
@@ -3030,12 +2787,7 @@ def int8_lookup_and_table_ops_phase(torch, np, kv, quant, embedding,
                           dtype=np.int64)
         qq = np.concatenate([present, new])
         upd = torch.randn(N_IDS, 128, generator=gen)
-        qd, ud = kv.encode_ids(qq, device=DEV), upd.to(DEV)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        kv.scatter(t, qd, ud, op, day=110)
-        torch.cuda.synchronize()
-        ops_ms[op] = (time.perf_counter() - t0) * 1e3
+        kv.scatter(t, kv.encode_ids(qq, device=DEV), upd.to(DEV), op, day=110)
         kv.scatter(cpu, kv.encode_ids(qq, device="cpu"), upd, op, day=110)
     qall = kv.encode_ids(np.concatenate([ids, new]), device=DEV)
     counts = kv.get_count(t, qall)
@@ -3053,11 +2805,7 @@ def int8_lookup_and_table_ops_phase(torch, np, kv, quant, embedding,
           and np.array_equal(days.cpu().numpy(), want_days),
           "table ops: unexpected counts or days")
     size_before = int(kv.size(t))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     _, evicted = kv.delete_with_timestamp(t, 5, 110)
-    torch.cuda.synchronize()
-    ops_ms["delete_with_timestamp"] = (time.perf_counter() - t0) * 1e3
     _, evicted_cpu = kv.delete_with_timestamp(cpu, 5, 110)
     check(int(evicted.sum()) == N_IDS // 2
           and int(kv.size(t)) == size_before - N_IDS // 2,
@@ -3066,7 +2814,7 @@ def int8_lookup_and_table_ops_phase(torch, np, kv, quant, embedding,
               for f in convert.TABLE_FIELDS) and torch.equal(evicted.cpu(),
                                                      evicted_cpu),
           "table ops: the card's table differs from the CPU's")
-    out_ops = {"ms": ops_ms, "rows": size_before,
+    out_ops = {"rows": size_before,
                "evicted": int(evicted.sum()),
                "evicted_share": int(evicted.sum()) / size_before}
 
@@ -3090,17 +2838,13 @@ def int8_lookup_and_table_ops_phase(torch, np, kv, quant, embedding,
                 return embedding.safe_embedding_lookup_sparse(
                     table, sq, seg, BATCH, weights=wt, combiner=combiner,
                     train=False, default_id=int(present[0]))[0]
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
             a = run(DEV, t)
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3
             b = run(DEV, t)
             c = run("cpu", cpu)
             scale = float(c.abs().max())
             err = float((a.cpu() - c).abs().max())
             name = f"{combiner}{'_weighted' if weighted else ''}"
-            sparse[name] = {"ms": ms, "max_abs_err": err, "scale": scale}
+            sparse[name] = {"max_abs_err": err, "scale": scale}
             check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
                   f"sparse lookup {name}: a rerun on the card differs")
             check(np.allclose(a.cpu().numpy(), c.numpy(), rtol=1e-6,
@@ -3113,9 +2857,8 @@ def int8_lookup_and_table_ops_phase(torch, np, kv, quant, embedding,
           f"table ops: the row kernels were not launched: {out_ops}")
     print(f"table ops and sparse lookups: {json.dumps(out_ops)}", flush=True)
     del t, cpu
-    out["table_ops"] = out_ops
-    out["peak_gib"] = peak_memory(torch, "int8 leg, table ops, sparse")
-    return out["int8_leg_launches"], out_ops["launches"], out
+    peak_memory(torch, "int8 leg, table ops, sparse")
+    return out["int8_leg_launches"], out_ops["launches"]
 
 
 def ctr_reference(np, model, name, dense, embs, features):
@@ -3151,7 +2894,7 @@ def ctr_models_phase(torch, np, kv, embedding, models, train, convert):
     (the examples' defaults): three steps on the card against the CPU as in
     the training checks, then batch-2048 serving against a float64
     forward."""
-    out, launches = {}, None
+    launches = None
     for i, name in enumerate(("DeepFM", "WideDeep", "NCF")):
         model = getattr(models, name)(capacity=CTR_ROWS)
         alias = getattr(model, "id_alias", {})
@@ -3185,11 +2928,7 @@ def ctr_models_phase(torch, np, kv, embedding, models, train, convert):
             b["ids"][s][unknown] = rng.randint(1 << 41, 1 << 42,
                                                int(unknown.sum()))
         step = models.make_train_step(model, train=False)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         _, loss, preds = step(state, b)
-        torch.cuda.synchronize()
-        c["first_request_ms"] = (time.perf_counter() - t0) * 1e3
         embs = {n: embedding.gather(embedding.lookup_unique(
             t, b["ids"][alias.get(n, n)], train=False)[0]
         ).double().cpu().numpy() for n, t in state.tables.items()}
@@ -3205,13 +2944,11 @@ def ctr_models_phase(torch, np, kv, embedding, models, train, convert):
         launches = paths if launches is None else {
             k: launches[k] + paths[k] for k in launches}
         print(f"{name} checks:", json.dumps(c), flush=True)
-        out[name] = c
         del state, init
     check(launches["gather_rows"] > 0 and launches["scatter_rows"] > 0,
           f"CTR models: the row kernels were not launched: {launches}")
-    out["launches"] = launches
-    out["peak_gib"] = peak_memory(torch, "DeepFM, Wide&Deep, NCF")
-    return launches, out
+    peak_memory(torch, "DeepFM, Wide&Deep, NCF")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3223,7 +2960,7 @@ CRITEO_STEPS = 16                # batch-2048 DCN steps per feed
 MULTI_ROWS = {64: 1 << 23, 128: 1 << 22}   # rows of each dim's group
 MULTI_FILL = 1 << 18             # keys per logical table
 PER_TABLE_ROWS = 1 << 19         # the per-table step's tables, same keys
-MULTI_STEPS = 10                 # timed steps and requests of each step
+MULTI_STEPS = 10                 # counted steps and requests of each step
 # The hybrid table's device rows: twice its max_live below. At 2^20 rows
 # (load 0.5 after each spill) its lookups left 2-24 ids a step unplaced
 # from step 30 on, on the card and the CPU alike: the placement (first
@@ -3276,26 +3013,6 @@ def criteo_tsv(np, rng, rows):
     return m[m != 0].tobytes()
 
 
-def copy_device_us(torch, copies):
-    """Device µs of each host-to-device copy in ``copies`` (callables that
-    enqueue one copy each), summed: a pair of CUDA events around each copy,
-    all enqueued behind a device-side sleep, so the host's work between
-    copies is not counted (a pageable copy blocks the host until it has
-    run, so its pair holds its own staging waits only)."""
-    torch.cuda.synchronize()
-    torch.cuda._sleep(SLEEP_CYCLES)
-    pairs = []
-    for copy_one in copies:
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        copy_one()
-        b.record()
-        pairs.append((a, b))
-    torch.cuda.synchronize()
-    return sum(a.elapsed_time(b) for a, b in pairs) * 1e3
-
-
 def criteo_training_phase(torch, np, kv, models, train, native, criteo,
                           feed):
     """Phase 20: a generated Criteo file through the native and the Python
@@ -3304,21 +3021,10 @@ def criteo_training_phase(torch, np, kv, models, train, native, criteo,
     per-leaf feed and through the packed one, from equal states."""
     check(native.available(), "the native helper library did not build")
     rng = np.random.RandomState(SEED + 90)
-    t0 = time.perf_counter()
     buf = criteo_tsv(np, rng, CRITEO_ROWS)
-    out = {"rows": CRITEO_ROWS, "mb": len(buf) / 1e6,
-           "generate_s": time.perf_counter() - t0}
-    mb = out["mb"]
-
-    def rate(key, fn):
-        t0 = time.perf_counter()
-        res = fn()
-        out[key] = mb / (time.perf_counter() - t0)
-        return res
-    lib = rate("parse_library_mb_s",
-               lambda: native.parse_criteo_batch(buf, CRITEO_ROWS + 1))
-    py = rate("parse_python_mb_s",
-              lambda: native.parse_criteo_batch_py(buf, CRITEO_ROWS + 1))
+    out = {"rows": CRITEO_ROWS, "mb": len(buf) / 1e6}
+    lib = native.parse_criteo_batch(buf, CRITEO_ROWS + 1)
+    py = native.parse_criteo_batch_py(buf, CRITEO_ROWS + 1)
     check(len(lib[2]) == CRITEO_ROWS and lib[3] == len(buf)
           and lib[3] == py[3]
           and all(a.dtype == b.dtype and a.tobytes() == b.tobytes()
@@ -3329,27 +3035,17 @@ def criteo_training_phase(torch, np, kv, models, train, native, criteo,
         path = os.path.join(tmp, "train.txt")
         with open(path, "wb") as f:
             f.write(buf)
-        cache = criteo.BinaryCriteoCache(rate(
-            "build_cache_mb_s",
-            lambda: criteo.build_binary_cache(path, os.path.join(tmp, "c"))))
+        cache = criteo.BinaryCriteoCache(
+            criteo.build_binary_cache(path, os.path.join(tmp, "c")))
         check(cache.rows == CRITEO_ROWS
               and np.array_equal(cache.categorical[:], lib[1])
               and np.array_equal(cache.numeric[:].view(np.int32),
                                  lib[0].view(np.int32))
               and np.array_equal(cache.label[:], lib[2]),
               "Criteo: the cache differs from the library's parse")
-
-        def read_cache():         # every column of every batch, copied
-            return sum(np.array(v).nbytes for b in cache.batches(BATCH)
-                       for v in b.values())
-        rate("cache_read_mb_s", read_cache)
-
-        def loader():
-            with native.CriteoLoader(path, BATCH, threads=8) as ld:
-                return sum(len(b[2]) for b in ld)
-        check(rate("loader_8_threads_mb_s", loader) == CRITEO_ROWS,
-              "Criteo: the threaded loader lost rows")
-        print("Criteo readers:", json.dumps(out), flush=True)
+        with native.CriteoLoader(path, BATCH, threads=8) as ld:
+            check(sum(len(b[2]) for b in ld) == CRITEO_ROWS,
+                  "Criteo: the threaded loader lost rows")
 
         def host_batch(b):
             pairs = np.asarray(b["categorical"]).view(np.int32).reshape(
@@ -3373,51 +3069,24 @@ def criteo_training_phase(torch, np, kv, models, train, native, criteo,
         def packed_feed(b):       # one pinned buffer, one async copy
             return unpack(pack(host_batch(b)).to(DEV, non_blocking=True))
 
-        def copies(name, b):
-            if name == "per_leaf":
-                return [lambda x=x: torch.from_numpy(x).to(DEV)
-                        for x in leaves(b)]
-            flat = pack(host_batch(b))
-            return [lambda: flat.to(DEV, non_blocking=True)]
-
         batches = list(cache.batches(BATCH, max_batches=CRITEO_STEPS))
         model = models.DCN(capacity=C_ROWS)
         opt = train.GroupAdamOptimizer()
         tx = functools.partial(torch.optim.Adam, lr=1e-3)
         feeds = {"per_leaf": leaf_feed, "packed": packed_feed}
-        for fn in feeds.values():     # warm the page cache and allocators
-            for b in batches:
-                fn(b)
-        torch.cuda.synchronize()
-        for name, fn in feeds.items():
-            t0 = time.perf_counter()
-            for b in batches:
-                fn(b)
-            out[name] = {
-                "feed_host_ms_per_batch":
-                    (time.perf_counter() - t0) * 1e3 / len(batches),
-                "copy_device_us_per_batch": statistics.median(
-                    copy_device_us(torch, copies(name, b)) for b in batches),
-                "examples_per_s": []}
-        torch.cuda.synchronize()
         ref = None
         reset_launches()
-        # in turns: per-leaf, packed, packed, per-leaf, all from equal
-        # (empty) states; every run must give the first run's bits
+        # per-leaf, packed, packed, per-leaf, all from equal (empty)
+        # states; every run must give the first run's bits
         for name in ("per_leaf", "packed", "packed", "per_leaf"):
             fn = feeds[name]
             state = models.init_state(model, opt, tx, seed=SEED + 91,
                                       device=DEV)
             step = models.make_train_step(model, opt, sparse_lr=1e-3)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
             losses = []
             for b in batches:
                 state, loss, _ = step(state, fn(b))
                 losses.append(loss)
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            out[name]["examples_per_s"].append(len(batches) * BATCH / dt)
             run = (torch.stack(losses).cpu(),
                    {n: (t.header.clone(), t.payload[kv.occupied_mask(t)])
                     for n, t in state.tables.items()})
@@ -3432,25 +3101,22 @@ def criteo_training_phase(torch, np, kv, models, train, native, criteo,
             out["tables_bit_identical"] &= all(
                 torch.equal(x, y) for n in ref[1]
                 for x, y in zip(run[1][n], ref[1][n]))
-            print(f"DCN from Criteo, {name} feed: "
-                  f"{out[name]['examples_per_s'][-1]:.1f} examples/s",
-                  flush=True)
             del state, step, losses, run
             torch.cuda.empty_cache()
     launches = read_launches()
     out["row_kernel_launches"] = {k: launches[k] for k in
                                   ("gather_rows", "scatter_rows")}
     del ref
-    out["peak_gib"] = peak_memory(torch, "Criteo to DCN training")
     print("Criteo to DCN:", json.dumps(out), flush=True)
+    peak_memory(torch, "Criteo to DCN training")
     check(out["losses_bit_identical"] and out["tables_bit_identical"],
           f"Criteo: the two feeds trained differently: {out}")
     check(launches["gather_rows"] > 0 and launches["scatter_rows"] > 0,
           f"Criteo: the row kernels were not launched: {launches}")
-    return launches, out
+    return launches
 
 
-def multi_table_phase(torch, np, kv, models, train, convert, profile_dir):
+def multi_table_phase(torch, np, kv, models, train, convert):
     """Phase 21: the multi-table step at the reference DCN's widths: card
     against CPU and a rerun on 2^14-row groups; then groups of 2^23 (dim
     64) and 2^22 (dim 128) rows, each logical table filled with 2^18 keys,
@@ -3500,7 +3166,6 @@ def multi_table_phase(torch, np, kv, models, train, convert, profile_dir):
                               generator=gen)
                for n, spec in sorted(model.table_specs.items())}
     groups = group_names(model)
-    t0 = time.perf_counter()
     state = models.init_state_multi(model, opt, tx, seed=SEED + 101,
                                     capacity_per_group=MULTI_ROWS[128],
                                     device=DEV)
@@ -3514,49 +3179,31 @@ def multi_table_phase(torch, np, kv, models, train, convert, profile_dir):
             found = kv.find(state.tables[g], q).found.cpu().numpy()
             check(found.mean() > 0.999, f"multi fill: {n} placed too few")
             resident[n] = np.nonzero(found)[0]
-    torch.cuda.synchronize()
-    out["fill_s"] = time.perf_counter() - t0
     out["payload_gb"] = sum(t.payload.numel() * t.payload.element_size()
                             for t in state.tables.values()) / 1e9
     out["group_rows"] = {g: t.capacity for g, t in state.tables.items()}
     print(f"multi-table fill: {out['payload_gb']:.3f} GB of payload in "
           f"{json.dumps(out['group_rows'])} rows, {MULTI_FILL} keys per "
-          f"logical table, in {out['fill_s']:.3f} s", flush=True)
+          f"logical table", flush=True)
     requests = [dcn_batch(np, rng, keys, resident, BATCH)
                 for _ in range(MULTI_STEPS + 1)]
     steps = [dcn_batch(np, rng, keys, resident, BATCH)
              for _ in range(MULTI_STEPS + 2)]
 
     def measure(name, state, serve, step):
-        res = {}
+        """The requests and then the steps (``train_path``): the row
+        kernels' launches per request, and the second request's
+        predictions."""
         serve(state, requests[0])
         torch.cuda.synchronize()
         before = read_launches()
-        t0 = time.perf_counter()
         preds = [serve(state, b)[2] for b in requests[1:]]
         torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
         after = read_launches()
-        res["serving"] = {
-            "examples_per_s": MULTI_STEPS * BATCH / dt,
-            "row_kernel_launches_per_request": {
-                k: (after[k] - before[k]) / MULTI_STEPS
-                for k in ("gather_rows", "scatter_rows")},
-            **profile_calls(torch, f"{name}_serving",
-                            [lambda b=b: serve(state, b)
-                             for b in requests[1:4]],
-                            dt / MULTI_STEPS, profile_dir)}
-        state, _, rate, per_step = train_path(
-            torch, name, step, state, steps, {"flash_fwd": 0}, None)
-        res["training"] = {
-            "examples_per_s": rate,
-            "row_kernel_launches_per_step": {
-                k: per_step[k] for k in ("gather_rows", "scatter_rows")},
-            **profile_calls(torch, f"{name}_train",
-                            [lambda b=b: step(state, b)
-                             for b in steps[2:5]],
-                            BATCH / rate, profile_dir)}
-        return res, preds[0]
+        per_request = {k: (after[k] - before[k]) / MULTI_STEPS
+                       for k in ("gather_rows", "scatter_rows")}
+        train_path(torch, name, step, state, steps, {"flash_fwd": 0})
+        return per_request, preds[0]
 
     serve = models.make_train_step_multi(model, train=False)
     # the first request against a host-side map of what was inserted
@@ -3580,7 +3227,7 @@ def multi_table_phase(torch, np, kv, models, train, convert, profile_dir):
           and abs(float(loss) - float(ref_loss))
           <= F32_RTOL * max(1.0, abs(float(ref_loss))),
           f"multi-table: serving differs from the float64 reference: {out}")
-    out["multi"], multi_preds = measure(
+    out["multi_row_launches_per_request"], multi_preds = measure(
         "DCN_multi", state, serve,
         models.make_train_step_multi(model, opt, sparse_lr=1e-3))
     launches = read_launches()
@@ -3604,7 +3251,7 @@ def multi_table_phase(torch, np, kv, models, train, convert, profile_dir):
                 multi_tables[g], kv.tag_ids(ids, j)).found).cpu().numpy()
     del multi_tables
     reset_launches()
-    out["per_table"], per_table_preds = measure(
+    out["per_table_row_launches_per_request"], per_table_preds = measure(
         "DCN_per_table", state, models.make_train_step(model, train=False),
         models.make_train_step(model, opt, sparse_lr=1e-3))
     per_table = read_launches()
@@ -3619,13 +3266,13 @@ def multi_table_phase(torch, np, kv, models, train, convert, profile_dir):
     del state, rows_in
     out["row_kernel_launches"] = {k: launches[k] for k in
                                   ("gather_rows", "scatter_rows")}
-    out["peak_gib"] = peak_memory(torch, "per-table step beside it")
     print("multi-table step:", json.dumps(out), flush=True)
+    peak_memory(torch, "per-table step beside it")
     check(out["serving_preds_equal_per_table"],
           "multi-table: serving predictions differ from the per-table step's")
     check(launches["gather_rows"] > 0 and launches["scatter_rows"] > 0,
           f"multi-table: the row kernels were not launched: {launches}")
-    return launches, out
+    return launches
 
 
 def hybrid_tier_phase(torch, np, kv, train, storage):
@@ -3652,36 +3299,19 @@ def hybrid_tier_phase(torch, np, kv, train, storage):
 
     reset_launches()
     ht = storage.HybridTable(table(HYBRID_ROWS), max_live=HYBRID_BUDGET)
-    row_bytes = ht.table.payload.shape[1] * 4
-    ms = {"step": 0.0, "prefetch": 0.0, "apply_prefetch": 0.0, "spill": 0.0}
     moved = {"prefetch": [], "apply_prefetch": [], "spill": []}
     most_live = 0
-
-    def lap(key, t0):
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        ms[key] += (t1 - t0) * 1e3
-        return t1
-
-    torch.cuda.synchronize()
-    t_all = time.perf_counter()
     for s, ids in enumerate(stream, start=1):
-        t0 = time.perf_counter()
         moved["prefetch"].append(ht.prefetch(ids))
-        t0 = lap("prefetch", t0)
         train_step(ht.table, ids, s)
         if s < len(stream):
             ht.prefetch_async(stream[s])   # overlaps the step's device work
-        t0 = lap("step", t0)
         moved["apply_prefetch"].append(ht.apply_prefetch())
-        t0 = lap("apply_prefetch", t0)
         moved["spill"].append(ht.maybe_spill())
-        lap("spill", t0)
         live = int(kv.size(ht.table))
         most_live = max(most_live, live)
         check(live <= HYBRID_BUDGET,
               f"hybrid: {live} rows on the device after a spill")
-    hybrid_s = time.perf_counter() - t_all
     seen = np.unique(np.concatenate(stream))
     out = {"batches": len(stream),
            "unique_ids_per_batch": float(np.mean([len(x) for x in stream])),
@@ -3690,13 +3320,7 @@ def hybrid_tier_phase(torch, np, kv, train, storage):
            "device_capacity": ht.table.capacity,
            "host_tier_rows": ht.tier.size,
            "host_tier_bytes": ht.tier.nbytes,
-           "rows_moved_per_step": moved,
-           "hybrid_step_ms": hybrid_s * 1e3 / len(stream),
-           "ms_total": ms}
-    for key in ("prefetch", "apply_prefetch", "spill"):
-        n = sum(moved[key])
-        out[f"{key}_gb_per_s"] = (n * row_bytes / 1e9 / (ms[key] / 1e3)
-                                  if n else None)
+           "rows_moved_per_step": moved}
     check(out["logical_size"] == out["distinct_ids"],
           f"hybrid: logical size is not the ids seen: {out}")
     check(sum(moved["spill"]) > 0 and sum(moved["prefetch"]) > 0,
@@ -3706,12 +3330,8 @@ def hybrid_tier_phase(torch, np, kv, train, storage):
                                   ("gather_rows", "scatter_rows")}
 
     twin = table(HYBRID_TWIN_ROWS)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     for s, ids in enumerate(stream, start=1):
         train_step(twin, ids, s)
-    torch.cuda.synchronize()
-    out["resident_step_ms"] = (time.perf_counter() - t0) * 1e3 / len(stream)
     slot = opt.slot_name
     names = ("keys", "values", "freq_values", f"slot-{slot}")
 
@@ -3738,15 +3358,15 @@ def hybrid_tier_phase(torch, np, kv, train, storage):
         int(kv.size(back)) == min(seen.size, HYBRID_BUDGET)
         and all(np.array_equal(again[k], got[k]) for k in names))
     del ht, back, tier2, hyb, got, again
-    out["peak_gib"] = peak_memory(torch, "host-DRAM tier")
     print("hybrid tier:", json.dumps(out), flush=True)
+    peak_memory(torch, "host-DRAM tier")
     check(out["hybrid_equals_resident"],
           "hybrid: the spilled table's rows differ from the resident twin's")
     check(out["restore_split_equal"],
           "hybrid: restore_hybrid_split changed rows")
     check(launches["gather_rows"] > 0 and launches["scatter_rows"] > 0,
           f"hybrid: the row kernels were not launched: {launches}")
-    return launches, out
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3754,7 +3374,7 @@ def hybrid_tier_phase(torch, np, kv, train, storage):
 # phase 24 in two spawned ranks on the one card over gloo
 # ---------------------------------------------------------------------------
 
-SHARD_STEPS = 10                 # timed sharded steps and requests
+SHARD_STEPS = 10                 # counted sharded steps and requests
 PAR_TIMEOUT = 480                # seconds for phase 24's two ranks
 PAR_ROWS = 1 << 11               # phase 24's DLRM shards, grown past
 PAR_BATCH = 256                  # ids per rank and step in phase 24
@@ -3843,13 +3463,12 @@ def sharded_state(torch, models, par, model, opt, tx, rows, seed, group,
                                               device=device))
 
 
-def sharded_dlrm_phase(torch, np, kv, quant, models, train, convert,
-                       per_table, profile_dir):
+def sharded_dlrm_phase(torch, np, kv, quant, models, train, convert):
     """Phase 23: DLRM at the Criteo Kaggle widths over sharded tables in a
     world of 1 over NCCL (this process): the checks at 2^14-row shards
     (card against the same sharded steps on the CPU in a gloo subgroup,
     reruns, a falling loss), then 26 shards of 2^20 rows holding 2^18 keys
-    each, 10 timed steps and 10 f32 and int8 requests through
+    each, 10 counted steps and 10 f32 and int8 requests through
     ``sharded_serving_lookup``."""
     import torch.distributed as dist
     from tfplus_tpu_torch import parallel as par
@@ -3910,12 +3529,9 @@ def sharded_dlrm_phase(torch, np, kv, quant, models, train, convert,
             0, 1 << 40, DLRM_FILL + DLRM_FILL // 8, dtype=np.int64)))[
                 :DLRM_FILL] for n in model.table_specs}
         gen = torch.Generator(device=DEV).manual_seed(SEED + 231)
-        t0 = time.perf_counter()
         state = sharded_state(torch, models, par, model, opt, tx, DLRM_ROWS,
                               SEED + 231, nccl, DEV)
         resident = fill_tables(torch, np, kv, state, keys, gen)
-        torch.cuda.synchronize()
-        out["fill_s"] = time.perf_counter() - t0
         steps = [dcn_batch(np, rng, keys, resident, BATCH)
                  for _ in range(SHARD_STEPS + 2)]
         reset_launches()
@@ -3927,7 +3543,6 @@ def sharded_dlrm_phase(torch, np, kv, quant, models, train, convert,
         torch.cuda.synchronize()
         before = read_launches()
         sent = {}
-        t0 = time.perf_counter()
         with collective_bytes(sent):
             for b in steps[2:]:
                 state, loss, _, f = sharded_dlrm_step(
@@ -3935,24 +3550,17 @@ def sharded_dlrm_phase(torch, np, kv, quant, models, train, convert,
                 flags = flags + f
                 losses.append(loss)
             torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
         after = read_launches()
         out["flags"] = int(flags)
         check(out["flags"] == 0,
               "sharded DLRM: a route or table overflow flag is set")
         check(all(bool(torch.isfinite(x)) for x in losses),
               "sharded DLRM: non-finite loss")
-        train_out = {
-            "examples_per_s": SHARD_STEPS * BATCH / dt,
+        out["training"] = {
             "row_kernel_launches_per_step": {
                 k: (after[k] - before[k]) / SHARD_STEPS
                 for k in ("gather_rows", "scatter_rows")},
-            "collective_bytes_sent_per_step": sent["bytes"] / SHARD_STEPS,
-            **profile_calls(torch, "DLRM_sharded_train",
-                            [lambda b=b: sharded_dlrm_step(
-                                torch, kv, par, model, opt, 1e-3, state, b,
-                                nccl) for b in steps[2:5]],
-                            dt / SHARD_STEPS, profile_dir)}
+            "collective_bytes_sent_per_step": sent["bytes"] / SHARD_STEPS}
 
         # serving: the trained shards, f32 and int8
         def request(tables, b):
@@ -3970,19 +3578,12 @@ def sharded_dlrm_phase(torch, np, kv, quant, models, train, convert,
                     for _ in range(SHARD_STEPS + 1)]
         qtables = {n: quant.quantize_table(t)
                    for n, t in state.tables.items()}
-        serve_out = {}
         for tag, tables in (("f32", state.tables), ("int8", qtables)):
-            request(tables, requests[0])
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            preds = [request(tables, b) for b in requests[1:]]
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
+            preds = [request(tables, b) for b in requests]
             check(all(bool(torch.isfinite(p).all()) for p in preds),
                   f"sharded serving ({tag}): non-finite predictions")
-            serve_out[tag] = {"examples_per_s": SHARD_STEPS * BATCH / dt}
-        # the path's launches: the timed and profiled steps and the
-        # requests, read before the checks below launch row kernels
+        # the path's launches: the steps and the requests, read before the
+        # checks below launch row kernels
         out["launches"] = read_launches()
         # served rows equal the trained rows per key
         b = requests[1]
@@ -4003,22 +3604,17 @@ def sharded_dlrm_phase(torch, np, kv, quant, models, train, convert,
                   f"sharded serving: {n}'s int8 rows past max|row|/254")
             worst = max(worst, float((err / quant_bound(torch, full)
                                       .clamp(min=1e-30)).max()))
-        serve_out["int8_err_over_bound"] = worst
-        out["training"] = train_out
-        out["serving"] = serve_out
-        out["per_table_dcn_phase_21_beside_it"] = {
-            k: per_table["training"][k]
-            for k in ("examples_per_s", "launches", "nonzero_syncs")}
+        out["serving_int8_err_over_bound"] = worst
         del state, qtables
     finally:
         dist.destroy_process_group()
-    out["peak_gib"] = peak_memory(torch, "sharded DLRM")
     print(f"sharded DLRM (NCCL, world 1): {json.dumps(out)}", flush=True)
+    peak_memory(torch, "sharded DLRM")
     check(out["launches"]["gather_rows"] > 0
           and out["launches"]["scatter_rows"] > 0,
           f"sharded DLRM: the row kernels were not launched: "
           f"{out['launches']}")
-    return out["launches"], out
+    return out["launches"]
 
 
 def two_rank_phase(torch):
@@ -4026,15 +3622,13 @@ def two_rank_phase(torch):
     script (``--rank-worker``) with a time limit; each runs
     :func:`rank_worker`'s legs and writes its results, which this process
     checks and sums. Two ranks sharing one card time nothing that users
-    of several cards see: the legs are checked, and timed only for the
-    record."""
+    of several cards see: the legs are checked, not timed."""
     import shutil
     workdir = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
     port = free_port()
     env = dict(os.environ, LOCAL_RANK="0", OMP_NUM_THREADS="4")
     logs = [os.path.join(workdir, f"rank{r}.log") for r in range(2)]
     procs = []
-    t0 = time.perf_counter()
     try:
         for r in range(2):
             with open(logs[r], "wb") as f:
@@ -4069,10 +3663,9 @@ def two_rank_phase(torch):
     shutil.rmtree(workdir, ignore_errors=True)
     launches = {k: sum(x["launches"][k] for x in res)
                 for k in res[0]["launches"]}
-    out = {"seconds": time.perf_counter() - t0, "ranks": res,
-           "launches": launches}
+    out = {"ranks": res, "launches": launches}
     print(f"two ranks over gloo: {json.dumps(out)}", flush=True)
-    return launches, out
+    return launches
 
 
 def leg(res, name, fn, *args):
@@ -4082,12 +3675,10 @@ def leg(res, name, fn, *args):
     references, checks and their set-up, tallied by :func:`not_path`),
     which are taken off."""
     reset_launches()
-    t0 = time.perf_counter()
     out, checks = fn(*args)
     after = read_launches()
     res["launches"] = {k: res["launches"].get(k, 0) + after[k]
                        - checks.get(k, 0) for k in after}
-    out["seconds"] = time.perf_counter() - t0
     res[name] = out
     print(f"rank leg {name}: {json.dumps(out)}", flush=True)
 
@@ -4145,16 +3736,6 @@ def ring_leg(torch, np, fa, rank, world):
         torch.cuda.synchronize()
         after = read_launches()
         path = {kk: after[kk] - before[kk] for kk in after}
-        # timed (for the record only: two ranks share one card)
-        times = []
-        for _ in range(3):
-            xs = [x.detach().requires_grad_() for x in mine]
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            ra.ring_flash_attention(*xs, causal=causal).backward(
-                do[:, :, sl].contiguous())
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
         with not_path(checks):
             full = [x.clone().requires_grad_() for x in (q, k, v)]
             of = fa.flash_attention(*full, causal=causal)
@@ -4174,7 +3755,7 @@ def ring_leg(torch, np, fa, rank, world):
             grads[f"d{t}"] = float((mine_t.grad.float() - g_ref).abs().max()
                                    / g_ref.abs().max()) / BWD_F64_TOL[key]
         out[name] = {"out_err_ratio": ratio, "grad_err_ratio": grads,
-                     "ms_fwd_bwd": times, "launches": path,
+                     "launches": path,
                      "strict_ratio": float((err / (atol + rtol * ref.abs()))
                                            .max())}
         check(ratio <= 1 and max(grads.values()) <= 1,
@@ -4542,10 +4123,6 @@ def counted(obj, attr, tally):
         setattr(obj, attr, inner)
 
 
-def rate(nbytes, seconds):
-    return nbytes / seconds / 1e9
-
-
 def same_by_key(torch, np, kv, a, b):
     """Two tables hold the same keys with the same rows, bit for bit."""
     ka, ra = per_key(np, kv, a)
@@ -4561,14 +4138,13 @@ def remote_serving_legs(torch, np, kv, quant, models, train, serving,
     (the emulator's single-PUT cap at the client's part size, so every
     bundle file past 16 MB goes up in parts), ``load_for_serving`` from
     there in f32 (rows per key bit for bit with the source) and int8
-    (within max|row|/254); the same three calls on local disk for their
-    rates. (b) three Adam steps, a delta ``checkpoint.save`` to ``s3://``
+    (within max|row|/254); the export and the f32 load on local disk too.
+    (b) three Adam steps, a delta ``checkpoint.save`` to ``s3://``
     and to local disk (the local save first, then the tables' delta bits
     put back so that both saves hold the same rows), ``refresh_from_delta``
     of the f32 tables loaded in (a) from each: equal per key bit for bit.
     The launch counts of each leg cover its remote calls only."""
     from tfplus_tpu_torch.io import object_store
-    t_leg = time.perf_counter()
     model = models.DLRM(**DLRM_CONFIG, capacity=DLRM_ROWS)
     gen = torch.Generator(device=DEV).manual_seed(SEED + 250)
     rng = np.random.RandomState(SEED + 250)
@@ -4599,36 +4175,16 @@ def remote_serving_legs(torch, np, kv, quant, models, train, serving,
         reset_launches()
         with counted(object_store.ObjectStoreClient, "initiate_multipart",
                      tally):
-            t0 = time.perf_counter()
             prefix = serving.export_for_serving(remote, state.tables, md)
-            a["export_s"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
             loaded, _ = serving.load_for_serving(remote, device=DEV)
-            torch.cuda.synchronize()
-            a["load_s"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
             loaded_q, _ = serving.load_for_serving(remote, quantize=True,
                                                    device=DEV)
             torch.cuda.synchronize()
-            a["load_int8_s"] = time.perf_counter() - t0
         a["launches"] = read_launches()
         a["multipart_uploads"] = tally.get("initiate_multipart", 0)
-        nbytes = payload_bytes(tbundle, prefix)
-    t0 = time.perf_counter()
+        a["payload_bytes"] = payload_bytes(tbundle, prefix)
     serving.export_for_serving(local, state.tables, md)
-    a["local_export_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
     loaded_local, _ = serving.load_for_serving(local, device=DEV)
-    torch.cuda.synchronize()
-    a["local_load_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    serving.load_for_serving(local, quantize=True, device=DEV)
-    torch.cuda.synchronize()
-    a["local_load_int8_s"] = time.perf_counter() - t0
-    a["payload_bytes"] = nbytes
-    for k in ("export", "load", "load_int8"):
-        a[f"{k}_gb_per_s"] = rate(nbytes, a[f"{k}_s"])
-        a[f"local_{k}_gb_per_s"] = rate(nbytes, a[f"local_{k}_s"])
     check(a["multipart_uploads"] > 0, "OSS export: no multipart upload")
     worst = 0.0
     for name, t in state.tables.items():
@@ -4647,9 +4203,7 @@ def remote_serving_legs(torch, np, kv, quant, models, train, serving,
                                   / bound.clamp(min=1e-30)).max()))
     a["int8_err_over_bound"] = worst
     del loaded_q
-    a["seconds"] = time.perf_counter() - t_leg
     print(f"remote storage (a) oss: {json.dumps(a)}", flush=True)
-    t_leg = time.perf_counter()
 
     # (b) the trainer's delta through s3://
     b = out["s3"]
@@ -4669,10 +4223,7 @@ def remote_serving_legs(torch, np, kv, quant, models, train, serving,
     check(bool(torch.isfinite(loss)), "S3 leg: non-finite training loss")
     headers = {n: t.header.clone() for n, t in state.tables.items()}
     local_delta = os.path.join(workdir, "delta-1")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     checkpoint.save(local_delta, state.tables, delta=True)
-    b["local_save_s"] = time.perf_counter() - t0
     for n, t in state.tables.items():
         t.header.copy_(headers[n])         # the delta bits, for the S3 save
     del headers
@@ -4681,32 +4232,20 @@ def remote_serving_legs(torch, np, kv, quant, models, train, serving,
         remote_delta = remote_uri("s3", host, "deltas/delta-1")
         torch.cuda.synchronize()
         reset_launches()
-        t0 = time.perf_counter()
         checkpoint.save(remote_delta, state.tables, delta=True)
-        b["save_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
         loaded = serving.refresh_from_delta(loaded, remote_delta)
         torch.cuda.synchronize()
-        b["refresh_s"] = time.perf_counter() - t0
         b["launches"] = read_launches()
-        dbytes = payload_bytes(tbundle, remote_delta)
-        vbytes = payload_bytes(tbundle, remote_delta, slots=False)
-    t0 = time.perf_counter()
+        b["delta_payload_bytes"] = payload_bytes(tbundle, remote_delta)
+        b["delta_values_bytes"] = payload_bytes(tbundle, remote_delta,
+                                                slots=False)
     loaded_local = serving.refresh_from_delta(loaded_local, local_delta)
-    torch.cuda.synchronize()
-    b["local_refresh_s"] = time.perf_counter() - t0
-    b.update({"delta_payload_bytes": dbytes, "delta_values_bytes": vbytes,
-              "save_gb_per_s": rate(dbytes, b["save_s"]),
-              "local_save_gb_per_s": rate(dbytes, b["local_save_s"]),
-              "refresh_gb_per_s": rate(vbytes, b["refresh_s"]),
-              "local_refresh_gb_per_s": rate(vbytes, b["local_refresh_s"])})
     for name in state.tables:
         check(same_by_key(torch, np, kv, loaded[name], loaded_local[name]),
               f"S3 refresh: {name} differs from the local refresh")
         check(same_by_key(torch, np, kv, loaded[name], state.tables[name]),
               f"S3 refresh: {name} differs from the trainer's rows")
     del state, loaded, loaded_local
-    b["seconds"] = time.perf_counter() - t_leg
     print(f"remote storage (b) s3: {json.dumps(b)}", flush=True)
     return out
 
@@ -4743,13 +4282,12 @@ def resume_probe(torch, np, embedding, live, back, ids):
 
 
 def remote_growth_leg(torch, np, kv, models, train, checkpoint, tbundle,
-                      rowops, io, dfs_emu, workdir):
+                      rowops, io, dfs_emu):
     """Phase 25 (c): phase 14's growing DCN (every table from 2^14 rows,
     2,048 fresh ids per table and step) for 8 steps, a full
     ``CheckpointManager`` save at step 4 and a delta at 8 on ``dfs://``,
     the emulator failing the first request of the full save (a namenode
-    leg, retried); each save also to local disk (first, with the delta
-    bits put back after it) for its rate. A second manager restores from
+    leg, retried). A second manager restores from
     ``dfs://`` into fresh 2^14-row templates: every table equal to the
     live one per key, and the dense tower bit for bit. Then one more step
     from both states on one batch, the loss coming before any update:
@@ -4761,11 +4299,9 @@ def remote_growth_leg(torch, np, kv, models, train, checkpoint, tbundle,
     the same ids, and reports the case where they are not as the known
     fault it is. (2) Both states grown to one capacity, twice the larger,
     where neither leaves an id unplaced: the losses must be equal. The
-    launch counts are the saves, the remote restore and step (1); they
-    leave out the local saves and restore, the probes, step (2) and the
-    checks."""
+    launch counts are the saves, the restore and step (1); they leave out
+    the probes, step (2) and the checks."""
     from tfplus_tpu_torch import embedding
-    t_leg = time.perf_counter()
     model = models.DCN(capacity=GROW_START_ROWS)
     opt = train.GroupAdamOptimizer()
     tx = functools.partial(torch.optim.Adam, lr=1e-3)
@@ -4775,14 +4311,11 @@ def remote_growth_leg(torch, np, kv, models, train, checkpoint, tbundle,
     state = models.init_state(model, opt, tx, seed=SEED, device=DEV)
     step = models.make_train_step(model, opt, sparse_lr=1e-3)
     out = {"saves": {}, "grows": 0}
-    off = {}
-    local = os.path.join(workdir, "ckpts")
     srv = dfs_emu.DfsEmulator(users={REMOTE_USER})
     with srv as host:
         io.register_dfs()
         remote = remote_uri("dfs", host, "ckpts")
         mgr = checkpoint.CheckpointManager(remote)
-        local_mgr = checkpoint.CheckpointManager(local)
         torch.cuda.synchronize()
         reset_launches()
         for i in range(1, REMOTE_GROW_STEPS + 1):
@@ -4795,48 +4328,21 @@ def remote_growth_leg(torch, np, kv, models, train, checkpoint, tbundle,
                 continue
             full = i == REMOTE_GROW_SAVES[0]
             kind = "full" if full else "delta"
-            with not_path(off):
-                headers = {n: t.header.clone()
-                           for n, t in state.tables.items()}
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                local_mgr.save(state.tables, state.dense, step=i, full=full)
-                local_s = time.perf_counter() - t0
-                for n, t in state.tables.items():
-                    t.header.copy_(headers[n])
-                del headers
             if full:
                 srv.fail_next(1)        # the save's first (namenode) leg
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
             tables = mgr.save(state.tables, state.dense, step=i, full=full)
-            dt = time.perf_counter() - t0
             state = state._replace(tables=tables)
-            nbytes = payload_bytes(tbundle, f"{remote}/ckpt-{kind}-{i}")
-            out["saves"][f"{kind}@{i}"] = {
-                "s": dt, "payload_bytes": nbytes, "gb_per_s": rate(nbytes, dt),
-                "local_s": local_s, "local_gb_per_s": rate(nbytes, local_s)}
+            out["saves"][f"{kind}@{i}"] = payload_bytes(
+                tbundle, f"{remote}/ckpt-{kind}-{i}")
         check(srv._handler.faults["n"] == 0, "DFS leg: the fault never hit")
         caps = {n: t.capacity for n, t in state.tables.items()}
         dense = model.init_dense(torch.Generator().manual_seed(SEED + 261),
                                  DEV)
         templates = model.init_tables(opt, seed=SEED + 262, device=DEV)
-        total = sum(s["payload_bytes"] for s in out["saves"].values())
-        t0 = time.perf_counter()
         restored, dense, at = checkpoint.CheckpointManager(remote).restore(
             templates, dense)
         torch.cuda.synchronize()
-        out["restore_s"] = time.perf_counter() - t0
-    with not_path(off):
-        t0 = time.perf_counter()
-        checkpoint.CheckpointManager(local).restore(
-            model.init_tables(opt, seed=SEED + 262, device=DEV),
-            model.init_dense(torch.Generator().manual_seed(SEED + 261), DEV))
-        torch.cuda.synchronize()
-        out["local_restore_s"] = time.perf_counter() - t0
     launches = read_launches()
-    out["restore_gb_per_s"] = rate(total, out["restore_s"])
-    out["local_restore_gb_per_s"] = rate(total, out["local_restore_s"])
     check(at == REMOTE_GROW_STEPS, f"DFS leg: restored step {at}")
     check(out["grows"] > 0 and all(c > GROW_START_ROWS
                                    for c in caps.values()),
@@ -4878,7 +4384,7 @@ def remote_growth_leg(torch, np, kv, models, train, checkpoint, tbundle,
     resumed, loss_resumed, _ = step(resumed, batches[-1])
     torch.cuda.synchronize()
     after = read_launches()
-    out["launches"] = {k: launches[k] - off.get(k, 0) + after[k] - before[k]
+    out["launches"] = {k: launches[k] + after[k] - before[k]
                        for k in launches}
     res = out["resume"]
     res["loss_live"], res["loss_resumed"] = float(loss_live), float(
@@ -4903,7 +4409,6 @@ def remote_growth_leg(torch, np, kv, models, train, checkpoint, tbundle,
           f"DFS leg: at one capacity the resumed loss "
           f"{out['loss_resumed']} != live {out['loss_live']}")
     del state, resumed, restored, templates, wide
-    out["seconds"] = time.perf_counter() - t_leg
     print(f"remote storage (c) dfs: {json.dumps(out)}", flush=True)
     return out
 
@@ -4911,24 +4416,20 @@ def remote_growth_leg(torch, np, kv, models, train, checkpoint, tbundle,
 def remote_storage_phase(torch, np, kv, quant, models, train, serving,
                          checkpoint, tbundle, rowops):
     """Phase 25: the port's OSS, S3 and DFS clients against their
-    emulators on 127.0.0.1 in this process (legs (a)-(c) above). The
-    emulator shares the interpreter with the client, so the GB/s are a
-    record, not a target."""
+    emulators on 127.0.0.1 in this process (legs (a)-(c) above)."""
     import shutil
     from tfplus_tpu_torch import io
     from tfplus_tpu_torch.io import dfs_emulator, oss_emulator, s3_emulator
     workdir = tempfile.mkdtemp(prefix="chip_smoke_remote_")
-    t0 = time.perf_counter()
     try:
         out = remote_serving_legs(torch, np, kv, quant, models, train,
                                   serving, checkpoint, tbundle, io,
                                   oss_emulator, s3_emulator, workdir)
         out["dfs"] = remote_growth_leg(torch, np, kv, models, train,
                                        checkpoint, tbundle, rowops, io,
-                                       dfs_emulator, workdir)
+                                       dfs_emulator)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    out["seconds"] = time.perf_counter() - t0
     legs = [out[s]["launches"] for s in ("oss", "s3", "dfs")]
     launches = {k: sum(x[k] for x in legs) for k in legs[0]}
     for s in ("oss", "s3", "dfs"):
@@ -4937,9 +4438,8 @@ def remote_storage_phase(torch, np, kv, quant, models, train, serving,
               f"remote {s}: no row kernel launched: {out[s]['launches']}")
     check(launches["gather_rows"] > 0 and launches["scatter_rows"] > 0,
           f"remote storage: the row kernels were not launched: {launches}")
-    out["peak_gib"] = peak_memory(torch, "remote storage")
-    print(f"remote storage: {json.dumps(out)}", flush=True)
-    return launches, out
+    peak_memory(torch, "remote storage")
+    return launches
 
 
 def trace_events(path):
@@ -4982,14 +4482,12 @@ def profiling_phase(torch, np, kv, models, train):
     try:
         torch.cuda.synchronize()
         reset_launches()
-        t0 = time.perf_counter()
         with profiling.trace(log_dir):
             for b in batches[2:2 + PROFILE_STEPS]:
                 serve(state, b)
             for b in batches[2 + PROFILE_STEPS:2 + 2 * PROFILE_STEPS]:
                 state, loss, _ = step(state, b)
             torch.cuda.synchronize()
-        out["traced_s"] = time.perf_counter() - t0
         launches = read_launches()
         events, path = trace_events(log_dir)
         out["trace_bytes"] = os.path.getsize(path)
@@ -5033,18 +4531,17 @@ def profiling_phase(torch, np, kv, models, train):
         evs.append((a, e))
     snap = meter.snapshot()
     ev_s = sum(a.elapsed_time(e) for a, e in evs) / 1e3
-    out["step_meter"] = snap
-    out["cuda_event_examples_per_s"] = METER_STEPS * BATCH / ev_s
+    out["step_meter_steps"] = snap["steps"]
+    out["step_meter_over_cuda_events"] = (snap["examples_per_s"] * ev_s
+                                          / (METER_STEPS * BATCH))
     check(snap["steps"] == METER_STEPS + 1
-          and abs(snap["examples_per_s"] / out["cuda_event_examples_per_s"]
-                  - 1) < 0.5,
-          f"profiling: StepMeter {snap} far from the CUDA events' rate "
-          f"{out['cuda_event_examples_per_s']}")
+          and abs(out["step_meter_over_cuda_events"] - 1) < 0.5,
+          f"profiling: StepMeter far from the CUDA events' rate: {out}")
     out["launches"] = launches
     del state
-    out["peak_gib"] = peak_memory(torch, "profiling")
     print(f"profiling: {json.dumps(out)}", flush=True)
-    return launches, out
+    peak_memory(torch, "profiling")
+    return launches
 
 
 def twin_worker(args) -> int:
@@ -5055,10 +4552,8 @@ def twin_worker(args) -> int:
     argv = json.loads(args.twin_args)
     mod = importlib.import_module(f"tfplus_tpu_torch.examples.{args.twin}")
     reset_launches()
-    t0 = time.perf_counter()
     metrics = mod.main(argv)
-    res = {"name": args.twin, "argv": argv,
-           "seconds": time.perf_counter() - t0, "metrics": metrics,
+    res = {"name": args.twin, "argv": argv, "metrics": metrics,
            "launches": read_launches()}
     if int(os.environ.get("RANK", "0")) == 0:
         print("twin result " + json.dumps(res, default=float), flush=True)
@@ -5101,8 +4596,7 @@ def twins_phase(torch):
     """Phase 27: every example twin in its own process (``--twin``), at
     most ``TWIN_LANES`` at once on the one card, ``train_dlrm_sharded``
     under ``torchrun --nproc-per-node 1`` (NCCL); each must exit 0 and
-    pass its own checks. Twins that share the card and the host's cores
-    time nothing alone: their examples/s are a record."""
+    pass its own checks."""
     import shutil
     workdir = tempfile.mkdtemp(prefix="chip_smoke_twins_")
     env = dict(os.environ, OMP_NUM_THREADS="2")
@@ -5117,7 +4611,6 @@ def twins_phase(torch):
                 json.dumps(argv)]
         runs.append({"name": name, "argv": argv, "cmd": cmd,
                      "log": os.path.join(workdir, f"twin{i}.log")})
-    t0 = time.perf_counter()
     deadline = time.monotonic() + TWIN_TIMEOUT
     pending, live = list(runs), []
     try:
@@ -5127,11 +4620,9 @@ def twins_phase(torch):
                 with open(r["log"], "wb") as f:
                     r["proc"] = subprocess.Popen(r["cmd"], env=env, stdout=f,
                                                  stderr=subprocess.STDOUT)
-                r["t0"] = time.perf_counter()
                 live.append(r)
             time.sleep(0.2)
             for r in [r for r in live if r["proc"].poll() is not None]:
-                r["wall_s"] = time.perf_counter() - r["t0"]
                 live.remove(r)
             check(time.monotonic() < deadline,
                   f"twins: past {TWIN_TIMEOUT} s with "
@@ -5155,23 +4646,16 @@ def twins_phase(torch):
         check(len(line) == 1, f"twin {r['name']}: no result line")
         res = json.loads(line[0][len("twin result "):])
         twin_check(res)
-        res["wall_s"] = r["wall_s"]
         results.append(res)
     shutil.rmtree(workdir, ignore_errors=True)
     launches = {k: sum(x["launches"][k] for x in results)
                 for k in results[0]["launches"]}
-    out = {"seconds": time.perf_counter() - t0, "launches": launches,
+    out = {"launches": launches,
            "twins": [{"name": x["name"], "argv": x["argv"],
-                      "seconds": x["seconds"], "wall_s": x["wall_s"],
-                      "examples_per_s": x["metrics"].get("examples_per_s"),
                       "launches": {k: v for k, v in x["launches"].items()
                                    if v}} for x in results]}
-    for x in out["twins"]:
-        print(f"twin {x['name']} {' '.join(x['argv'])}: "
-              f"{x['examples_per_s']} examples/s, {x['seconds']:.1f} s",
-              flush=True)
     print(f"twins: {json.dumps(out)}", flush=True)
-    return launches, out
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -5210,8 +4694,7 @@ def key_state(torch, kv, t, q):
     return rows.view(torch.int32), fr.meta
 
 
-def tf_bridge_phase(torch, np, kv, models, train, serving, checkpoint,
-                    packing):
+def tf_bridge_phase(torch, np, kv, models, train, serving, packing):
     """Phase 28: the TFPlus bridge on phase 17's DLRM (26 tables of 2^20
     rows holding 2^18 keys, dim 16), after three Adam steps so that
     frequencies and slots exist, then 64 keys per table blacklisted. (a)
@@ -5228,15 +4711,13 @@ def tf_bridge_phase(torch, np, kv, models, train, serving, checkpoint,
     ``attach_slot_rows`` into the table of (b): the slot rows equal the
     source's. (e) ``export_for_serving(format="tfplus")`` then
     ``import_checkpoint`` of its prefix: ten requests give the predictions
-    of the native export's ``load_for_serving``. (f) GB/s of the bundle
-    files each way beside ``checkpoint.save`` / ``restore`` of the same
-    tables on the same disk, and the CRC32C helper's GB/s. Each leg runs
+    of the native export's ``load_for_serving``. (f) the CRC32C helper
+    against its table loop on the uint32 export's data file. Each leg runs
     with the launch counts set to 0 before it and read after it; its
     checks and references are taken off (:func:`not_path`)."""
     import shutil
-    from tfplus_tpu_torch.checkpoint import (crc32c, saver, tf_bundle,
-                                             tf_export, tf_import)
-    t_phase = time.perf_counter()
+    from tfplus_tpu_torch.checkpoint import (crc32c, tf_bundle, tf_export,
+                                             tf_import)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_tf_bridge_")
     out = {"legs": {}}
     total = {}
@@ -5244,12 +4725,10 @@ def tf_bridge_phase(torch, np, kv, models, train, serving, checkpoint,
     def run_leg(name, fn):
         checks = {}
         reset_launches()
-        t0 = time.perf_counter()
         res = fn(checks)
         after = read_launches()
         path = {k: after[k] - checks.get(k, 0) for k in after}
         res["launches"] = {k: v for k, v in path.items() if v}
-        res["seconds"] = time.perf_counter() - t0
         for k, v in path.items():
             total[k] = total.get(k, 0) + v
         out["legs"][name] = res
@@ -5302,8 +4781,6 @@ def tf_bridge_phase(torch, np, kv, models, train, serving, checkpoint,
         check(all(int((s[3] & packing.FLAG_BLACKLIST).ne(0).sum())
                   == TF_BLACKLISTED for s in source.values()),
               "TF bridge: the blacklisted keys are not set")
-        torch.cuda.synchronize()
-        out["setup_s"] = time.perf_counter() - t_phase
         prefixes = {}
 
         def leg_a(checks):
@@ -5311,12 +4788,9 @@ def tf_bridge_phase(torch, np, kv, models, train, serving, checkpoint,
             for kind, u32 in (("uint16", False), ("uint32", True)):
                 p = [os.path.join(workdir, f"a_{kind}_{i}", "model.ckpt-3")
                      for i in range(2)]
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
                 tf_export.export_checkpoint(p[0], state.tables,
                                             freq_use_uint32=u32,
                                             as_of_unix_day=TF_AS_OF_DAY)
-                res[f"{kind}_export_s"] = time.perf_counter() - t0
                 tf_export.export_checkpoint(p[1], state.tables,
                                             freq_use_uint32=u32,
                                             as_of_unix_day=TF_AS_OF_DAY)
@@ -5371,15 +4845,10 @@ def tf_bridge_phase(torch, np, kv, models, train, serving, checkpoint,
         imported = {}
 
         def leg_b(checks):
-            res = {}
             for kind in ("uint16", "uint32"):
                 with not_path(checks):
                     templates = fresh()
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
                 got = tf_import.import_checkpoint(prefixes[kind], templates)
-                torch.cuda.synchronize()
-                res[f"{kind}_import_s"] = time.perf_counter() - t0
                 for name in state.tables:
                     compare(name, got[name], kind, checks)
                 imported[kind] = got
@@ -5389,19 +4858,15 @@ def tf_bridge_phase(torch, np, kv, models, train, serving, checkpoint,
                 check(all(torch.equal(serve(served, b)[2], p)
                           for b, p in zip(requests, want_preds)),
                       "TF import: predictions differ from the source's")
-            return res
+            return {}
 
         elastic = "T1"
 
         def leg_c(checks):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
             shards = tf_import.import_kv_variable(
                 prefixes["uint32"], elastic, num_shards=TF_SHARDS,
                 capacity=DLRM_ROWS // 2, device=DEV)
-            torch.cuda.synchronize()
-            res = {"import_s": time.perf_counter() - t0,
-                   "rows_per_shard": [int(kv.size(s)) for s in shards]}
+            res = {"rows_per_shard": [int(kv.size(s)) for s in shards]}
             check(all(s.device.type == torch.device(DEV).type
                       for s in shards),
                   "elastic import: a shard is not on the card")
@@ -5422,12 +4887,8 @@ def tf_bridge_phase(torch, np, kv, models, train, serving, checkpoint,
                                            f"{slot_table}/m-values"],
                                        [u64.view(np.int64), m])
             t = imported["uint32"][slot_table]
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
             t = tf_import.attach_slot_rows(t, p, f"{slot_table}/m", "m")
-            torch.cuda.synchronize()
-            res = {"attach_s": time.perf_counter() - t0,
-                   "slot_layout": [list(x) for x in t.config.slot_layout]}
+            res = {"slot_layout": [list(x) for x in t.config.slot_layout]}
             with not_path(checks):
                 fr = kv.find(t, q)
                 got = kv.get_slot(t, "m")[fr.slot.long()]
@@ -5442,18 +4903,12 @@ def tf_bridge_phase(torch, np, kv, models, train, serving, checkpoint,
                 md.add_embedding_column(column_name=name, var_name=name,
                                         embedding_dim=16)
             d = os.path.join(workdir, "e_tfplus")
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
             prefix = serving.export_for_serving(d, state.tables, md,
                                                 format="tfplus")
-            res = {"export_s": time.perf_counter() - t0}
             with not_path(checks):
                 templates = fresh()
-            t0 = time.perf_counter()
             got = tf_import.import_checkpoint(prefix, templates)
-            torch.cuda.synchronize()
-            res["import_s"] = time.perf_counter() - t0
-            res["bytes"] = sum(file_bytes(prefix).values())
+            res = {"bytes": sum(file_bytes(prefix).values())}
             with not_path(checks):
                 nd = os.path.join(workdir, "e_native")
                 serving.export_for_serving(nd, state.tables, md)
@@ -5473,68 +4928,31 @@ def tf_bridge_phase(torch, np, kv, models, train, serving, checkpoint,
         del imported
         run_leg("e", leg_e)
 
-        # (f) rates beside the native bundle, and the CRC32C helper
-        f = {}
-        for kind in ("uint16", "uint32"):
-            f[f"tf_export_{kind}_gb_per_s"] = rate(
-                out["legs"]["a"][f"{kind}_bytes"],
-                out["legs"]["a"][f"{kind}_export_s"])
-            f[f"tf_import_{kind}_gb_per_s"] = rate(
-                out["legs"]["a"][f"{kind}_bytes"],
-                out["legs"]["b"][f"{kind}_import_s"])
-        native = os.path.join(workdir, "f_native", "model.ckpt-3")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        checkpoint.save(native, state.tables)
-        f["native_save_s"] = time.perf_counter() - t0
-        f["native_bytes"] = sum(file_bytes(native).values())
-        templates = {n: opt.init(kv.create(16, DLRM_ROWS, name=n,
-                                           device=DEV))
-                     for n in state.tables}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        checkpoint.restore(native, templates)
-        torch.cuda.synchronize()
-        f["native_restore_s"] = time.perf_counter() - t0
-        del templates
-        f["native_save_gb_per_s"] = rate(f["native_bytes"],
-                                         f["native_save_s"])
-        f["native_restore_gb_per_s"] = rate(f["native_bytes"],
-                                            f["native_restore_s"])
+        # (f) the CRC32C helper against its table loop
         data = np.fromfile(prefixes["uint32"] + ".data-00000-of-00001",
                            dtype=np.uint8)
-        f["crc32c_hardware"] = crc32c.hardware()
-        crc32c.value(data[:1 << 20])
-        t0 = time.perf_counter()
-        c = crc32c.value(data)
-        f["crc32c_gb_per_s"] = rate(data.nbytes, time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        check(crc32c.extend_table_loop(0, data) == c,
+        f = {"crc32c_hardware": crc32c.hardware(),
+             "crc32c_bytes": int(data.nbytes)}
+        check(crc32c.extend_table_loop(0, data) == crc32c.value(data),
               "CRC32C: the table loop and the helper differ")
-        f["crc32c_table_loop_gb_per_s"] = rate(data.nbytes,
-                                               time.perf_counter() - t0)
-        f["crc32c_bytes"] = int(data.nbytes)
         del data
-        out["rates"] = f
         print(f"tf bridge (f): {json.dumps(f)}", flush=True)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     out["launches"] = total
     check(total["gather_rows"] > 0 and total["scatter_rows"] > 0,
           f"TF bridge: the row kernels were not launched: {total}")
-    out["seconds"] = time.perf_counter() - t_phase
     del state, source
-    out["peak_gib"] = peak_memory(torch, "TF bridge")
     print(f"tf bridge: {json.dumps(out)}", flush=True)
-    return total, out
+    peak_memory(torch, "TF bridge")
+    return total
 
 
 def kernel_entry(name, src, replaces, launches, errs, cases, main, keys):
-    """A row kernel's entry at the main case, with the earlier kernel on the
-    same inputs as the earlier one, and per case and key (``gather``;
-    ``scatter``, ``scatter_add``) its time, the earlier kernel's, the
-    bound, the library call's and the plan's word bytes, lanes per row,
-    words per lane and rows in flight."""
+    """A row kernel's entry at the main case, and per case and key
+    (``gather``; ``scatter``, ``scatter_add``) its time, the bound, the
+    library call's and the plan's word bytes, lanes per row, words per lane
+    and rows in flight."""
     case = cases[main]
     key = keys[0]
     plan_of = {"gather": "gather", "scatter": "set", "scatter_add": "add"}
@@ -5544,16 +4962,14 @@ def kernel_entry(name, src, replaces, launches, errs, cases, main, keys):
             "ms": case[f"{key}_ms"], "plain_ms": case[f"{key}_plain_ms"],
             "bound_ms": case[f"{key}_bound_ms"], "bound_by": "bytes",
             "library_ms": case[f"{key}_library_ms"],
-            "earlier_source": CSRC + "rowops_earlier.cu",
-            "earlier_ms": case[f"{key}_earlier_ms"],
-            "cases": {n: {k: [c[f"{k}_ms"], c[f"{k}_earlier_ms"],
-                              c[f"{k}_bound_ms"], c[f"{k}_library_ms"],
+            "cases": {n: {k: [c[f"{k}_ms"], c[f"{k}_bound_ms"],
+                              c[f"{k}_library_ms"],
                               [c["plan"][plan_of[k]][p] for p in (
                                   "word_bytes", "lanes_per_row",
                                   "words_per_lane", "rows_in_flight")]]
                           for k in keys}
                       for n, c in cases.items()},
-            "cases_columns": ["ms", "earlier_ms", "bound_ms", "library_ms",
+            "cases_columns": ["ms", "bound_ms", "library_ms",
                               "plan: word_bytes, lanes_per_row, "
                               "words_per_lane, rows_in_flight"]}
 
@@ -5561,24 +4977,20 @@ def kernel_entry(name, src, replaces, launches, errs, cases, main, keys):
 CSRC = "tfplus_tpu_torch/ops/csrc/"
 
 
-def routes_entry(name, launches, main, f32_case, f32_ms):
+def routes_entry(name, launches, f32_case, f32_ms):
     """The keys a routed kernel adds to its entry: the main case is the
     tensor-core route's; the CUDA-core route keeps its source, its launches
-    and its time at an f32 case and, on the main case's bf16 inputs, the
-    earlier route's time."""
+    and its time at an f32 case."""
     return {"launches_by_route": {r: launches[f"{name}.{r}"] for r in ROUTES},
             "cuda_core_source": CSRC + ("flash_fwd.cu" if name == "flash_fwd"
                                         else "flash_bwd.cu"),
-            "cuda_core_case": f32_case, "cuda_core_ms": f32_ms,
-            "cuda_core_ms_on_main_case": main["cuda_core_ms"]}
+            "cuda_core_case": f32_case, "cuda_core_ms": f32_ms}
 
 
 def attention_entry(name, replaces, launches, cases, main_case,
                     f32_case=None):
-    """A forward kernel's entry; the single-pass kernel's adds the earlier
-    single-pass kernel's time on its main case's inputs and, per
-    single-pass case, its time beside the earlier kernel's, the bound and
-    (bf16 at D 64/128) the tensor-core route's."""
+    """A forward kernel's entry; the single-pass kernel's adds, per
+    single-pass case, its time, the bound and the library call's."""
     c = cases[main_case]
     routed = name in ROUTED
     e = {"name": name, "route": "cuda",
@@ -5590,21 +5002,17 @@ def attention_entry(name, replaces, launches, cases, main_case,
          "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
          "library_ms": c["library_ms"]}
     if routed:
-        e.update(routes_entry(name, launches, c, f32_case,
+        e.update(routes_entry(name, launches, f32_case,
                               cases[f32_case]["ms"]))
     else:
-        e["earlier_source"] = CSRC + "flash_fwd.cu"
-        e["earlier_ms"] = c["earlier_ms"]
-        e["cases"] = {n: {k: x.get(k) for k in ("ms", "earlier_ms", "tc_ms",
-                                                  "bound_ms", "library_ms")}
+        e["cases"] = {n: {k: x[k] for k in ("ms", "bound_ms", "library_ms")}
                       for n, x in cases.items() if x["kernel"] == name}
     return e
 
 
 def backward_entry(name, replaces, launches, cases, main_case,
                    f32_case=None):
-    """A backward kernel's entry; the single-pass kernel's adds the
-    CUDA-core dk/dv and dq kernels' time on its main case's inputs."""
+    """A backward kernel's entry."""
     c = cases[main_case][name]
     routed = name in ROUTED
     e = {"name": name, "route": "cuda",
@@ -5616,19 +5024,13 @@ def backward_entry(name, replaces, launches, cases, main_case,
          "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
          "library_ms": cases[main_case]["library_ms"]}
     if routed:
-        e.update(routes_entry(name, launches, c, f32_case,
+        e.update(routes_entry(name, launches, f32_case,
                               cases[f32_case][name]["ms"]))
-    else:
-        e["cuda_core_pair_ms_on_main_case"] = (c["cuda_core_dkv_ms"]
-                                               + c["cuda_core_dq_ms"])
     return e
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--profile", metavar="DIR",
-                    help="write torch.profiler tables of the serving and "
-                    "training paths here")
     # phase 24 starts this script again as its two ranks
     for flag in ("--rank-worker", "--world", "--port"):
         ap.add_argument(flag, type=int, help=argparse.SUPPRESS)
@@ -5685,65 +5087,53 @@ def main() -> int:
     bwd_cases, bench_grads = attention_backward_phase(torch, np, fa, bench)
     head_dim_phase(torch, np, fa)
     peak_memory(torch, "attention kernels")
-    emb_launches, emb_rate = embedding_serving_phase(
-        torch, np, kv, hashing, rowops, args.profile)
+    paths = [embedding_serving_phase(torch, np, kv, hashing)]
     peak_memory(torch, "embedding serving")
-    dcn_launches, dcn_rate, per_request = dcn_serving_phase(
-        torch, np, kv, embedding, models, rowops, args.profile)
+    paths.append(dcn_serving_phase(torch, np, kv, embedding, models, rowops))
     peak_memory(torch, "DCN serving")
-    flash_launches = flash_path_phase(torch, fa, bench)
-    grad_launches, grad_tflops = flash_grad_path_phase(torch, fa, bench,
-                                                       bench_grads)
+    paths.append(flash_path_phase(torch, fa, bench))
+    paths.append(flash_grad_path_phase(torch, fa, bench, bench_grads))
     del bench, bench_grads
     peak_memory(torch, "flash entry points")
-    seq = sequence_serving_phase(torch, np, kv, embedding, models,
-                                 args.profile)
+    paths += sequence_serving_phase(torch, np, kv, embedding, models)
     peak_memory(torch, "BST/DIN serving")
-    checks = training_checks_phase(torch, np, kv, models, train, convert)
-    dcn_train = dcn_training_phase(torch, np, kv, models, train, args.profile)
-    bst_train = bst_training_phase(torch, np, kv, models, train, args.profile)
-    comp_launches, comp_cases, comp_time, comp_peak = compactor_phase(
-        torch, ops, compactor)
-    grow_launches, grow = growth_checkpoint_phase(
-        torch, np, kv, models, train, checkpoint, tbundle, rowops,
-        args.profile)
-    rep_launches, rep = repartition_phase(torch, np, kv, train, checkpoint)
-    ref_launches, ref = reference_growth_phase(torch, np, kv, train, packing,
-                                               rowops)
-    dlrm_launches, dlrm = dlrm_serving_api_phase(
-        torch, np, kv, quant, models, train, serving, checkpoint, tbundle)
-    int8_launches, ops_launches, int8_ops = int8_lookup_and_table_ops_phase(
-        torch, np, kv, quant, embedding, convert)
-    ctr_launches, ctr = ctr_models_phase(torch, np, kv, embedding, models,
-                                         train, convert)
-    crit_launches, crit = criteo_training_phase(torch, np, kv, models, train,
-                                                native, criteo, feed)
-    multi_launches, multi = multi_table_phase(torch, np, kv, models, train,
-                                              convert, args.profile)
-    hyb_launches, hyb = hybrid_tier_phase(torch, np, kv, train, storage)
-    shard_launches, sharded = sharded_dlrm_phase(
-        torch, np, kv, quant, models, train, convert, multi["per_table"],
-        args.profile)
-    rank_launches, ranks = two_rank_phase(torch)
-    remote_launches, remote = remote_storage_phase(
+    training_checks_phase(torch, np, kv, models, train, convert)
+    dcn_train = dcn_training_phase(torch, np, kv, models, train)
+    bst_train = bst_training_phase(torch, np, kv, models, train)
+    comp_launches, comp_cases, comp_time = compactor_phase(torch, ops,
+                                                           compactor)
+    paths += [
+        dcn_train, bst_train, comp_launches,
+        growth_checkpoint_phase(torch, np, kv, models, train, checkpoint,
+                                tbundle, rowops),
+        repartition_phase(torch, np, kv, train, checkpoint),
+        reference_growth_phase(torch, np, kv, train, packing, rowops),
+        dlrm_serving_api_phase(torch, np, kv, quant, models, train, serving,
+                               checkpoint, tbundle),
+        *int8_lookup_and_table_ops_phase(torch, np, kv, quant, embedding,
+                                         convert),
+        ctr_models_phase(torch, np, kv, embedding, models, train, convert),
+        criteo_training_phase(torch, np, kv, models, train, native, criteo,
+                              feed),
+        multi_table_phase(torch, np, kv, models, train, convert),
+        hybrid_tier_phase(torch, np, kv, train, storage)]
+    shard_launches = sharded_dlrm_phase(torch, np, kv, quant, models, train,
+                                        convert)
+    rank_launches = two_rank_phase(torch)
+    remote_launches = remote_storage_phase(
         torch, np, kv, quant, models, train, serving, checkpoint, tbundle,
         rowops)
-    prof_launches, prof = profiling_phase(torch, np, kv, models, train)
-    twin_launches, twins = twins_phase(torch)
-    tf_launches, tf_bridge = tf_bridge_phase(torch, np, kv, models, train,
-                                             serving, checkpoint, packing)
+    prof_launches = profiling_phase(torch, np, kv, models, train)
+    twin_launches = twins_phase(torch)
+    tf_launches = tf_bridge_phase(torch, np, kv, models, train, serving,
+                                  packing)
+    paths += [shard_launches, rank_launches, remote_launches, prof_launches,
+              twin_launches, tf_launches]
 
     errs = {k: [c[f"{k}_err"] for c in cases.values()]
             for k in ("gather", "scatter_set", "scatter_add")}
     check(max(max(v) for v in errs.values()) == 0.0,
           "a kernel differs from its plain version")
-    paths = [emb_launches, dcn_launches, flash_launches,
-             seq["fill_launches"], seq["BST"][0], seq["DIN"][0],
-             grad_launches, dcn_train[0], bst_train[0], comp_launches,
-             grow_launches, rep_launches, ref_launches, dlrm_launches,
-             int8_launches, ops_launches, ctr_launches, crit_launches,
-             multi_launches, hyb_launches, shard_launches, rank_launches,
-             remote_launches, prof_launches, twin_launches, tf_launches]
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
     src = CSRC + "rowops.cu"
     main_case = f"float32_w128_n{N_IDS}"            # the serving-leg shape
@@ -5781,17 +5171,17 @@ def main() -> int:
          "bound_ms": comp_time["bound_ms"], "bound_by": "bytes",
          "library_ms": comp_time["library_ms"]},
     ]
-    check(dcn_train[0]["claim_insert"] > 0
-          and bst_train[0]["claim_insert"] > 0,
+    check(dcn_train["claim_insert"] > 0
+          and bst_train["claim_insert"] > 0,
           f"a training path did not launch the claim kernel: "
-          f"{dcn_train[0]} {bst_train[0]}")
+          f"{dcn_train} {bst_train}")
     kernels.append({
         "name": "claim_insert", "route": "cuda", "source": CSRC + "claim.cu",
         "replaces": "none: the lax.while_loop of tfplus_tpu/kv/table.py "
                     "_claim_insert (XLA code)",
         "launches": launches["claim_insert"],
-        "launches_dcn_training": dcn_train[0]["claim_insert"],
-        "launches_bst_training": bst_train[0]["claim_insert"],
+        "launches_dcn_training": dcn_train["claim_insert"],
+        "launches_bst_training": bst_train["claim_insert"],
         "max_abs_err": 0.0, "ms": claim_cases["dcn_lookup"]["ms"],
         "plain_ms": claim_cases["dcn_lookup"]["plain_ms"],
         "bound_ms": claim_cases["dcn_lookup"]["bound_ms"],
@@ -5799,15 +5189,15 @@ def main() -> int:
         "cases": {n: [c["ms"], c["plain_ms"], c["bound_ms"], c["rounds"],
                       c["listed"]] for n, c in claim_cases.items()},
         "cases_columns": ["ms", "plain_ms", "bound_ms", "rounds", "listed"]})
-    check(dcn_train[0]["probe"] > 0 and bst_train[0]["probe"] > 0,
+    check(dcn_train["probe"] > 0 and bst_train["probe"] > 0,
           f"a training path did not launch the probe kernel: "
-          f"{dcn_train[0]} {bst_train[0]}")
+          f"{dcn_train} {bst_train}")
     kernels.append({
         "name": "probe", "route": "cuda", "source": CSRC + "probe.cu",
         "replaces": "none: find of tfplus_tpu/kv/table.py (XLA code)",
         "launches": launches["probe"],
-        "launches_dcn_training": dcn_train[0]["probe"],
-        "launches_bst_training": bst_train[0]["probe"],
+        "launches_dcn_training": dcn_train["probe"],
+        "launches_bst_training": bst_train["probe"],
         "max_abs_err": 0.0, "ms": probe_cases["dcn_lookup"]["ms"],
         "plain_ms": probe_cases["dcn_lookup"]["plain_ms"],
         "bound_ms": probe_cases["dcn_lookup"]["bound_ms"],
@@ -5842,50 +5232,6 @@ def main() -> int:
           f"phase 28 did not launch the row kernels: {tf_launches}")
     for e in kernels:
         e["launches_phase_28"] = tf_launches[e["name"]]
-    print(json.dumps({"serving": {
-        "embedding_ids_per_s": emb_rate, "embedding_launches": emb_launches,
-        "dcn_examples_per_s": dcn_rate, "dcn_launches": dcn_launches,
-        "dcn_gathers_per_request": per_request,
-        "flash_entry_point_launches": flash_launches,
-        "bst_examples_per_s": seq["BST"][1],
-        "bst_launches_per_request": seq["BST"][2],
-        "din_examples_per_s": seq["DIN"][1],
-        "din_launches_per_request": seq["DIN"][2],
-        "dcn_multi_table": multi["multi"]["serving"],
-        "dcn_per_table_beside_it": multi["per_table"]["serving"]}}))
-    print(json.dumps({"training": {
-        "flash_grad_tflops": grad_tflops,
-        "flash_grad_launches": grad_launches,
-        "dcn_examples_per_s": dcn_train[1],
-        "dcn_launches_per_step": dcn_train[2],
-        "dcn_peak_gib": dcn_train[3],
-        "bst_examples_per_s": bst_train[1],
-        "bst_launches_per_step": bst_train[2],
-        "bst_peak_gib": bst_train[3],
-        "checks": checks,
-        "dcn_from_criteo": crit,
-        "dcn_multi_table": dict(multi["multi"]["training"],
-                                checks=multi["checks"],
-                                fill_s=multi["fill_s"],
-                                payload_gb=multi["payload_gb"],
-                                peak_gib=multi["peak_gib"]),
-        "dcn_per_table_beside_it": multi["per_table"]["training"],
-        "hybrid_tier": hyb}}))
-    print(json.dumps({"growth": {
-        "compactor": dict(comp_time, peak_gib=comp_peak),
-        "growth_checkpoint_resume": grow, "repartition_4_to_6": rep,
-        "reference_size_growth": ref}}))
-    print(json.dumps({"parallel": {
-        "sharded_dlrm_nccl": sharded, "two_ranks_gloo": {
-            k: v for k, v in ranks.items() if k != "ranks"},
-        "two_ranks_legs": [{k: v for k, v in r.items() if k != "launches"}
-                           for r in ranks["ranks"]]}}))
-    print(json.dumps({"serving_api": {
-        "dlrm": dlrm, "int8_leg_and_table_ops": int8_ops,
-        "ctr_models": ctr}}))
-    print(json.dumps({"remote_storage": remote, "profiling": prof,
-                      "twins": twins}))
-    print(json.dumps({"tf_bridge": tf_bridge}))
     print(smi_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -23,9 +23,8 @@ and in f32 (the CUDA-core one); causal f32 B2 H8 S1000 D64 with dropout
 
 ``--sweep`` also times, on the two single-pass cases, the single-pass
 forward kernel of ``csrc/flash_fwd_single.cu`` at each block shape it
-takes (``rows/heads``: query rows and heads per block) and the earlier
-single-pass kernel of ``csrc/flash_fwd.cu`` on the same inputs, and adds
-them to the line under ``"sweep"``.
+takes (``rows/heads``: query rows and heads per block), and adds them to
+the line under ``"sweep"``.
 """
 import argparse
 import json
@@ -59,10 +58,8 @@ def time_ms(torch, fn, reps):
 
 def sweep(torch, fa, q, k, v, qs, ks, sm, reps):
     """ms of the single-pass forward (no residuals) at each block shape
-    ``rows/heads``, and of the earlier single-pass kernel."""
-    times = {"earlier": time_ms(torch, lambda: fa._launch(
-        fa._flash_lib(), "tfp_flash_fwd_single", q, k, v, qs, ks, 0, sm, 0.0,
-        False), reps)}
+    ``rows/heads``."""
+    times = {}
     lib = fa._flash_fwd_single_lib()
     tile = fa.single_fwd_tile(q.shape[3], qs is not None)
     for rows in range(tile, 129, tile):

@@ -15,11 +15,10 @@ turns (``chip_smoke.time_turns``, the method of the kernels line):
   synchronisation), median of 5 runs of 200 calls: the wrappers on 2,048
   rows of that table, and ``index_select`` on the same rows;
 - ``red_add``: f32 scatter-add into a 2^20-row table at the narrow rows and
-  counts the paths give it, four ways on the same inputs: the port's kernel
+  counts the paths give it, three ways on the same inputs: the port's kernel
   (``scatter_rows(add=True)``: it reads the destination, adds and stores),
   ``scripts/rowops_red_add.cu`` (the same lanes, adding with
-  ``red.global.add.f32`` and no read), the earlier kernel and
-  ``index_add_``. The first two are held bit for bit against the plain
+  ``red.global.add.f32`` and no read) and ``index_add_``. The first two are held bit for bit against the plain
   version on random rows first; ``flushes_subnormals`` says whether each
   adds two subnormals (2^-130 + 2^-130) to 0 instead of 2^-129, as the
   plain version on the CPU does.
@@ -149,8 +148,6 @@ def red_phase(torch, chip_smoke, rowops, lib, reps):
             "kernel": lambda: rowops.scatter_rows(target, idx, rows,
                                                   add=True),
             "red": lambda: red_add(torch, lib, target, idx, rows),
-            "earlier": lambda: rowops._scatter_rows_earlier(target, idx,
-                                                            rows, add=True),
             "index_add_": lambda: target.index_add_(0, kept_idx, kept_rows)},
             reps)
         out[f"float32_w{width}_n{n}"] = times

@@ -195,27 +195,6 @@ def test_rowops_plan_pins_the_classes(cuda, dtype):
         rowops.plan(0, 10)
 
 
-@pytest.mark.parametrize("width", [1, 3, 64, 512])
-def test_timed_only_launches_match_plain(cuda, width):
-    """The earlier kernels, which chip_smoke.py times beside the wrappers,
-    compute the same rows and count nothing."""
-    gen = torch.Generator().manual_seed(50 + width)
-    c, n = 5000, 3000
-    values = _values(gen, c, width, torch.float32, cuda)
-    rows = _values(gen, n, width, torch.float32, cuda)
-    gidx = _edge_indices(gen, c, n, unique=False).to(cuda)
-    sidx = _edge_indices(gen, c, n, unique=True).to(cuda)
-    counts = (rowops.gather_rows.launches, rowops.scatter_rows.launches)
-    want = rowops.gather_rows_plain(values, gidx)
-    assert torch.equal(rowops._gather_rows_earlier(values, gidx), want)
-    for add in (False, True):
-        want = rowops.scatter_rows_plain(values.clone(), sidx, rows, add)
-        got = rowops._scatter_rows_earlier(values.clone(), sidx, rows, add)
-        assert torch.equal(got, want)
-    assert (rowops.gather_rows.launches,
-            rowops.scatter_rows.launches) == counts
-
-
 def test_misaligned_rows_take_the_narrow_words(cuda):
     gen = torch.Generator().manual_seed(7)
     c, w = 1000, 8

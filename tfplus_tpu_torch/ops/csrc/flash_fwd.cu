@@ -1,14 +1,12 @@
-// Flash-attention forward kernels for Hopper (sm_90a), with a plain C
-// interface loaded through ctypes by tfplus_tpu_torch/ops/flash_attention.py.
+// Flash-attention tiled forward kernel for Hopper (sm_90a), on the CUDA
+// cores, with a plain C interface loaded through ctypes by
+// tfplus_tpu_torch/ops/flash_attention.py.
 //
-// Replaces the two Pallas forward kernels of tfplus_tpu/ops/flash_attention.py:
-//   * tfp_flash_fwd        <- _fwd (_fwd_kernel), flash_attention.py:103-408:
-//     online softmax over KV tiles, tiles above the diagonal skipped when
-//     causal.
-//   * tfp_flash_fwd_single <- _fwd_single (_fwd_single_kernel), :222-317:
-//     non-causal, the whole KV of one (batch, head) in one block: one qk^T,
-//     one softmax, one pv, no online rescale.
-// Both compute, for q [B,H,Sq,D], k/v [B,H,Skv,D] (f32 or bf16, contiguous):
+// Replaces the Pallas kernel _fwd (_fwd_kernel) of
+// tfplus_tpu/ops/flash_attention.py:103-408: tfp_flash_fwd, online softmax
+// over KV tiles, tiles above the diagonal skipped when causal. (_fwd_single's
+// counterpart is flash_fwd_single.cu.) It computes, for q [B,H,Sq,D], k/v
+// [B,H,Skv,D] (f32 or bf16, contiguous):
 //   s = q k^T * sm_scale + (valid ? 0 : mask_value), valid = same segment,
 //       neither segment < 0, col < Skv, and col <= row when causal;
 //   out = softmax(s) v with inverted dropout on p from the counter hash of
@@ -24,16 +22,10 @@
 //
 // Bound on an H100 SXM. The bench's causal bf16 B4 H8 S2048 D128 does
 // 4*B*H*S^2*D/2 = 34.4 GFLOP on 67 MB of q, k, v and out: 35 us at the bf16
-// tensor-core rate, so operations bound it; these kernels use FMA on the
+// tensor-core rate, so operations bound it; this kernel uses FMA on the
 // CUDA cores (67 TFLOP/s, 513 us at best). bf16 at D 64/128 takes the
-// tensor-core kernel of flash_fwd_tc.cu instead; these serve f32 and the
-// other widths. BST's heads (B2048 H8 S128 D8 f32, about 11 valid tokens of
-// 128) need 0.085 GFLOP of valid work on 87 MB (the valid rows of q, k, v
-// and all of out): bytes bound them (26 us); the single-pass kernel here
-// reads the padded rows too. So flash_fwd_single now launches the kernel of
-// flash_fwd_single.cu, which skips padding; tfp_flash_fwd_single stays as
-// the earlier route, which chip_smoke.py times beside it on the same
-// inputs, and no wrapper launches it.
+// tensor-core kernel of flash_fwd_tc.cu instead; this one serves f32 and
+// the other widths.
 //
 // Design. A block of 128 threads owns 64 query rows of one (b, h): thread
 // (ty = tid / 8, tx = tid % 8) owns rows 4ty..4ty+3 and, within each 64-key
@@ -42,16 +34,14 @@
 // columns tx + 8j (j < D/8) of the same rows, so the rescale by alpha needs
 // no exchange. Q, K and V sit in shared memory in their own type, rows padded
 // by 16 bytes (conflict-free 16-byte reads of four d at a time); p goes
-// through a [64, keys + 4] f32 tile. The tiled kernel loops over 64-key
-// tiles carrying m, l and the accumulator in registers (on the TPU the grid
-// ran in order; here nothing carries between blocks). The single-pass kernel
-// keeps all keys of the row in the score tile, which bounds it to what fits
-// (the wrapper routes larger KV, and D above 128, to the tiled kernel).
-// (flash_fwd_single.cu keeps this kernel's tiles for the listed rows and
-// keys.) Causal blocks are launched heaviest first. The accumulator is sized for
-// the next power of two of D/8, up to 16 (D 128). The tiled kernel takes
-// any D: a block holds at most kDC = 128 columns of a tile at a time, so
-// above that the grid splits the output's D into 128-column chunks; each
+// through a [64, 68] f32 tile. The kernel loops over 64-key tiles carrying
+// m, l and the accumulator in registers (on the TPU the grid ran in order;
+// here nothing carries between blocks). (flash_fwd_single.cu keeps these
+// tiles for the listed rows and keys.) Causal blocks are launched heaviest
+// first. The accumulator is sized for the next power of two of D/8, up to
+// 16 (D 128). The kernel takes any D: a block holds at most kDC = 128
+// columns of a tile at a time, so above that the grid splits the output's D
+// into 128-column chunks; each
 // block forms s over the full D, streaming Q and K through its tiles chunk
 // by chunk in one fixed order (the same s, bit for bit, in every chunk),
 // multiplies p by its own chunk of V, and writes its chunk of out; chunk 0
@@ -292,7 +282,7 @@ __device__ __forceinline__ Block block_coords(const Args& a, int n_qt, int tile)
 
 // Columns [oc0, oc0 + w) of out (and, from chunk 0, l and m when asked) of
 // this thread's rows.
-template <typename T, int DJ, bool kSingle>
+template <typename T, int DJ>
 __device__ __forceinline__ void store_rows(const Args& a, const Block& b,
                                            const float (&acc)[kRows][DJ],
                                            const float (&m)[kRows], const float (&l)[kRows],
@@ -310,10 +300,8 @@ __device__ __forceinline__ void store_rows(const Args& a, const Block& b,
 #pragma unroll
     for (int jd = 0; jd < DJ; ++jd) {
       if (jd < dj) {
-        // as the JAX kernels: the tiled one multiplies by 1/l, the single
-        // one divides by l
-        const float val = kSingle ? acc[i][jd] / l_safe : acc[i][jd] * l_inv;
-        out[o + kTX * jd] = from_f<T>(never_hit ? 0.f : val);
+        // as the JAX kernel: multiplied by 1/l
+        out[o + kTX * jd] = from_f<T>(never_hit ? 0.f : acc[i][jd] * l_inv);
       }
     }
     if (a.l != nullptr && b.tx == 0 && oc0 == 0) {
@@ -407,134 +395,45 @@ flash_fwd_tiled_kernel(Args a, int n_qt, int n_dc) {
     __syncthreads();
     pv_tile<T, DJ>(acc, Ps, L.ldp, Vs, ow, b.ty, b.tx, kBK);
   }
-  store_rows<T, DJ, false>(a, b, acc, m, l, oc0, ow);
-}
-
-template <typename T, int DJ>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_single_kernel(Args a, int n_qt, int n_keys) {
-  // the wrapper sends D > kDC to the tiled kernel: one chunk, out's columns
-  // all this block's
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Smem L = smem_layout(a.d, n_keys, sizeof(T));
-  T* Qs = reinterpret_cast<T*>(smem + L.q);
-  T* Ks = reinterpret_cast<T*>(smem + L.k);
-  T* Vs = reinterpret_cast<T*>(smem + L.v);
-  float* Ps = reinterpret_cast<float*>(smem + L.p);
-  int* qseg = reinterpret_cast<int*>(smem + L.qseg);
-  int* kseg = reinterpret_cast<int*>(smem + L.kseg);
-  const Block b = block_coords(a, n_qt, static_cast<int>(blockIdx.x));
-  const T* q = static_cast<const T*>(a.q) + (static_cast<size_t>(b.bh) * a.sq + b.q0) * a.d;
-  const T* k = static_cast<const T*>(a.k) + static_cast<size_t>(b.bh) * a.skv * a.d;
-  const T* v = static_cast<const T*>(a.v) + static_cast<size_t>(b.bh) * a.skv * a.d;
-
-  load_rows(Qs, L.ld, q, a.d, kBQ, a.sq - b.q0, a.d);
-  load_rows(Ks, L.ld, k, a.d, n_keys, a.skv, a.d);
-  load_rows(Vs, a.d, v, a.d, n_keys, a.skv, a.d);
-  load_seg(qseg, a.q_seg ? a.q_seg + static_cast<size_t>(b.bi) * a.sq : nullptr, b.q0, kBQ,
-           a.sq);
-  load_seg(kseg, a.kv_seg ? a.kv_seg + static_cast<size_t>(b.bi) * a.skv : nullptr, 0, n_keys,
-           a.skv);
-  __syncthreads();
-
-  // one qk^T over all keys: masked scores into the score tile, row max
-  float m[kRows];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) m[i] = -FLT_MAX;
-  for (int c0 = 0; c0 < n_keys; c0 += kBK) {
-    float s[kRows][kCols];
-    zero(s);
-    qk_tile(s, Qs, Ks, L.ld, a.d, b.ty, b.tx, c0);
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int rl = b.ty * kRows + i;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int c = c0 + b.tx + kTX * j;
-        const float x = masked(a, s[i][j], b.q0 + rl, c, qseg[rl], kseg[c]);
-        Ps[rl * L.ldp + c] = x;
-        m[i] = fmaxf(m[i], x);
-      }
-    }
-  }
-  // one softmax: p = exp(s - m) in place (this thread's own entries), l
-  const uint32_t base = drop_base(a, b.bi, b.hi);
-  float l[kRows];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int rl = b.ty * kRows + i;
-    m[i] = group_max(m[i]);
-    float sum = 0.f;
-    for (int c0 = 0; c0 < n_keys; c0 += kBK) {
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int c = c0 + b.tx + kTX * j;
-        float* ps = Ps + rl * L.ldp + c;
-        const float p = expf(*ps - m[i]);
-        sum += p;
-        *ps = round_p<T>(dropout(a, base, b.q0 + rl, c, p));
-      }
-    }
-    l[i] = group_sum(sum);
-  }
-  __syncthreads();
-  // one pv
-  float acc[kRows][DJ];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int jd = 0; jd < DJ; ++jd) acc[i][jd] = 0.f;
-  pv_tile<T, DJ>(acc, Ps, L.ldp, Vs, a.d, b.ty, b.tx, n_keys);
-  store_rows<T, DJ, true>(a, b, acc, m, l, 0, a.d);
+  store_rows<T, DJ>(a, b, acc, m, l, oc0, ow);
 }
 
 template <typename T, int DJ, bool kChunked = false>
-int launch(const Args& a, int batch, bool single, cudaStream_t stream) {
+int launch(const Args& a, int batch, cudaStream_t stream) {
   const int n_qt = (a.sq + kBQ - 1) / kBQ;
-  const int n_dc = (a.d + kDC - 1) / kDC;      // 1 for the single-pass kernel
+  const int n_dc = (a.d + kDC - 1) / kDC;
   const long long blocks = static_cast<long long>(batch) * a.h * n_qt * n_dc;
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  const int n_keys = single ? (a.skv + kBK - 1) / kBK * kBK : kBK;
-  const Smem L = smem_layout(tile_cols(a.d), n_keys, sizeof(T));
+  const Smem L = smem_layout(tile_cols(a.d), kBK, sizeof(T));
   if (L.total > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(blocks));
-  if (single) {
-    auto kern = flash_fwd_single_kernel<T, DJ>;
-    if (L.total > kDefaultSmem) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(L.total));
-      if (e != cudaSuccess) return static_cast<int>(e);
-    }
-    kern<<<grid, kThreads, L.total, stream>>>(a, n_qt, n_keys);
-  } else {
-    auto kern = flash_fwd_tiled_kernel<T, DJ, kChunked>;
-    if (L.total > kDefaultSmem) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(L.total));
-      if (e != cudaSuccess) return static_cast<int>(e);
-    }
-    kern<<<grid, kThreads, L.total, stream>>>(a, n_qt, n_dc);
+  auto kern = flash_fwd_tiled_kernel<T, DJ, kChunked>;
+  if (L.total > kDefaultSmem) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(L.total));
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
+  kern<<<grid, kThreads, L.total, stream>>>(a, n_qt, n_dc);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch(const Args& a, int batch, bool single, cudaStream_t stream) {
+int dispatch(const Args& a, int batch, cudaStream_t stream) {
   const int dj = tile_cols(a.d) / kTX;          // accumulator columns per chunk
-  if (a.d > kDC) return launch<T, 16, true>(a, batch, single, stream);
-  if (dj <= 1) return launch<T, 1>(a, batch, single, stream);
-  if (dj <= 2) return launch<T, 2>(a, batch, single, stream);
-  if (dj <= 4) return launch<T, 4>(a, batch, single, stream);
-  if (dj <= 8) return launch<T, 8>(a, batch, single, stream);
-  return launch<T, 16>(a, batch, single, stream);
+  if (a.d > kDC) return launch<T, 16, true>(a, batch, stream);
+  if (dj <= 1) return launch<T, 1>(a, batch, stream);
+  if (dj <= 2) return launch<T, 2>(a, batch, stream);
+  if (dj <= 4) return launch<T, 4>(a, batch, stream);
+  if (dj <= 8) return launch<T, 8>(a, batch, stream);
+  return launch<T, 16>(a, batch, stream);
 }
 
 int run(const void* q, const void* k, const void* v, const void* q_seg, const void* kv_seg,
         void* out, void* l, void* m, int b, int h, int sq, int skv, int d, int dtype,
         int causal, float sm_scale, float mask_value, unsigned seed, unsigned drop_thresh,
-        float drop_scale, void* stream, bool single) {
+        float drop_scale, void* stream) {
   if (b <= 0 || h <= 0 || sq <= 0 || skv <= 0 || d < 8 || d % 8 != 0 ||
-      (single && d > kDC) || (l == nullptr) != (m == nullptr) ||
+      (l == nullptr) != (m == nullptr) ||
       (q_seg == nullptr) != (kv_seg == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -558,8 +457,8 @@ int run(const void* q, const void* k, const void* v, const void* q_seg, const vo
   a.seed = seed;
   a.drop_thresh = drop_thresh;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(a, b, single, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(a, b, single, s);
+  if (dtype == 0) return dispatch<float>(a, b, s);
+  if (dtype == 1) return dispatch<__nv_bfloat16>(a, b, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -577,18 +476,7 @@ int tfp_flash_fwd(const void* q, const void* k, const void* v, const void* q_seg
                   int skv, int d, int dtype, int causal, float sm_scale, float mask_value,
                   unsigned seed, unsigned drop_thresh, float drop_scale, void* stream) {
   return run(q, k, v, q_seg, kv_seg, out, l, m, b, h, sq, skv, d, dtype, causal != 0,
-             sm_scale, mask_value, seed, drop_thresh, drop_scale, stream, false);
-}
-
-// The same without causal masking; the whole KV must fit one block, and d
-// is at most 128.
-int tfp_flash_fwd_single(const void* q, const void* k, const void* v, const void* q_seg,
-                         const void* kv_seg, void* out, void* l, void* m, int b, int h,
-                         int sq, int skv, int d, int dtype, float sm_scale,
-                         float mask_value, unsigned seed, unsigned drop_thresh,
-                         float drop_scale, void* stream) {
-  return run(q, k, v, q_seg, kv_seg, out, l, m, b, h, sq, skv, d, dtype, 0, sm_scale,
-             mask_value, seed, drop_thresh, drop_scale, stream, true);
+             sm_scale, mask_value, seed, drop_thresh, drop_scale, stream);
 }
 
 }  // extern "C"

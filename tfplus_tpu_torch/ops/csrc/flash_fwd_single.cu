@@ -23,9 +23,7 @@
 // 128 tokens valid) the valid pairs need 0.085 GFLOP (1.3 us at 67 TFLOP/s
 // f32) on about 87 MB: the valid rows of q, k and v and the segment ids
 // read once, and all of out written once (67 MB, nearly all of it the zeros
-// of padding). Bytes bound it: 26 us at 3.35 TB/s. The earlier single-pass
-// kernel (flash_fwd.cu flash_fwd_single_kernel) reads every padded row and
-// key and forms all 64 x 128 scores of each of its two blocks per (b, h).
+// of padding). Bytes bound it: 26 us at 3.35 TB/s.
 //
 // Design. Padding is skipped exactly. A key whose segment id is < 0 scores
 // s + mask_value, within an ulp of mask_value, so exp(s - m) is exactly 0 in
@@ -53,7 +51,7 @@
 //     p, l and the pv. The work follows the listed pairs, and no thread
 //     waits on another (at BST's heads the tiles below spend about 17
 //     pairs for each listed one);
-//   * otherwise the earlier kernel's register tiles over the listed rows and
+//   * otherwise flash_fwd.cu's register tiles over the listed rows and
 //     keys: a thread owns 4 rows and, within each 64-key chunk, 64 / kTX
 //     keys of them, so the kTX lanes that share rows reduce a row's max and
 //     sum by xor shuffles; one masked q k^T into an f32 score tile of all
@@ -61,9 +59,9 @@
 //     segment), one softmax in place, one pv in which the thread owns
 //     columns tx + kTX j of its rows. kTX is 16 (32-row tiles, a score
 //     tile half as large) with segments up to D 32, else 8 (64-row tiles,
-//     the earlier kernel's shape). Without segments every row and key is
-//     listed in order with no ballot, the work is the earlier kernel's, and
-//     the kernel is built without the path above.
+//     flash_fwd.cu's shape). Without segments every row and key is listed
+//     in order with no ballot, every row meets every key, and the kernel is
+//     built without the path above.
 // Every output element is computed by one thread in one fixed order, with
 // no atomics, and which path a row takes depends only on its batch row's
 // keys, so reruns, and other splits of rows and heads across blocks, are

@@ -52,8 +52,7 @@
 //   * Cache hints. Indices and source rows are read through the
 //     non-coherent path (ld.global.nc) and the gather's output is written
 //     with streaming stores (st.global.cs), since the caller reads it once.
-// tfp_rowops_plan returns the plan a call takes. The earlier
-// one-warp-per-row kernels are kept, for timing only, in rowops_earlier.cu.
+// tfp_rowops_plan returns the plan a call takes.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>

@@ -17,9 +17,7 @@ Hand-written Hopper kernels replace the four Pallas kernels:
   qkᵀ, one softmax and one pv, no online rescale, and padding skipped:
   a block lists the rows and keys whose segment id is not negative, loads
   only those, and writes the outputs of the other rows (out 0, l 0, m =
-  mask_value) without reading them (``csrc/flash_fwd_single.cu``; the
-  earlier single-pass kernel, ``flash_fwd_single_kernel`` in
-  ``csrc/flash_fwd.cu``, is timed beside it and no wrapper launches it);
+  mask_value) without reading them (``csrc/flash_fwd_single.cu``);
 * :func:`flash_bwd_dkv` replaces ``_bwd_pallas``'s ``_bwd_dkv_kernel``: dk
   and dv of a 64-key tile, looping over the 64-row q tiles
   (``csrc/flash_bwd.cu``);
@@ -72,10 +70,10 @@ dim keep the CUDA cores (:func:`flash_route` ``"cuda_core"``), since bf16
 at D 64/128 runs faster on the tiled kernel's tensor-core route. On the TPU
 a block lives in VMEM (megabytes), so JAX takes the single-step kernel up
 to Skv = 4096. An H100 block has at most 227 KB of shared memory, so here
-"fits" means that the earlier single-pass kernel's block (64 query rows,
-the whole K and V, and the 64 × Skv score tile; :func:`single_smem_bytes`)
-takes at most half of that. The rule stays that of the earlier kernel:
-the single-pass kernels' own layouts (:func:`single_fwd_smem_bytes`,
+"fits" means that a block of ``csrc/flash_fwd.cu``'s layout holding 64
+query rows, the whole K and V, and the 64 × Skv score tile
+(:func:`single_smem_bytes`) takes at most half of that. The single-pass
+kernels' own layouts (:func:`single_fwd_smem_bytes`,
 :func:`single_bwd_smem_bytes`) fit a block wherever it holds. Anything
 larger goes to the tiled kernel. Both routes compute the same function.
 
@@ -476,7 +474,7 @@ def single_fwd_tile(d: int, segments: bool) -> int:
     """Rows of :func:`flash_fwd_single`'s score tile at the padded D of
     ``d``, with segment ids or without (``tile_rows`` in
     flash_fwd_single.cu): 32 with segments up to D 32, where a small tile
-    lets more blocks share an SM, else 64, the earlier kernel's tile."""
+    lets more blocks share an SM, else 64, ``csrc/flash_fwd.cu``'s tile."""
     return 32 if segments and padded_head_dim(d) <= 32 else BLOCK_Q
 
 
@@ -485,7 +483,7 @@ def single_fwd_config(b: int, h: int, sq: int) -> tuple:
     shapes alone: it takes ``rows`` positional query rows of ``heads``
     heads of one batch row. Sq of 65-128 is one 128-row chunk per problem;
     other queries are split into 64-row chunks across blocks (a block's Q
-    space follows ``rows``, so short queries keep the earlier kernel's
+    space follows ``rows``, so short queries keep a 64-row block's
     shared memory). A block takes as many heads (up to 8) as keep the grid
     at least
     ``_SINGLE_FWD_MIN_BLOCKS`` blocks: the heads of one batch row share
@@ -596,11 +594,8 @@ def _count(fn, route: str) -> None:
 def _flash_lib() -> ctypes.CDLL:
     lib = _build.library("flash_fwd")
     if not getattr(lib, "_tfp_typed", False):
-        common = [_ptr] * 8 + [_int] * 6
-        lib.tfp_flash_fwd.argtypes = common + [_int] + _TAIL
+        lib.tfp_flash_fwd.argtypes = [_ptr] * 8 + [_int] * 7 + _TAIL
         lib.tfp_flash_fwd.restype = _int
-        lib.tfp_flash_fwd_single.argtypes = common + _TAIL
-        lib.tfp_flash_fwd_single.restype = _int
         lib._tfp_typed = True
     return lib
 

@@ -20,10 +20,7 @@ lane; one row in flight per lane (two where a lane holds one word of a
 row and the rows outnumber twice what one wave of the card holds); a warp
 for every tile of rows. The plan is a fixed rule of the shapes, not a
 choice made at run time: a CUDA tensor goes through these kernels or
-raises. ``_gather_rows_earlier`` / ``_scatter_rows_earlier`` launch the
-earlier kernels (``csrc/rowops_earlier.cu``, one warp per row); they count
-nothing and no wrapper calls them: they are there to be timed beside the
-wrappers.
+raises.
 """
 from __future__ import annotations
 
@@ -44,33 +41,20 @@ _Plan = ctypes.c_int * len(PLAN_KEYS)
 _GATHER_ARGS = [_ptr, _ptr, _ptr, _c_int64, _c_int64, _c_int64]
 _SCATTER_ARGS = _GATHER_ARGS + [_c_int, _c_int]
 _SIGNATURES = {
-    "rowops": {
-        "tfp_gather_rows": _GATHER_ARGS + [_ptr],
-        "tfp_scatter_rows": _SCATTER_ARGS + [_ptr],
-        "tfp_rowops_plan": [_c_int64, _c_int64, _c_int64, _c_int, _c_int,
-                            _ptr]},
-    "rowops_earlier": {
-        "tfp_gather_rows_earlier": _GATHER_ARGS + [_ptr],
-        "tfp_scatter_rows_earlier": _SCATTER_ARGS + [_ptr]}}
+    "tfp_gather_rows": _GATHER_ARGS + [_ptr],
+    "tfp_scatter_rows": _SCATTER_ARGS + [_ptr],
+    "tfp_rowops_plan": [_c_int64, _c_int64, _c_int64, _c_int, _c_int, _ptr]}
 
 
-def _typed(name: str) -> ctypes.CDLL:
-    """The library built from ``csrc/<name>.cu``, its functions typed."""
-    lib = _build.library(name)
+def _rowops_lib() -> ctypes.CDLL:
+    """The library built from ``csrc/rowops.cu``, its functions typed."""
+    lib = _build.library("rowops")
     if not getattr(lib, "_tfp_typed", False):
-        for fn, args in _SIGNATURES[name].items():
+        for fn, args in _SIGNATURES.items():
             getattr(lib, fn).argtypes = args
             getattr(lib, fn).restype = _c_int
         lib._tfp_typed = True
     return lib
-
-
-def _rowops_lib() -> ctypes.CDLL:
-    return _typed("rowops")
-
-
-def _earlier_lib() -> ctypes.CDLL:
-    return _typed("rowops_earlier")
 
 
 def _check(values: torch.Tensor, idx: torch.Tensor, rows=None) -> None:
@@ -162,24 +146,6 @@ def _gather_args(values, idx, out):
             values.shape[0], values.shape[1] * values.element_size())
 
 
-def _timed_only_check(values, idx, rows=None):
-    _check(values, idx, rows)
-    if not values.is_cuda:
-        raise ValueError("the timed-only launches take CUDA tensors")
-
-
-def _gather_rows_earlier(values, idx) -> torch.Tensor:
-    """``gather_rows`` on the card through the earlier kernel. Counts nothing:
-    for timing only."""
-    _timed_only_check(values, idx)
-    out = torch.empty((idx.shape[0], values.shape[1]), dtype=values.dtype,
-                      device=values.device)
-    _raise_on(_earlier_lib().tfp_gather_rows_earlier(
-        *_gather_args(values, idx, out), _stream(values)),
-        "tfp_gather_rows_earlier")
-    return out
-
-
 # ---------------------------------------------------------------------------
 # scatter (set / accumulate)
 # ---------------------------------------------------------------------------
@@ -223,12 +189,3 @@ def _scatter_args(values, idx, rows, add):
             values.shape[0], values.shape[1] * values.element_size(),
             _DTYPES[values.dtype], int(add))
 
-
-def _scatter_rows_earlier(values, idx, rows, add: bool = False):
-    """``scatter_rows`` on the card through the earlier kernel. Counts nothing:
-    for timing only."""
-    _timed_only_check(values, idx, rows)
-    _raise_on(_earlier_lib().tfp_scatter_rows_earlier(
-        *_scatter_args(values, idx, rows, add), _stream(values)),
-        "tfp_scatter_rows_earlier")
-    return values
